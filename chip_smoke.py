@@ -20,6 +20,17 @@ then:
 - phase C: one ``TransformerLayer`` at L 384 (outside the fused layer's
   gate, so its attention goes to the attention kernel) held against the
   plain layer;
+- phase D: SASRec training at L 200, d 128, F 128, 2 heads, 2 layers,
+  dropout 0.5, batch 1024 on the synthetic ml-1m shape: 20 timed
+  optimizer steps on device-resident batches (each layer through K1 in
+  training mode and K2), then one step's loss and gradients on the kernel
+  path held against the plain path with the same seeds and batch;
+- phase E: ``fit`` SASRec on ml-100k at the repo's config for the epochs
+  of the JAX training reference, ``evaluate(test)``, test NDCG@10 held to
+  the JAX seeds' band (``recstudio_torch/assets/
+  sasrec_ml100k_train_reference.json``), then 8 requests served through
+  ``Predictor`` from the trained model, whose lists must give the same
+  NDCG@10 as ``evaluate``;
 - each kernel against its plain PyTorch version on the phases' shapes,
   with its time, the plain version's, PyTorch's own call where one exists,
   and the card's bound for the same work.
@@ -39,6 +50,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 REFERENCE = os.path.join(REPO, "recstudio_torch", "assets", "sasrec_ml100k_reference.json")
+TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
+                               "sasrec_ml100k_train_reference.json")
+SAVE_DIR = os.path.join(REPO, "build", "recstudio_torch", "saved")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor
 # cores, and HBM3 bandwidth. Both kernels compute in float32 on the SIMT cores.
@@ -48,6 +62,11 @@ PEAK_BYTES = 3.35e12
 TOL_K1 = (1e-4, 1e-4)      # (atol, rtol): float32 sums of <= 1024 terms, then LayerNorm
 TOL_K3 = (2e-5, 1e-4)      # float32 sums of <= 512 terms; outputs are averages of v
 TOL_SCORES = 1e-4          # served scores: dot products of O(1) vectors, d <= 128
+# gradients (K2, phase D): float32 sums of up to B L = 204,800 terms in
+# another order than cuBLAS's; per tensor, relative to its largest value
+TOL_GRAD = (1e-4, 1e-3)    # (atol as a share of max |g|, rtol)
+TOL_LOSS = 1e-5            # phase D loss, relative
+TOL_METRIC = 1e-6          # phase E: served NDCG@10 against evaluate()'s
 
 
 class SmokeFailure(Exception):
@@ -307,6 +326,159 @@ def phase_c(device):
     return out
 
 
+def grad_errors(got, want):
+    """(max abs error, ok) of gradient tensors by name, each held to
+    TOL_GRAD relative to its own largest magnitude."""
+    max_abs, ok = 0.0, True
+    for name, w in want.items():
+        diff = (got[name] - w).abs()
+        max_abs = max(max_abs, float(diff.max()))
+        ok &= bool((diff <= TOL_GRAD[0] * float(w.abs().max()) + TOL_GRAD[1] * w.abs()).all())
+    return max_abs, ok
+
+
+def phase_d(device):
+    """SASRec training at full width: timed steps, and one step held to the
+    plain path."""
+    import numpy as np
+    import torch
+    from recstudio_torch.data.synthetic import SHAPES, generate
+    from recstudio_torch.utils import get_model
+    t0 = time.perf_counter()
+    name, config = generate("ml-1m-shape", *SHAPES["ml-1m-shape"], seed=7)
+    config["max_seq_len"] = 200
+    cls, conf = get_model("SASRec")
+    conf["model"]["embed_dim"] = 128
+    conf["train"].update(batch_size=1024, seed=7)
+    ds = cls._get_dataset_class()(name, config=config)
+    trn, _, _ = ds.build(**conf["data"])
+    model = cls(conf, device=device)
+    model._init_model(trn)
+    model._init_parameter(trn)
+    model.optimizer = model._get_optimizer()
+    model._setup_scan_epoch(trn)
+    etl_s = time.perf_counter() - t0
+    mc = conf["model"]
+    shape = dict(B=conf["train"]["batch_size"], L=ds.max_seq_len, D=model.embed_dim,
+                 F=mc["hidden_size"],
+                 H=mc["head_num"], layers=mc["layer_num"], dropout=mc["dropout_rate"])
+    check(shape == dict(B=1024, L=200, D=128, F=128, H=2, layers=2, dropout=0.5),
+          f"phase D config {shape}")
+    batches = model._epoch_batches()
+    model.net.train()
+    for _ in range(3):                                  # warm-up (allocator, first launches)
+        model._grad_step(next(batches))
+    torch.cuda.synchronize()
+    steps = [next(batches) for _ in range(20)]
+
+    def run():
+        times, losses = [], []
+        for batch in steps:
+            t = time.perf_counter()
+            losses.append(model._grad_step(batch))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return times, torch.stack(losses)
+
+    (times, losses), counts = counted(run)
+    times = sorted(times)
+
+    # one step's loss and gradients, kernel path against plain path
+    batch = next(batches)
+    layers = model.query_encoder.transformer.layers
+    states = (model.generator.get_state(), model.device_generator.get_state())
+
+    def loss_and_grads(plain):
+        model.generator.set_state(states[0])
+        model.device_generator.set_state(states[1])
+        for layer in layers:
+            layer.plain = plain
+        model.net.zero_grad(set_to_none=True)
+        loss = model.training_step(batch)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().clone()
+                                      for n, p in model.net.named_parameters()}
+
+    loss_k, grads_k = loss_and_grads(False)
+    loss_p, grads_p = loss_and_grads(True)
+    for layer in layers:
+        layer.plain = False
+    model.net.eval()
+    max_abs, ok = grad_errors(grads_k, grads_p)
+    p50 = times[len(times) // 2]
+    # the step's one plain-PyTorch mask at this shape: the embedded sequence's dropout
+    from recstudio_torch.ops.dropout import SITE_INPUT, keep_scale
+    input_mask_ms = time_ms(lambda: keep_scale((1024, shape["L"], shape["D"]), 0.5, 1,
+                                               SITE_INPUT, device), iters=5)
+    out = {"phase": "D", "dataset": name, "shape": shape, "etl_s": etl_s, "steps": len(times),
+           "launches": counts, "step_ms_p50": p50, "step_ms_max": times[-1],
+           "examples_per_s": 1024 / (p50 / 1e3), "input_dropout_mask_ms": input_mask_ms,
+           "loss_first": float(losses[0]),
+           "loss_last": float(losses[-1]), "plain_loss": loss_p, "kernel_loss": loss_k,
+           "grad_max_abs_err": max_abs, "grad_tol": TOL_GRAD, "loss_tol": TOL_LOSS,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit("PHASE", out)
+    check(counts["fused_transformer_layer"] > 0, "phase D launched no fused layer")
+    check(counts["fused_transformer_layer_bwd"] > 0, "phase D launched no fused backward")
+    check(bool(torch.isfinite(losses).all()), "phase D loss not finite")
+    check(abs(loss_k - loss_p) <= TOL_LOSS * abs(loss_p), f"phase D loss {loss_k} vs {loss_p}")
+    check(ok, f"phase D gradients disagree with the plain path: {max_abs}")
+    return out
+
+
+def phase_e(device):
+    """fit + evaluate on ml-100k at the repo's config, then serve."""
+    import numpy as np
+    import torch
+    from recstudio_torch.serving import Predictor
+    from recstudio_torch.utils import get_model
+    with open(TRAIN_REFERENCE) as f:
+        ref = json.load(f)
+    cls, conf = get_model("SASRec")
+    conf["train"]["epochs"] = ref["epochs"]
+    conf["eval"]["save_path"] = SAVE_DIR
+    ds = cls._get_dataset_class()("ml-100k")
+    trn, val, tst = ds.build(**conf["data"])
+    model = cls(conf, device=device)
+    mc = conf["model"]
+    shape = dict(embed_dim=model.embed_dim, hidden=mc["hidden_size"], heads=mc["head_num"],
+                 layers=mc["layer_num"], dropout=mc["dropout_rate"], L=ds.max_seq_len,
+                 batch=conf["train"]["batch_size"], epochs=conf["train"]["epochs"])
+    check(shape == dict(embed_dim=64, hidden=128, heads=2, layers=2, dropout=0.5, L=20,
+                        batch=512, epochs=ref["epochs"]), f"phase E config {shape}")
+
+    def drive():
+        t0 = time.perf_counter()
+        model.fit(trn, val)
+        fit_s = time.perf_counter() - t0
+        result = model.evaluate(tst, verbose=False)
+        pred = Predictor(model, max_batch=128, k=20, train_data=tst).warm()
+        served = serve_split(pred, model, tst, 128)
+        return fit_s, result, pred, served
+
+    (fit_s, result, pred, (scores, ids, targets)), counts = counted(drive)
+    served = rank_metrics(ids, targets)
+    lo, hi = ref["ndcg@10_band"]
+    out = {"phase": "E", "dataset": "ml-100k", "config": shape, "launches": counts,
+           "fit_s": fit_s, "epochs": [{k: (round(v, 6) if isinstance(v, float) else v)
+                                       for k, v in e.items()} for e in model.epoch_log],
+           "test_ndcg@10": result["ndcg@10"], "test_recall@10": result["recall@10"],
+           "jax_band_ndcg@10": [lo, hi], "jax_runs": ref["runs"],
+           "requests": pred.stats()["requests"], "served_ndcg@10": served["ndcg@10"],
+           "served_recall@10": served["recall@10"], **{"serve_" + k: v for k, v in
+                                                       pred.stats().items()}}
+    emit("PHASE", out)
+    check(counts["fused_transformer_layer_bwd"] > 0, "phase E launched no fused backward")
+    check(all(np.isfinite(e["train_loss"]) for e in model.epoch_log), "phase E loss")
+    check(lo <= result["ndcg@10"] <= hi,
+          f"phase E test NDCG@10 {result['ndcg@10']} outside the JAX band [{lo}, {hi}]")
+    check(pred.stats()["requests"] == 8, "phase E served other than 8 requests")
+    check(abs(served["ndcg@10"] - result["ndcg@10"]) <= TOL_METRIC and
+          abs(served["recall@10"] - result["recall@10"]) <= TOL_METRIC,
+          "phase E: served lists do not come from the evaluated (trained) weights")
+    return out
+
+
 # ---------------------------------------------------------------------------
 def k1_versus_plain(device, B, L, D, F, H):
     import numpy as np
@@ -368,6 +540,84 @@ def k3_versus_plain(device, B, H, L, Dh):
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
 
 
+def layer_inputs(device, B, L, D, F, seed):
+    import numpy as np
+    import torch
+    from recstudio_torch.utils.convert import random_sasrec_params
+    rng = np.random.default_rng(seed)
+    tree = random_sasrec_params(seed, 2, D, 1, F, 1)
+    params = layer_params(tree["query_encoder"]["transformer"]["layer_0"], device)
+    x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(device)
+    pad = torch.from_numpy(right_padding(rng, B, L)).to(device)
+    causal = torch.triu(torch.ones((L, L), dtype=torch.bool, device=device), 1)
+    return params, x, g, pad, causal
+
+
+def k1_train_versus_plain(device, B, L, D, F, H, p=0.5, seed=2026):
+    """K1 in training mode (dropout on) against the plain forward with the
+    same masks."""
+    import torch
+    from recstudio_torch.ops.transformer_layer import (training_residuals,
+                                                       transformer_layer_plain)
+    params, x, _, pad, causal = layer_inputs(device, B, L, D, F, B + L + 2)
+    kern = lambda: training_residuals(x, params, pad, causal, H, p, "gelu", 1e-12, seed)[0]
+    plain = lambda: transformer_layer_plain(x, params, pad, causal, H, "gelu", 1e-12, p, seed,
+                                            True)
+    with torch.no_grad():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        max_abs, max_rel, ok = errors(got, want, TOL_K1)
+        ms, plain_ms = time_ms(kern), time_ms(plain, iters=5)
+    M = B * L
+    flops = 2 * M * D * (3 * D + D + 2 * F) + 4 * attended_pairs(pad, causal) * D
+    weights = 4 * D * D + 2 * D * F + 9 * D + F
+    # x, weights, masks in; out and the residuals of K2 out
+    nbytes = 4 * (M * D + weights + B * L + L * L + M * D
+                  + M * (3 * D + 4 * D + 2 * F + 2) + B * H * L * 2)
+    b_ms, by = bound(flops, nbytes)
+    return {"shape": dict(B=B, L=L, D=D, F=F, H=H, dropout=p), "max_abs_err": max_abs,
+            "max_rel_err": max_rel, "tol": TOL_K1, "ok": ok, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
+
+
+def k2_versus_plain(device, B, L, D, F, H, p=0.5, seed=2027):
+    """K2 (dropout on) against autograd through the plain forward with the
+    same masks; the plain time is the autograd backward alone."""
+    import torch
+    from recstudio_torch.ops.transformer_layer import (PARAM_NAMES, fused_transformer_layer_bwd,
+                                                       training_residuals,
+                                                       transformer_layer_plain)
+    params, x, g, pad, causal = layer_inputs(device, B, L, D, F, B + L + 3)
+    _, res = training_residuals(x, params, pad, causal, H, p, "gelu", 1e-12, seed)
+    kern = lambda: fused_transformer_layer_bwd(g, x, params, pad, causal, H, p, "gelu", 1e-12,
+                                               seed, res)
+    dx, grads = kern()
+    dx2, grads2 = kern()
+    torch.cuda.synchronize()
+    bitwise = torch.equal(dx, dx2) and all(torch.equal(grads[n], grads2[n]) for n in PARAM_NAMES)
+    xs = x.detach().requires_grad_()
+    ps = {n: params[n].detach().requires_grad_() for n in PARAM_NAMES}
+    out = transformer_layer_plain(xs, ps, pad, causal, H, "gelu", 1e-12, p, seed, True)
+    inputs = [xs, *(ps[n] for n in PARAM_NAMES)]
+    plain = lambda: torch.autograd.grad(out, inputs, g, retain_graph=True)
+    want = plain()
+    max_abs, ok = grad_errors({"x": dx, **grads}, {"x": want[0], **dict(zip(PARAM_NAMES,
+                                                                            want[1:]))})
+    ms, plain_ms = time_ms(kern), time_ms(plain, iters=5)
+    M = B * L
+    flops = 2 * 2 * M * D * (3 * D + D + 2 * F) + 8 * attended_pairs(pad, causal) * D
+    weights = 4 * D * D + 2 * D * F + 9 * D + F
+    # x, masks, weights, the residuals and g in; dx and the twelve gradients out
+    nbytes = 4 * (M * D + B * L + L * L + weights + M * (3 * D + 4 * D + 2 * F + 2)
+                  + B * H * L * 2 + M * D + M * D + weights)
+    b_ms, by = bound(flops, nbytes)
+    return {"shape": dict(B=B, L=L, D=D, F=F, H=H, dropout=p), "max_abs_err": max_abs,
+            "tol": TOL_GRAD, "ok": ok and bitwise, "bitwise_repeatable": bitwise, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": by,
+            "gflop": flops / 1e9}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -390,13 +640,17 @@ def main() -> int:
     for ln in ptxas:
         print(f"PTXAS {ln}", flush=True)
 
-    phases = [phase_a(device), phase_b(device), phase_c(device)]
+    phases = [phase_a(device), phase_b(device), phase_c(device), phase_d(device),
+              phase_e(device)]
 
     k1_a = k1_versus_plain(device, 128, 20, 64, 128, 2)
     k1_b = k1_versus_plain(device, 256, 200, 128, 128, 2)
     k3_b = k3_versus_plain(device, 256, 2, 200, 64)
     k3_c = k3_versus_plain(device, 64, 2, 384, 64)
-    for name, res in (("K1@A", k1_a), ("K1@B", k1_b), ("K3@B", k3_b), ("K3@C", k3_c)):
+    k1_d = k1_train_versus_plain(device, 1024, 200, 128, 128, 2)
+    k2_d = k2_versus_plain(device, 1024, 200, 128, 128, 2)
+    for name, res in (("K1@A", k1_a), ("K1@B", k1_b), ("K3@B", k3_b), ("K3@C", k3_c),
+                      ("K1train@D", k1_d), ("K2@D", k2_d)):
         emit("KERNEL_VS_PLAIN", {"kernel": name, "gpu": gpu, **res})
         check(res["ok"], f"{name} disagrees with its plain version: {res['max_abs_err']}")
 
@@ -413,6 +667,10 @@ def main() -> int:
         {"name": "fused_mha", "route": "cuda", "source": "recstudio_torch/csrc/attention.cu",
          "replaces": "recstudio_tpu/ops/attention.py:71",
          "launches": launches("fused_mha"), **row(k3_c)},
+        {"name": "fused_transformer_layer_bwd", "route": "cuda",
+         "source": "recstudio_torch/csrc/transformer_layer_bwd.cu",
+         "replaces": "recstudio_tpu/ops/transformer_layer.py:292",
+         "launches": launches("fused_transformer_layer_bwd"), **row(k2_d)},
     ]
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was never launched")

@@ -22,6 +22,15 @@
 // and Dh to 128 lanes is layout, not semantics, and is dropped; masks are
 // added in the kernel and clamped at finfo.min, so a row whose keys are all
 // masked comes out as the uniform average of its Lk values.
+//
+// Training mode (TRAIN, rs_launch_mha_train), the forward of SASRec
+// training: the probabilities are dropped (site kSiteAttn of dropout.cuh)
+// where they weigh V, while the running sum l keeps every term, so
+// out = (P o keep) V with P = softmax(s), as the Pallas kernel's P * keep.
+// Each row's (max, sum) is stored for the backward, which recomputes P
+// tile by tile instead of reading it (P would be B H Lq Lk floats: 328 MB
+// a layer at B 1024, L 200). Eval mode compiles to the same code as
+// before training mode existed.
 #include "common.cuh"
 
 #include <cmath>
@@ -45,7 +54,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // DPL: accumulator values per lane (Dh <= 32 * DPL).
-template <int DPL>
+template <int DPL, bool TRAIN>
 __global__ void __launch_bounds__(kWarps * 32)
 mha_fwd_kernel(const MhaParams p) {
   extern __shared__ float smem[];
@@ -106,10 +115,15 @@ mha_fwd_kernel(const MhaParams p) {
       const float corr = expf(m[rr] - m_new);
       const float pj = kvalid ? expf(s - m_new) : 0.f;
       l[rr] = l[rr] * corr + warp_sum(pj);
+      float pw = pj;
+      if (TRAIN && kvalid && qi < p.Lq)
+        pw = pj * rs_keep(p.drop, kSiteAttn,
+                          (((unsigned long long)b * p.H + h) * p.Lq + qi) *
+                                  (unsigned long long)p.Lk + kj);
 #pragma unroll
       for (int t = 0; t < DPL; ++t) acc[rr][t] *= corr;
       for (int j = 0; j < kTK; ++j) {
-        const float w = __shfl_sync(kFull, pj, j);
+        const float w = __shfl_sync(kFull, pw, j);
         const float* vrow = Vs + j * Dh;
 #pragma unroll
         for (int t = 0; t < DPL; ++t) {
@@ -125,6 +139,11 @@ mha_fwd_kernel(const MhaParams p) {
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int qi = q0 + warp * kRowsPerWarp + rr;
     if (qi >= p.Lq) continue;
+    if (TRAIN && lane == 0) {
+      float* st = p.stats + (((long long)b * p.H + h) * p.Lq + qi) * 2;
+      st[0] = m[rr];
+      st[1] = l[rr];
+    }
     const float inv = 1.f / l[rr];
 #pragma unroll
     for (int t = 0; t < DPL; ++t) {
@@ -134,28 +153,37 @@ mha_fwd_kernel(const MhaParams p) {
   }
 }
 
-template <int DPL>
+template <int DPL, bool TRAIN>
 cudaError_t launch(const MhaParams& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (kTK * (p.Dh + 1) + kTK * p.Dh + kTQ * p.Dh);
   cudaError_t err = cudaFuncSetAttribute(
-      mha_fwd_kernel<DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mha_fwd_kernel<DPL, TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Lq + kTQ - 1) / kTQ, p.H, p.B);
-  mha_fwd_kernel<DPL><<<grid, kWarps * 32, smem, stream>>>(p);
+  mha_fwd_kernel<DPL, TRAIN><<<grid, kWarps * 32, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool TRAIN>
+cudaError_t dispatch(const MhaParams& p, cudaStream_t stream) {
+  if (p.B <= 0 || p.H <= 0 || p.Lq <= 0 || p.Lk <= 0 || p.Dh <= 0 || p.B > 65535 ||
+      p.H > 65535 || (TRAIN && !p.stats))
+    return cudaErrorInvalidValue;
+  if (p.Dh <= 32) return launch<1, TRAIN>(p, stream);
+  if (p.Dh <= 64) return launch<2, TRAIN>(p, stream);
+  if (p.Dh <= 128) return launch<4, TRAIN>(p, stream);
+  if (p.Dh <= 256) return launch<8, TRAIN>(p, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 cudaError_t rs_launch_mha(const MhaParams& p, cudaStream_t stream) {
-  if (p.B <= 0 || p.H <= 0 || p.Lq <= 0 || p.Lk <= 0 || p.Dh <= 0 || p.B > 65535 ||
-      p.H > 65535)
-    return cudaErrorInvalidValue;
-  if (p.Dh <= 32) return launch<1>(p, stream);
-  if (p.Dh <= 64) return launch<2>(p, stream);
-  if (p.Dh <= 128) return launch<4>(p, stream);
-  if (p.Dh <= 256) return launch<8>(p, stream);
-  return cudaErrorInvalidValue;
+  return dispatch<false>(p, stream);
+}
+
+cudaError_t rs_launch_mha_train(const MhaParams& p, cudaStream_t stream) {
+  return dispatch<true>(p, stream);
 }
 
 // q, k, v, out: contiguous [B, H, L, Dh]; pad_add [B, Lk] and attn_add
@@ -164,7 +192,7 @@ extern "C" int rs_mha_fwd(const float* q, const float* k, const float* v,
                           const float* pad_add, const float* attn_add, float* out,
                           int B, int H, int Lq, int Lk, int Dh, float scale,
                           void* stream) {
-  MhaParams p;
+  MhaParams p = {};
   p.q = q;
   p.k = k;
   p.v = v;

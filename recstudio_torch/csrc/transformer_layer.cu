@@ -5,7 +5,19 @@
 //   qkv = x Wqkv + b;  per head A = softmax(max(Q K^T / sqrt(Dh) + masks,
 //   finfo.min)) V;  x1 = LN1(x + A Wo + bo);
 //   out = LN2(x1 + act(x1 W1 + b1) W2 + b2).
-// Eval mode only: dropout comes with the backward kernel (K2).
+//
+// Training mode (rs_transformer_layer_fwd_train) adds the four dropout
+// sites of the Pallas kernel, drawn from dropout.cuh's Philox stream, and
+// keeps what the backward (K2, transformer_layer_bwd.cu) needs besides the
+// intermediates it already writes:
+//   P:    dropped inside the attention kernel; its row (max, sum) are kept
+//   o:    (A Wo^T + bo) * keep_o in step 3's epilogue; LN1's xhat, 1/sigma
+//   hact: act(hpre) * keep_h in step 4's epilogue; hpre is kept
+//   f:    (h W2^T + b2) * keep_f in step 5's epilogue; LN2's xhat, 1/sigma
+// The Pallas backward keeps only x and recomputes the layer in VMEM; on the
+// card device memory is not that constraint, and reading these back costs
+// less than recomputing four GEMMs. Eval mode launches the same code as
+// before training mode existed (the TRAIN = false instantiations).
 //
 // Bound on an H100: at the serving shapes (L = 20..200, D = 64..128,
 // F = 128) a layer is 2 M D (3D + D + 2F) + 4 B L^2 D operations on
@@ -49,13 +61,16 @@ __device__ __forceinline__ float activate(float x, int act) {
 }
 
 // C[M, N] = act(A[M, K] W[N, K]^T + bias[N]); 64x64 tile per block of 256
-// threads, 4x4 outputs per thread, K in steps of 16.
+// threads, 4x4 outputs per thread, K in steps of 16. TRAIN also writes the
+// pre-activation to Cpre and multiplies C by the keep factor of `site`.
 constexpr int kBM = 64, kBN = 64, kBK = 16;
 
+template <bool TRAIN>
 __global__ void __launch_bounds__(256)
 gemm_bias_act_kernel(const float* __restrict__ A, const float* __restrict__ W,
                      const float* __restrict__ bias, float* __restrict__ C,
-                     int M, int N, int K, int act) {
+                     int M, int N, int K, int act, float* __restrict__ Cpre,
+                     DropParams drop, int site) {
   __shared__ float As[kBK][kBM + 4];
   __shared__ float Ws[kBK][kBN + 4];
   const int tid = threadIdx.x;
@@ -98,7 +113,15 @@ gemm_bias_act_kernel(const float* __restrict__ A, const float* __restrict__ W,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
-      if (n < N) C[(long long)m * N + n] = activate(acc[i][j] + bias[n], act);
+      if (n >= N) continue;
+      const long long o = (long long)m * N + n;
+      if (TRAIN) {
+        const float pre = acc[i][j] + bias[n];
+        Cpre[o] = pre;
+        C[o] = activate(pre, act) * rs_keep(drop, site, (unsigned long long)o);
+      } else {
+        C[o] = activate(acc[i][j] + bias[n], act);
+      }
     }
   }
 }
@@ -106,13 +129,18 @@ gemm_bias_act_kernel(const float* __restrict__ A, const float* __restrict__ W,
 // out[M, D] = LN(A[M, K] W[D, K]^T + bias + res) * gamma + beta, D <= 256.
 // A block owns 16 full rows; thread t computes row t / 16 at columns
 // t % 16 + 16 j, then each warp normalises two rows from shared memory.
+// TRAIN drops the projection before the residual, (A W^T + bias) * keep +
+// res, and also writes xhat = (y - mean) / sigma and 1/sigma of each row.
 constexpr int kLnRows = 16, kLnMaxD = 256;
 
+template <bool TRAIN>
 __global__ void __launch_bounds__(256)
 gemm_residual_ln_kernel(const float* __restrict__ A, const float* __restrict__ W,
                         const float* __restrict__ bias, const float* __restrict__ res,
                         const float* __restrict__ gamma, const float* __restrict__ beta,
-                        float* __restrict__ out, int M, int D, int K, float eps) {
+                        float* __restrict__ out, int M, int D, int K, float eps,
+                        float* __restrict__ xhat, float* __restrict__ rstd,
+                        DropParams drop, int site) {
   __shared__ float As[kBK][kLnRows];
   __shared__ float Ws[kBK][kLnMaxD + 1];
   __shared__ float Ys[kLnRows][kLnMaxD + 1];
@@ -147,7 +175,15 @@ gemm_residual_ln_kernel(const float* __restrict__ A, const float* __restrict__ W
 #pragma unroll
   for (int j = 0; j < kLnMaxD / 16; ++j) {
     const int c = c0 + 16 * j;
-    if (c < D) Ys[r][c] = acc[j] + bias[c] + (m < M ? res[(long long)m * D + c] : 0.f);
+    if (c >= D) continue;
+    if (TRAIN) {
+      Ys[r][c] = m < M ? (acc[j] + bias[c]) *
+                                 rs_keep(drop, site, (unsigned long long)m * D + c) +
+                             res[(long long)m * D + c]
+                       : 0.f;
+    } else {
+      Ys[r][c] = acc[j] + bias[c] + (m < M ? res[(long long)m * D + c] : 0.f);
+    }
   }
   __syncthreads();
 
@@ -168,50 +204,49 @@ gemm_residual_ln_kernel(const float* __restrict__ A, const float* __restrict__ W
     const float inv = rsqrtf(q / D + eps);
     for (int c = lane; c < D; c += 32)
       out[(long long)row * D + c] = (Ys[rr][c] - mu) * inv * gamma[c] + beta[c];
+    if (TRAIN) {
+      for (int c = lane; c < D; c += 32) xhat[(long long)row * D + c] = (Ys[rr][c] - mu) * inv;
+      if (lane == 0) rstd[row] = inv;
+    }
   }
 }
 
+// Cpre == nullptr: eval (no pre-activation, no dropout).
 cudaError_t gemm_bias_act(const float* A, const float* W, const float* bias, float* C,
-                          int M, int N, int K, int act, cudaStream_t stream) {
+                          int M, int N, int K, int act, cudaStream_t stream,
+                          float* Cpre = nullptr, DropParams drop = {}, int site = 0) {
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  gemm_bias_act_kernel<<<grid, 256, 0, stream>>>(A, W, bias, C, M, N, K, act);
+  if (Cpre)
+    gemm_bias_act_kernel<true><<<grid, 256, 0, stream>>>(A, W, bias, C, M, N, K, act, Cpre,
+                                                         drop, site);
+  else
+    gemm_bias_act_kernel<false><<<grid, 256, 0, stream>>>(A, W, bias, C, M, N, K, act,
+                                                          nullptr, drop, site);
   return cudaGetLastError();
 }
 
+// xhat == nullptr: eval (no LN residuals, no dropout).
 cudaError_t gemm_residual_ln(const float* A, const float* W, const float* bias,
                              const float* res, const float* gamma, const float* beta,
                              float* out, int M, int D, int K, float eps,
-                             cudaStream_t stream) {
-  if (D > kLnMaxD) return cudaErrorInvalidValue;
+                             cudaStream_t stream, float* xhat = nullptr,
+                             float* rstd = nullptr, DropParams drop = {}, int site = 0) {
+  if (D > kLnMaxD || (xhat && !rstd)) return cudaErrorInvalidValue;
   const int blocks = (M + kLnRows - 1) / kLnRows;
-  gemm_residual_ln_kernel<<<blocks, 256, 0, stream>>>(A, W, bias, res, gamma, beta, out,
-                                                       M, D, K, eps);
+  if (xhat)
+    gemm_residual_ln_kernel<true><<<blocks, 256, 0, stream>>>(
+        A, W, bias, res, gamma, beta, out, M, D, K, eps, xhat, rstd, drop, site);
+  else
+    gemm_residual_ln_kernel<false><<<blocks, 256, 0, stream>>>(
+        A, W, bias, res, gamma, beta, out, M, D, K, eps, nullptr, nullptr, drop, site);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// x, out: [B*L, D]; weights in [out, in] layout: w_qkv [3D, D], w_o [D, D],
-// w1 [F, D], w2 [D, F]; pad_add [B, L] and attn_add [L, L] additive masks
-// (either may be null); scratch: qkv [B*L, 3D], attn and x1 [B*L, D],
-// h [B*L, F]. act: 1 relu, 2 gelu (tanh form). Returns a cudaError_t.
-extern "C" int rs_transformer_layer_fwd(
-    const float* x, const float* pad_add, const float* attn_add,
-    const float* w_qkv, const float* b_qkv, const float* w_o, const float* b_o,
-    const float* ln1_w, const float* ln1_b, const float* w1, const float* b1,
-    const float* w2, const float* b2, const float* ln2_w, const float* ln2_b,
-    float* qkv, float* attn, float* x1, float* h, float* out,
-    int B, int L, int D, int F, int H, int act, float eps, float scale, void* stream_ptr) {
-  if (B <= 0 || L <= 0 || D <= 0 || F <= 0 || H <= 0 || D % H || D > kLnMaxD ||
-      (act != kRelu && act != kGelu))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int M = B * L, Dh = D / H;
-  cudaError_t err = gemm_bias_act(x, w_qkv, b_qkv, qkv, M, 3 * D, D, kNone, stream);
-  if (err != cudaSuccess) return (int)err;
-
-  MhaParams p;
+MhaParams packed_qkv_view(const float* qkv, const float* pad_add, const float* attn_add,
+                          float* attn, int B, int L, int D, int H, float scale) {
+  const int Dh = D / H;
+  MhaParams p = {};
   p.q = qkv;
   p.k = qkv + D;
   p.v = qkv + 2 * D;
@@ -230,12 +265,72 @@ extern "C" int rs_transformer_layer_fwd(
   p.o_sh = Dh;
   p.o_sl = D;
   p.scale = scale;
-  err = rs_launch_mha(p, stream);
-  if (err != cudaSuccess) return (int)err;
+  return p;
+}
 
+bool bad_shape(int B, int L, int D, int F, int H, int act) {
+  return B <= 0 || L <= 0 || D <= 0 || F <= 0 || H <= 0 || D % H || D > kLnMaxD ||
+         (act != kRelu && act != kGelu);
+}
+
+}  // namespace
+
+// x, out: [B*L, D]; weights in [out, in] layout: w_qkv [3D, D], w_o [D, D],
+// w1 [F, D], w2 [D, F]; pad_add [B, L] and attn_add [L, L] additive masks
+// (either may be null); scratch: qkv [B*L, 3D], attn and x1 [B*L, D],
+// h [B*L, F]. act: 1 relu, 2 gelu (tanh form). Returns a cudaError_t.
+extern "C" int rs_transformer_layer_fwd(
+    const float* x, const float* pad_add, const float* attn_add,
+    const float* w_qkv, const float* b_qkv, const float* w_o, const float* b_o,
+    const float* ln1_w, const float* ln1_b, const float* w1, const float* b1,
+    const float* w2, const float* b2, const float* ln2_w, const float* ln2_b,
+    float* qkv, float* attn, float* x1, float* h, float* out,
+    int B, int L, int D, int F, int H, int act, float eps, float scale, void* stream_ptr) {
+  if (bad_shape(B, L, D, F, H, act)) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int M = B * L;
+  cudaError_t err = gemm_bias_act(x, w_qkv, b_qkv, qkv, M, 3 * D, D, kNone, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = rs_launch_mha(packed_qkv_view(qkv, pad_add, attn_add, attn, B, L, D, H, scale), stream);
+  if (err != cudaSuccess) return (int)err;
   err = gemm_residual_ln(attn, w_o, b_o, x, ln1_w, ln1_b, x1, M, D, D, eps, stream);
   if (err != cudaSuccess) return (int)err;
   err = gemm_bias_act(x1, w1, b1, h, M, F, D, act, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)gemm_residual_ln(h, w2, b2, x1, ln2_w, ln2_b, out, M, D, F, eps, stream);
+}
+
+// Training forward: as rs_transformer_layer_fwd, with dropout (seed,
+// threshold, scale; active = 0 for p == 0) and the residuals of the
+// backward: stats [B, H, L, 2] (softmax row max and sum), xhat1 and xhat2
+// [B*L, D], rstd1 and rstd2 [B*L], hpre [B*L, F]; h holds the dropped
+// activation act(hpre) * keep_h.
+extern "C" int rs_transformer_layer_fwd_train(
+    const float* x, const float* pad_add, const float* attn_add,
+    const float* w_qkv, const float* b_qkv, const float* w_o, const float* b_o,
+    const float* ln1_w, const float* ln1_b, const float* w1, const float* b1,
+    const float* w2, const float* b2, const float* ln2_w, const float* ln2_b,
+    float* qkv, float* attn, float* x1, float* h, float* out,
+    float* stats, float* xhat1, float* rstd1, float* hpre, float* xhat2, float* rstd2,
+    int B, int L, int D, int F, int H, int act, float eps, float scale,
+    unsigned long long seed, unsigned int threshold, float drop_scale, int drop_active,
+    void* stream_ptr) {
+  if (bad_shape(B, L, D, F, H, act)) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int M = B * L;
+  const DropParams drop = {seed, threshold, drop_scale, drop_active};
+  cudaError_t err = gemm_bias_act(x, w_qkv, b_qkv, qkv, M, 3 * D, D, kNone, stream);
+  if (err != cudaSuccess) return (int)err;
+  MhaParams p = packed_qkv_view(qkv, pad_add, attn_add, attn, B, L, D, H, scale);
+  p.stats = stats;
+  p.drop = drop;
+  err = rs_launch_mha_train(p, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = gemm_residual_ln(attn, w_o, b_o, x, ln1_w, ln1_b, x1, M, D, D, eps, stream, xhat1,
+                         rstd1, drop, kSiteOut);
+  if (err != cudaSuccess) return (int)err;
+  err = gemm_bias_act(x1, w1, b1, h, M, F, D, act, stream, hpre, drop, kSiteFfnHidden);
+  if (err != cudaSuccess) return (int)err;
+  return (int)gemm_residual_ln(h, w2, b2, x1, ln2_w, ln2_b, out, M, D, F, eps, stream, xhat2,
+                               rstd2, drop, kSiteFfnOut);
 }

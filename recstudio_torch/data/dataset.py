@@ -13,19 +13,23 @@ ml-100k needs, in numpy and plain Python (no pandas):
   (``dataset.py:388-508``);
 - rows are sorted by (user, time) with a stable sort (``dataset.py:601``)
   and split leave-one-out (``split_ratio`` an int);
-- split views expose ``data_index``, ``user_hist`` and an ``eval_loader``
-  of fixed-shape batches that carry ``_size``.
+- split views expose ``data_index``, ``user_hist``, a ``train_loader``
+  and an ``eval_loader`` of fixed-shape batches that carry ``_size``;
+- ``SeqDataset.device_epoch_arrays`` stages a split's raw columns for a
+  device-resident epoch, with a ``batch_fn`` that gathers the history
+  windows of a batch on the device.
 
-Ratio and count splits, k-core filtering, sequence and network features,
-training loaders and device-resident epochs are not ported yet.
+Ratio and count splits, k-core filtering, sequence and network features
+and dataset-side negatives are not ported yet.
 """
 from __future__ import annotations
 
 import copy
 import os
-from typing import Dict, Iterator, List, Optional, Tuple, Union
+from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from ..utils import deep_update, get_dataset_default_config
 from .fields import PAD_TOKEN, parse_field
@@ -459,11 +463,18 @@ class TripletDataset:
         batch[self.frating] = np.where(valid, rcol[gather], 0).astype(np.float32)
         return batch
 
-    def eval_loader(self, batch_size: int) -> Iterator[Dict[str, np.ndarray]]:
+    def train_loader(self, batch_size: int, shuffle: bool = True,
+                     rng: Optional[np.random.Generator] = None) -> "_BatchIterator":
+        """Fixed-shape training batches; the tail batch wraps to the epoch's
+        head, so every batch has ``batch_size`` rows."""
+        self.eval_mode = False
+        return _BatchIterator(self, batch_size, shuffle, rng or np.random.default_rng())
+
+    def eval_loader(self, batch_size: int) -> "_BatchIterator":
         """Fixed-shape evaluation batches in data order; the tail batch is
         padded with row 0 and ``_size`` holds its true row count."""
         self.eval_mode = True
-        return _EvalBatches(self, batch_size)
+        return _BatchIterator(self, batch_size, False, None)
 
     def _make_batch(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
         batch = self._get_pos_batch(idx)
@@ -472,27 +483,57 @@ class TripletDataset:
         return batch
 
 
-class _EvalBatches:
-    """Evaluation batch iterator over a split view (``dataset.py:974-1016``)."""
+class _BatchIterator:
+    """Fixed-shape batch iterator over a split view (``dataset.py:974-1016``).
 
-    def __init__(self, dataset, batch_size: int):
+    Training: the tail batch is filled by wrapping to the epoch's head (all
+    batches have exactly ``batch_size`` rows). Evaluation: the tail is
+    padded with row 0 and ``_size`` records the true row count.
+    """
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool,
+                 rng: Optional[np.random.Generator]):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.rng = rng
 
     def __len__(self):
         return -(-len(self.dataset.data_index) // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         n = len(self.dataset.data_index)
+        order = np.arange(n)
+        if self.shuffle:
+            self.rng.shuffle(order)
         bs = self.batch_size
+        eval_mode = self.dataset.eval_mode
         for start in range(0, n, bs):
-            idx = np.arange(start, min(start + bs, n))
+            idx = order[start:start + bs]
             true_size = len(idx)
             if true_size < bs:
-                idx = np.concatenate([idx, np.zeros(bs - true_size, dtype=idx.dtype)])
+                pad = np.zeros(bs - true_size, dtype=idx.dtype) if eval_mode \
+                    else order[:bs - true_size]
+                idx = np.concatenate([idx, pad])
             batch = self.dataset._make_batch(idx)
-            batch["_size"] = np.asarray(true_size, dtype=np.int32)
+            batch["_size"] = np.asarray(true_size if eval_mode else bs, dtype=np.int32)
             yield batch
+
+
+def _int32_column(name: str, col: np.ndarray) -> np.ndarray:
+    """``col`` as int32 words for device staging: integers must fit int32,
+    floats must survive float32 (their bits are stored). Raises instead of
+    truncating (the JAX stager casts silently, ``dataset.py:1288-1291``)."""
+    if np.issubdtype(col.dtype, np.floating):
+        c32 = col.astype(np.float32)
+        if not np.array_equal(c32.astype(col.dtype), col, equal_nan=True):
+            raise ValueError(f"column {name!r} ({col.dtype}) is not exact in float32")
+        return c32.view(np.int32)
+    if np.issubdtype(col.dtype, np.integer):
+        if col.size and (int(col.min()) < -2 ** 31 or int(col.max()) >= 2 ** 31):
+            raise ValueError(f"column {name!r} has values outside int32")
+        return col.astype(np.int32)
+    raise TypeError(f"column {name!r} has dtype {col.dtype}, which cannot be staged")
 
 
 class SeqDataset(TripletDataset):
@@ -567,3 +608,48 @@ class SeqDataset(TripletDataset):
         di = self.data_index
         user_first = di[di[:, 2] - di[:, 1] == 1][:, 1]
         return np.concatenate([user_first, di[:, 2]])
+
+    def device_epoch_arrays(self) -> Tuple[Dict[str, np.ndarray], Callable]:
+        """Compact staging for device-resident epochs (``dataset.py:1257-1352``).
+
+        Returns ``(host_arrays, batch_fn)``: the split's ``data_index`` and
+        raw interaction columns packed into one ``[n + L, C]`` int32 matrix
+        (floats as their bits, L rows of zeros so every window read stays in
+        bounds); ``batch_fn(arrays, sel)`` takes those arrays as tensors on
+        the device and a ``[B]`` index tensor and returns
+        ``_get_pos_batch(sel)``'s batch as tensors, gathering each row's
+        history window on the device. Columns that would not survive
+        int32/float32, or a split with no interaction column to stage,
+        raise; user and item feature columns are not ported yet.
+        """
+        L = self.max_seq_len
+        fuid, fiid = self.fuid, self.fiid
+        fields = [f for f in self._fields_of(self.inter_feat) if f != fuid]
+        if not fields:
+            raise ValueError("device_epoch_arrays: no interaction column besides the user id")
+        if [f for f in self._fields_of(self.user_feat) if f != fuid] or \
+                [f for f in self._fields_of(self.item_feat) if f != fiid]:
+            raise NotImplementedError("staging user or item feature columns is not ported yet")
+        is_float = {f: np.issubdtype(self.inter_feat.get_col(f).dtype, np.floating)
+                    for f in fields}
+        packed = np.stack([_int32_column(f, self.inter_feat.get_col(f)) for f in fields], axis=1)
+        compact = {"_rows": _int32_column("data_index", self.data_index),
+                   "_interpack": np.concatenate([packed, np.zeros((L, len(fields)), np.int32)])}
+
+        def batch_fn(arrays: Dict[str, torch.Tensor], sel: torch.Tensor) -> Dict[str, torch.Tensor]:
+            rows = arrays["_rows"][sel].long()
+            u, starts, ends = rows[:, 0], rows[:, 1], rows[:, 2]
+            batch = {fuid: u.int(), "seqlen": (ends - starts).int()}
+            pos = starts[:, None] + torch.arange(L, device=sel.device)[None, :]
+            valid = pos < ends[:, None]
+            wins = arrays["_interpack"][pos]                    # [B, L, C]
+            tgt = arrays["_interpack"][ends]                    # [B, C]
+            for c, f in enumerate(fields):
+                w = wins[:, :, c].view(torch.float32) if is_float[f] else wins[:, :, c]
+                batch["in_" + f] = torch.where(valid, w, torch.zeros((), dtype=w.dtype,
+                                                                     device=w.device))
+            for c, f in enumerate(fields):
+                batch[f] = tgt[:, c].view(torch.float32) if is_float[f] else tgt[:, c]
+            return batch
+
+        return compact, batch_fn

@@ -1,12 +1,17 @@
-"""BaseRetriever: the two-tower retrieval abstraction, serving subset.
+"""BaseRetriever: the two-tower retrieval abstraction.
 
 Counterpart of ``recstudio_tpu/models/basemodel/baseretriever.py``: the
-shared-item-tower net of sequence models, the catalog encoding cached in
-``states["item_vector"]`` (``_epoch_refresh(-1)``), and full-catalog top-k
-with the user's history masked inside the score matrix
-(``baseretriever.py:493-543``), which is exactly the reference's
-``topk(k + len(hist))``-then-filter. Sampling, losses, training steps,
-approximate and sharded retrieval are not ported yet.
+shared-item-tower net of sequence models; training (``forward``: positive
+and sampled negative scores, ``sampling`` with method ``none``,
+``training_step``: the loss); the catalog encoding cached in
+``states["item_vector"]`` (``_epoch_refresh(-1)``), dropped whenever the
+weights change (``fit``, ``load_state_dict``); full-catalog top-k with the
+user's history masked inside the score matrix (``baseretriever.py:
+493-543``), which is exactly the reference's ``topk(k + len(hist))``-then-
+filter; and evaluation of the rank metrics over served top-k lists
+(``_make_eval_step``, ``baseretriever.py:726-752``). The other mining
+methods, the fused softmax step, approximate and sharded retrieval are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ... import eval as eval_mod
+from ...ann.sampler import MaskedUniformSampler, UniformSampler
 from ...ops.topk import topk as topk_op
 from ..module import Embedding
 from ..scorer import InnerProductScorer
@@ -33,8 +40,8 @@ class SharedItemTowerNet(nn.Module):
         self.query_encoder = query_encoder
         self.score_func = score_func
 
-    def encode_query(self, query_feat):
-        return self.query_encoder(query_feat)
+    def encode_query(self, query_feat, rng: Optional[torch.Generator] = None):
+        return self.query_encoder(query_feat, rng)
 
     def encode_item(self, item_feat):
         return self.query_encoder.item_encoder(item_feat)
@@ -44,9 +51,19 @@ class BaseRetriever(Recommender):
     def __init__(self, config: Dict = None, device="cuda"):
         super().__init__(config, device)
         self.query_fields = None
-        for key in ("ann", "mesh"):
+        self.sampler = None
+        for key in ("ann", "mesh", "fused_softmax"):
             if self.config["train"].get(key):
                 raise NotImplementedError(f"train.{key} is not ported yet")
+
+    def _get_sampler(self, train_data):
+        """The sampler named by ``train.sampler`` (``baseretriever.py:105-131``)."""
+        name = str(self.config["train"].get("sampler") or "uniform").lower()
+        if name in ("uniform", "none"):
+            return UniformSampler(train_data.num_items)
+        if name == "masked_uniform":
+            return MaskedUniformSampler(train_data.num_items)
+        raise NotImplementedError(f"train.sampler {name!r} is not ported yet")
 
     def _get_item_encoder(self, train_data):
         return Embedding(train_data.num_items, self.embed_dim)
@@ -64,6 +81,7 @@ class BaseRetriever(Recommender):
         self.item_encoder = self._get_item_encoder(train_data)
         self.query_encoder = self._get_query_encoder(train_data)  # shares item_encoder
         self.score_func = self._get_score_func()
+        self.sampler = self._get_sampler(train_data)
         self.net = SharedItemTowerNet(self.query_encoder, self.score_func)
         # query-side fields: user feats + in_-prefixed item fields (+ seqlen)
         from ...data.dataset import SeqDataset
@@ -83,11 +101,82 @@ class BaseRetriever(Recommender):
         return self.net.encode_item(ids)
 
     def _epoch_refresh(self, nepoch: int):
-        """``nepoch = -1`` (inference): snapshot the catalog encoding from the
-        current parameters into ``states["item_vector"]``."""
-        if nepoch >= 0:
-            raise NotImplementedError("training-time refresh is not ported yet")
-        self.states["item_vector"] = self._compute_item_vector()
+        """Snapshot the catalog encoding from the current parameters into
+        ``states["item_vector"]`` for inference (``nepoch = -1``). In training
+        the JAX package refreshes it only when the training step reads it
+        (``baseretriever.py:313-327``), which no ported loss or sampling
+        method does."""
+        if nepoch < 0:
+            self.states["item_vector"] = self._compute_item_vector()
+
+    # ------------------------------------------------------------------
+    def sampling(self, batch: Dict[str, torch.Tensor], num_neg: int, query: torch.Tensor,
+                 method: str = "none", excluding_hist: bool = False):
+        """Negatives for a batch (``baseretriever.py:391-421``, method
+        ``none``): ``(log_pos_prob, neg_ids, log_neg_prob)``."""
+        if method != "none":
+            raise NotImplementedError(f"sampling method {method!r} is not ported yet")
+        pos_items = batch.get(self.fiid)
+        user_hist = batch.get("user_hist", pos_items)
+        sampler = self.sampler
+        if excluding_hist and not isinstance(sampler, MaskedUniformSampler):
+            sampler = MaskedUniformSampler(self.num_items)
+        kwargs = {"user_hist": user_hist} if isinstance(sampler, MaskedUniformSampler) else {}
+        return sampler(query, num_neg, self.device_generator, pos_items=pos_items, **kwargs)
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Training scores (``baseretriever.py:342-389``): the positive
+        item's score and, from the sampler, the negatives' scores with the
+        proposal log probabilities. Dropout seeds come from
+        ``self.generator``."""
+        pos_vec = self.net.encode_item(batch[self.fiid])
+        query = self.net.encode_query(self._get_query_feat(batch), self.generator)
+        pos_score = self.score_func(query, pos_vec)
+        if batch[self.fiid].dim() > 1:
+            pos_score = torch.where(batch[self.fiid] == 0, float("-inf"), pos_score)
+        tc = self.config["train"]
+        if not self.neg_count:
+            raise ValueError("`negative_count` is required when a sampler is used")
+        log_pos_prob, neg_ids, log_neg_prob = self.sampling(
+            batch, self.neg_count, query.detach(), method=tc.get("sampling_method", "none"),
+            excluding_hist=tc.get("excluding_hist", False))
+        neg_score = self.score_func(query, self.net.encode_item(neg_ids))
+        return {"pos_score": pos_score, "log_pos_prob": log_pos_prob,
+                "neg_score": neg_score, "log_neg_prob": log_neg_prob}
+
+    def training_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The loss of one batch (``baseretriever.py:691-698``)."""
+        score = self.forward(batch)
+        return self.loss_fn(label=batch[self.frating], **score)
+
+    @torch.no_grad()
+    def _eval_epoch(self, data, metric_names, cutoffs) -> Dict[str, float]:
+        """Rank metrics of the served top-``eval.topk`` lists over a split
+        (``_make_eval_step``): per-sample values summed over the true rows of
+        each padded batch on the device, read once at the end."""
+        for name in metric_names:
+            if name not in eval_mod.metric_dict:
+                raise NotImplementedError(f"metric {name!r} is not ported yet")
+        self._epoch_refresh(-1)            # the catalog of the current weights
+        topk = int(self.config["eval"]["topk"])
+        sums: Dict[str, torch.Tensor] = {}
+        weight = 0
+        for host in data.eval_loader(int(self.config["eval"]["batch_size"])):
+            batch = batch_to_device(host, self.device)
+            size = int(host["_size"])
+            valid = (torch.arange(batch[self.fiid].shape[0], device=self.device) < size).float()
+            _, items = self.topk(batch, topk, batch.get("user_hist"))
+            target, rating = batch[self.fiid], batch[self.frating]
+            if target.dim() == 1:
+                target, rating = target[:, None], rating[:, None]
+            hit = eval_mod.hit_matrix(items, target)
+            for cutoff in cutoffs:
+                for name in metric_names:
+                    key = f"{name}@{cutoff}"
+                    val = (eval_mod.metric_dict[name](hit, rating, cutoff) * valid).sum()
+                    sums[key] = sums[key] + val if key in sums else val
+            weight += size
+        return {k: float(v) / max(weight, 1) for k, v in sums.items()}
 
     # ------------------------------------------------------------------
     def _mask_hist_scores(self, scores: torch.Tensor,

@@ -1,20 +1,41 @@
-"""Recommender: configuration, model assembly and parameters.
+"""Recommender: configuration, parameters, and the training engine.
 
-The serving subset of ``recstudio_tpu/models/basemodel/recommender.py``:
-config, ``_init_model``, ``_init_parameter`` and ``batch_to_device``. The
-model is an ``nn.Module`` (``self.net``) on ``self.device``; parameters are
-drawn from an explicit ``torch.Generator`` seeded with ``train.seed``.
-Training (``fit``, optimizers, losses, evaluation loops) is not ported yet.
+Counterpart of ``recstudio_tpu/models/basemodel/recommender.py``. The model
+is an ``nn.Module`` (``self.net``) on ``self.device``. Randomness comes from
+two explicit generators seeded with ``train.seed``: ``self.generator`` on
+the CPU (parameter initialisation, dropout seeds) and
+``self.device_generator`` on the model's device (epoch permutations,
+negative samples).
+
+Training (``fit``) runs one device-resident epoch after another
+(``_setup_scan_epoch``'s counterpart): the split is staged on the device
+once (``SeqDataset.device_epoch_arrays``), each epoch draws one permutation
+and wraps its tail batch to the epoch's head, every step gathers its batch
+on the device and takes one optimizer step (``_grad_step``), and the
+epoch's mean loss is read once, at its end. Evaluation serves each split
+through ``topk`` and averages the rank metrics over its true rows.
+
+Not ported yet: the host-loader epoch (``train.epoch_scan: false``), the
+TPU dispatch strategies (``_setup_chunked_epoch``, ``_fit_loop_blocks``),
+config overrides passed to ``fit``, ``lazy_adam``/``sparse_adam``, adagrad and
+rmsprop, learning-rate schedules, orbax checkpoints and
+``load_for_serving`` from a JAX checkpoint.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+import logging
+import os
+import time
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from ...utils import get_base_model_config, make_generator, resolve_device, seed_everything
-from ..init import init_parameters
+from ...utils.callbacks import EarlyStopping, SaveLastCallback
+from ..init import init_parameters, zero_pad_rows_in_grads
+
+logger = logging.getLogger("recstudio_torch")
 
 
 def batch_to_device(batch: Dict[str, np.ndarray],
@@ -22,6 +43,17 @@ def batch_to_device(batch: Dict[str, np.ndarray],
     """numpy batch -> tensors on ``device`` (``cuda`` unless asked otherwise)."""
     dev = resolve_device(device)
     return {k: torch.as_tensor(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+
+
+def clip_by_global_norm(params: List[torch.Tensor], max_norm: float) -> None:
+    """``optax.clip_by_global_norm``: scale every gradient by
+    ``max_norm / norm`` when the global norm exceeds ``max_norm``."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, factor)
 
 
 class Recommender:
@@ -33,12 +65,22 @@ class Recommender:
         if seed is not None:
             seed_everything(seed)
         self.generator = make_generator(seed or 0)
+        self.device_generator = torch.Generator(device=self.device)
+        self.device_generator.manual_seed(int(seed or 0) + 1)
         self.embed_dim = self.config["model"]["embed_dim"]
         self.net: Optional[torch.nn.Module] = None
         self.states: Dict[str, torch.Tensor] = {}
+        self.epoch_log: List[Dict[str, float]] = []
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.ckpt_path: Optional[str] = None
+        self.callback = None
+        self.val_check = False
 
     @staticmethod
     def _get_dataset_class():
+        raise NotImplementedError
+
+    def _get_loss_func(self):
         raise NotImplementedError
 
     def _init_model(self, train_data):
@@ -51,6 +93,8 @@ class Recommender:
             self.item_fields = set(self.item_feat.fields).intersection(self.fields)
         else:
             self.item_fields = {self.fiid}
+        self.neg_count = self.config["train"].get("negative_count")
+        self.loss_fn = self._get_loss_func()
 
     def _init_parameter(self, train_data=None):
         """Initialise ``self.net``'s parameters by role (``train.init_method``,
@@ -59,9 +103,213 @@ class Recommender:
         init_range = self.config["train"].get("init_range", 0.02)
         init_parameters(self.net, self.generator, method, init_range)
         self.net.to(self.device).eval()
+        self.states.clear()  # cached item vectors belong to the old weights
 
     def load_state_dict(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Load parameters (e.g. from ``utils.convert.params_from_jax``)."""
         self.net.load_state_dict(state_dict)
         self.net.to(self.device).eval()
         self.states.clear()  # cached item vectors belong to the old weights
+
+    # ------------------------------------------------------------------
+    # optimizer and one training step
+    # ------------------------------------------------------------------
+    def _make_optimizer(self, name: str, lr: float, weight_decay: float = 0.0):
+        """``_make_optax`` (``recommender.py:187-225``) in ``torch.optim``,
+        with optax's hyperparameters: Adam's eps 1e-8, weight decay
+        decoupled (optax.adamw), plain SGD."""
+        params = list(self.net.parameters())
+        name = (name or "adam").lower()
+        if name == "adam" and not weight_decay:
+            return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        if name in ("adam", "adamw"):
+            wd = weight_decay if name == "adam" else (weight_decay or 0.01)
+            return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                     weight_decay=wd)
+        if name == "sgd":
+            return torch.optim.SGD(params, lr=lr)
+        if name in ("adagrad", "rmsprop", "sparse_adam"):
+            raise NotImplementedError(f"learner {name!r} is not ported yet")
+        raise ValueError(f"unknown learner {name}")
+
+    def _get_optimizer(self) -> torch.optim.Optimizer:
+        tc = self.config["train"]
+        if tc.get("scheduler"):
+            raise NotImplementedError("learning-rate schedules are not ported yet")
+        return self._make_optimizer(tc.get("learner", "adam"),
+                                    float(tc.get("learning_rate", 1e-3)),
+                                    float(tc.get("weight_decay") or 0.0))
+
+    def training_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _grad_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One optimizer step on ``batch`` (``recommender.py:342-348``):
+        loss, gradients, [PAD] rows zeroed, optional global-norm clip,
+        update. Returns the loss as a device scalar."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.training_step(batch)
+        loss.backward()
+        zero_pad_rows_in_grads(self.net)
+        clip = self.config["train"].get("grad_clip_norm")
+        if clip:
+            clip_by_global_norm(list(self.net.parameters()), float(clip))
+        self.optimizer.step()
+        return loss.detach()
+
+    # ------------------------------------------------------------------
+    # device-resident epochs
+    # ------------------------------------------------------------------
+    def _setup_scan_epoch(self, train_data) -> None:
+        """Stage the training split on the device once; each step's batch is
+        gathered there (``recommender.py:383-509``)."""
+        n = len(train_data.data_index)
+        if hasattr(train_data, "device_epoch_arrays"):
+            host, self._batch_fn = train_data.device_epoch_arrays()
+        else:
+            host = train_data._get_pos_batch(np.arange(n))
+            self._batch_fn = lambda arrays, sel: {k: v[sel] for k, v in arrays.items()}
+        self._epoch_arrays = {k: torch.as_tensor(np.ascontiguousarray(v)).to(self.device)
+                              for k, v in host.items()}
+        self._epoch_rows = n
+
+    def _epoch_batches(self):
+        """This epoch's batches: one permutation (shuffle on), the tail
+        batch wrapped to the epoch's head (``recommender.py:453-457``)."""
+        n, bs = self._epoch_rows, int(self.config["train"]["batch_size"])
+        nbatch = -(-n // bs)
+        if self.config["data"].get("shuffle", True):
+            perm = torch.randperm(n, generator=self.device_generator, device=self.device)
+        else:
+            perm = torch.arange(n, device=self.device)
+        if nbatch * bs > n:
+            perm = torch.cat([perm, perm[:nbatch * bs - n]])
+        for i in range(nbatch):
+            yield self._batch_fn(self._epoch_arrays, perm[i * bs:(i + 1) * bs])
+
+    def training_epoch(self, nepoch: int) -> float:
+        """One epoch of optimizer steps; the mean loss, read once."""
+        self.net.train()
+        total = torch.zeros((), device=self.device)
+        nbatch = 0
+        for batch in self._epoch_batches():
+            total = total + self._grad_step(batch)
+            nbatch += 1
+        self.net.eval()
+        return float(total) / max(nbatch, 1)
+
+    # ------------------------------------------------------------------
+    # fit / evaluate
+    # ------------------------------------------------------------------
+    def fit(self, train_data, val_data=None,
+            resume_from: Optional[str] = None) -> "Recommender":
+        """Train on ``train_data`` for ``train.epochs`` epochs (``recommender.py:
+        788-862``), validating on ``val_data`` each ``eval.val_n_epoch``
+        epochs with early stopping; a checkpoint is written when the fit
+        ends. ``resume_from`` continues a checkpointed fit at its next epoch."""
+        if str(self.config["train"].get("epoch_scan", "auto")).lower() == "false":
+            raise NotImplementedError("the host-loader epoch is not ported yet")
+        self._init_model(train_data)
+        self._init_parameter(train_data)
+        self.val_check = val_data is not None and bool(self.config["eval"].get("val_metrics"))
+        if self.val_check:
+            vm = self.config["eval"]["val_metrics"]
+            vm = vm[0] if isinstance(vm, list) else vm
+            self.val_metric = f"{vm}@{self._cutoffs()[0]}"
+        self.callback = self._get_callback(train_data.name)
+        self.optimizer = self._get_optimizer()
+        self._setup_scan_epoch(train_data)
+        start = 0
+        if resume_from is not None:
+            start = int(self.load_checkpoint(resume_from, restore_optimizer=True)["epoch"]) + 1
+            logger.info("resumed from %s at epoch %d", resume_from, start)
+        self.fit_loop(val_data, start)
+        return self
+
+    def _get_callback(self, dataset_name: str):
+        save_dir = self.config["eval"].get("save_path")
+        if self.val_check:
+            return EarlyStopping(self, self.val_metric, dataset_name, save_dir=save_dir,
+                                 patience=self.config["train"].get("early_stop_patience", 10),
+                                 mode=self.config["train"].get("early_stop_mode", "max"))
+        return SaveLastCallback(self, dataset_name, save_dir=save_dir)
+
+    def fit_loop(self, val_data=None, start_epoch: int = 0) -> None:
+        nepoch = start_epoch - 1
+        for nepoch in range(start_epoch, self.config["train"]["epochs"]):
+            t0 = time.perf_counter()
+            self._epoch_refresh(nepoch)
+            metrics: Dict[str, float] = {"train_loss": self.training_epoch(nepoch)}
+            t1 = time.perf_counter()
+            if self.val_check and nepoch % self.config["eval"].get("val_n_epoch", 1) == 0:
+                metrics.update(self.validation_epoch(val_data))
+            t2 = time.perf_counter()
+            self.epoch_log.append({"epoch": nepoch, **metrics, "train_s": t1 - t0,
+                                   "eval_s": t2 - t1})
+            logger.info("epoch %d %s train %.2fs eval %.2fs", nepoch, metrics, t1 - t0, t2 - t1)
+            if self.callback(nepoch, metrics):
+                logger.info("early stopped at epoch %d", nepoch)
+                break
+        self.states.pop("item_vector", None)   # the weights moved: no stale catalog
+        self.ckpt_path = self.callback.save_checkpoint(nepoch)
+
+    def validation_epoch(self, val_data) -> Dict[str, float]:
+        return self._eval_epoch(val_data, self.config["eval"]["val_metrics"],
+                                self._cutoffs()[:1])
+
+    def _cutoffs(self) -> List[int]:
+        c = self.config["eval"].get("cutoff")
+        return c if isinstance(c, list) else [c]
+
+    def evaluate(self, test_data, verbose: bool = True) -> Dict[str, float]:
+        """Test metrics (``recommender.py:1056-1070``), with the best
+        validation epoch's parameters restored when there was one."""
+        if self.ckpt_path is not None and getattr(self.callback, "best_params", None) is not None:
+            self.restore(self.callback.best_params)
+        out = self._eval_epoch(test_data, self.config["eval"]["test_metrics"], self._cutoffs())
+        if verbose:
+            logger.info("test result %s", out)
+        return out
+
+    def _epoch_refresh(self, nepoch: int) -> None:
+        pass
+
+    def _eval_epoch(self, data, metric_names, cutoffs) -> Dict[str, float]:
+        raise NotImplementedError
+
+    # ------------------------------------------------------------------
+    # snapshots and checkpoints
+    # ------------------------------------------------------------------
+    def snapshot(self) -> Dict[str, torch.Tensor]:
+        return {k: v.detach().clone() for k, v in self.net.state_dict().items()}
+
+    def restore(self, snap: Dict[str, torch.Tensor]) -> None:
+        self.net.load_state_dict(snap)
+        self.states.clear()
+
+    def save_checkpoint(self, path: str, epoch: int = -1, metric: Optional[Dict] = None) -> None:
+        """Parameters, optimizer state, both generators' states and the
+        epoch (``recommender.py:1218-1247``, pickle backend), in
+        ``torch.save``'s format."""
+        payload = {
+            "config": self.config, "model": type(self).__name__, "epoch": int(epoch),
+            "metric": {k: float(v) for k, v in (metric or {}).items()},
+            "params": {k: v.detach().cpu() for k, v in self.net.state_dict().items()},
+            "optimizer": self.optimizer.state_dict() if self.optimizer is not None else None,
+            "generator": self.generator.get_state(),
+            "device_generator": self.device_generator.get_state(),
+        }
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        torch.save(payload, path)
+
+    def load_checkpoint(self, path: str, restore_optimizer: bool = False) -> Dict[str, Any]:
+        """Load a checkpoint of ``save_checkpoint``; with ``restore_optimizer``
+        also the optimizer and generator states, so a fit resumes exactly."""
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        self.net.load_state_dict(payload["params"])
+        self.states.clear()
+        if restore_optimizer and self.optimizer is not None and payload.get("optimizer"):
+            self.optimizer.load_state_dict(payload["optimizer"])
+            self.generator.set_state(payload["generator"])
+            self.device_generator.set_state(payload["device_generator"])
+        return payload

@@ -3,7 +3,8 @@
 Counterpart of ``recstudio_tpu/models/init.py``: embedding tables and
 projection weights get N(0, init_range), xavier normal or xavier uniform;
 biases 0; LayerNorm weights 1. Row 0 of every embedding table (the
-``[PAD]`` row) is zeroed. Draws come from an explicit ``torch.Generator``.
+``[PAD]`` row) is zeroed, and ``zero_pad_rows_in_grads`` keeps it so in
+training. Draws come from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -47,3 +48,13 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
                 p[0].zero_()
         elif p.dim() == 2:
             p.copy_(0.02 * torch.randn(tuple(p.shape), generator=generator))
+
+
+@torch.no_grad()
+def zero_pad_rows_in_grads(module: nn.Module) -> None:
+    """Zero the gradient of the ``[PAD]`` row (row 0) of every embedding
+    table (``init.py:67-79``). Learned position tables are not embedding
+    tables and keep theirs."""
+    for m in module.modules():
+        if isinstance(m, nn.Embedding) and m.weight.grad is not None:
+            m.weight.grad[0].zero_()

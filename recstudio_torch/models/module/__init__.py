@@ -1,6 +1,6 @@
 from torch import nn
 
-from .layers import SeqPoolingLayer, TransformerEncoder, TransformerLayer, get_act
+from .layers import SeqPoolingLayer, TransformerEncoder, TransformerLayer
 
 
 class Embedding(nn.Embedding):
@@ -11,5 +11,4 @@ class Embedding(nn.Embedding):
         super().__init__(num_embeddings, features, padding_idx=padding_idx)
 
 
-__all__ = ["Embedding", "SeqPoolingLayer", "TransformerEncoder", "TransformerLayer",
-           "get_act"]
+__all__ = ["Embedding", "SeqPoolingLayer", "TransformerEncoder", "TransformerLayer"]

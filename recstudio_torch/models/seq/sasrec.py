@@ -7,13 +7,15 @@ item table.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from ...data.dataset import SeqDataset
+from ...ops.dropout import SITE_INPUT, draw_seed, keep_scale
 from ..basemodel.baseretriever import BaseRetriever
+from ..loss_func import BinaryCrossEntropyLoss
 from ..module import SeqPoolingLayer, TransformerEncoder
 
 
@@ -21,26 +23,35 @@ class SASRecQueryEncoder(nn.Module):
     def __init__(self, fiid: str, embed_dim: int, max_seq_len: int, n_head: int,
                  hidden_size: int, dropout: float, activation: str, layer_norm_eps: float,
                  n_layer: int, item_encoder: nn.Module, bidirectional: bool = False,
-                 eval_pooling_type: str = "last"):
+                 training_pooling_type: str = "last", eval_pooling_type: str = "last"):
         super().__init__()
         self.fiid = fiid
         self.max_seq_len = max_seq_len
         self.bidirectional = bidirectional
+        self.dropout = dropout
         self.item_encoder = item_encoder
         self.pos_emb_table = nn.Parameter(torch.zeros(max_seq_len, embed_dim))
         self.transformer = TransformerEncoder(n_layer, embed_dim, n_head, hidden_size,
                                               dropout, activation, layer_norm_eps)
+        self.training_pooling = SeqPoolingLayer(training_pooling_type)
         self.pooling = SeqPoolingLayer(eval_pooling_type)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, batch: Dict[str, torch.Tensor],
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Query vectors ``[B, D]``. In training mode the embedded sequence
+        and every layer drop at ``dropout`` (``sasrec.py:50-51``), with seeds
+        drawn from ``rng``."""
         hist = batch["in_" + self.fiid]                       # [B, L]
         L = hist.shape[1]
         x = self.item_encoder(hist) + self.pos_emb_table[:L][None]
+        if self.training and self.dropout > 0:
+            x = x * keep_scale(x.shape, self.dropout, draw_seed(rng), SITE_INPUT, x.device)
         pad_mask = hist == 0
         attn_mask = None if self.bidirectional else torch.triu(
             torch.ones((L, L), dtype=torch.bool, device=hist.device), 1)
-        out = self.transformer(x, key_padding_mask=pad_mask, attn_mask=attn_mask)
-        return self.pooling(out, batch["seqlen"])
+        out = self.transformer(x, key_padding_mask=pad_mask, attn_mask=attn_mask, rng=rng)
+        pooling = self.training_pooling if self.training else self.pooling
+        return pooling(out, batch["seqlen"])
 
 
 class SASRec(BaseRetriever):
@@ -57,3 +68,6 @@ class SASRec(BaseRetriever):
             hidden_size=mc["hidden_size"], dropout=mc["dropout_rate"],
             activation=mc["activation"], layer_norm_eps=float(mc["layer_norm_eps"]),
             n_layer=mc["layer_num"], item_encoder=self.item_encoder)
+
+    def _get_loss_func(self):
+        return BinaryCrossEntropyLoss()

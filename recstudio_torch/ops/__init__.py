@@ -1,14 +1,16 @@
 """Kernels of the port, each with its plain PyTorch version.
 
-``fused_transformer_layer`` (K1) and ``fused_mha`` (K3) launch hand-written
-CUDA kernels on CUDA tensors and use their plain versions on CPU tensors.
+``fused_transformer_layer`` (K1), ``fused_transformer_layer_bwd`` (K2) and
+``fused_mha`` (K3) launch hand-written CUDA kernels on CUDA tensors and use
+their plain versions on CPU tensors.
 """
 from .attention import fused_mha, mha_plain
 from .topk import topk
-from .transformer_layer import (fused_transformer_layer, supports_fused_layer,
+from .transformer_layer import (fused_transformer_layer, fused_transformer_layer_bwd,
+                                supports_fused_layer, transformer_layer_bwd_plain,
                                 transformer_layer_plain)
 
-KERNELS = (fused_transformer_layer, fused_mha)
+KERNELS = (fused_transformer_layer, fused_transformer_layer_bwd, fused_mha)
 
 
 def reset_launch_counts() -> None:
@@ -21,5 +23,6 @@ def launch_counts() -> dict:
 
 
 __all__ = ["fused_mha", "mha_plain", "topk", "fused_transformer_layer",
-           "supports_fused_layer", "transformer_layer_plain", "KERNELS",
+           "fused_transformer_layer_bwd", "supports_fused_layer",
+           "transformer_layer_bwd_plain", "transformer_layer_plain", "KERNELS",
            "reset_launch_counts", "launch_counts"]

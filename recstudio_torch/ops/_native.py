@@ -26,10 +26,16 @@ ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U64, _U32 = ctypes.c_ulonglong, ctypes.c_uint
+_DROP = [_U64, _U32, _F, _I]      # seed, 24-bit threshold, 1 / (1 - p), active
 _SIGNATURES = {
     "rs_mha_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
     "rs_transformer_layer_fwd": [_P] * 20 + [_I] * 6 + [_F, _F, _P],
+    "rs_transformer_layer_fwd_train": [_P] * 26 + [_I] * 6 + [_F, _F] + _DROP + [_P],
+    "rs_transformer_layer_bwd": [_P] * 34 + [_I] * 6 + [_F] + _DROP + [_P],
+    "rs_transformer_layer_bwd_workspace": [_I] * 5,
 }
+_RESTYPES = {"rs_transformer_layer_bwd_workspace": ctypes.c_longlong}
 
 
 class KernelLibrary:
@@ -43,7 +49,7 @@ class KernelLibrary:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
 
     def call(self, name: str, *args) -> None:
         """Call a launcher; raise if it reports a CUDA error."""

@@ -9,6 +9,9 @@ so a row whose keys are all masked stays finite.
   ``csrc/attention.cu`` (K3, replacing the Pallas ``_mha_kernel``) or
   raises; it counts its launches in ``fused_mha.launches``.
 - On a CPU tensor it computes the same function with ``mha_plain``.
+- It is differentiable: its backward recomputes through autograd of
+  ``mha_plain``, as the JAX package differentiates ``_fused_mha_core``
+  through ``mha_xla`` (``attention.py:381-389``); that is not a kernel.
 
 The JAX package sends Lk > 512 to a tiled flash kernel; that kernel (K4) is
 not ported yet, so the CUDA path refuses Lk > 512.
@@ -39,9 +42,11 @@ def additive_masks(key_padding_mask: Optional[torch.Tensor],
 
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               pad_add: Optional[torch.Tensor] = None,
-              attn_add: Optional[torch.Tensor] = None) -> torch.Tensor:
+              attn_add: Optional[torch.Tensor] = None,
+              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel. q, k, v: ``[B, H, L, Dh]``;
-    pad_add ``[B, Lk]``, attn_add ``[Lq, Lk]`` additive."""
+    pad_add ``[B, Lk]``, attn_add ``[Lq, Lk]`` additive; ``keep`` ``[B, H,
+    Lq, Lk]``, the dropout factors of the probabilities (training)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
     if attn_add is not None:
@@ -50,7 +55,8 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s + pad_add[:, None, None, :]
     s = torch.clamp_min(s, NEG)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    return torch.matmul(p, v) / p.sum(dim=-1, keepdim=True)
+    weights = p if keep is None else p * keep
+    return torch.matmul(weights, v) / p.sum(dim=-1, keepdim=True)
 
 
 def _check(t: torch.Tensor, name: str, shape, device) -> None:
@@ -89,6 +95,23 @@ def _mha_cuda(q, k, v, pad_add, attn_add) -> torch.Tensor:
     return out
 
 
+class _Mha(torch.autograd.Function):
+    """K3 forward; backward by autograd of ``mha_plain`` on the inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pad_add, attn_add):
+        ctx.save_for_backward(q, k, v)
+        ctx.masks = (pad_add, attn_add)
+        return _mha_cuda(q, k, v, pad_add, attn_add)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            grads = torch.autograd.grad(mha_plain(*qkv, *ctx.masks), qkv, g)
+        return (*grads, None, None)
+
+
 def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               key_padding_mask: Optional[torch.Tensor] = None,
               attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -103,7 +126,7 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return mha_plain(q, k, v, pad_add, attn_add)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return _mha_cuda(q, k, v, pad_add, attn_add)
+    return _Mha.apply(q, k, v, pad_add, attn_add)
 
 
 fused_mha.launches = 0

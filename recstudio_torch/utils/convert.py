@@ -8,6 +8,11 @@ port's weights ``[out, in]``, so kernels are transposed. The fused
 each block (``transformer_layer.py:244-246``), which is exactly the row
 order of the port's ``in_proj_weight [3D, D]``.
 
+Gradients share their parameters' layouts, so the same maps carry them:
+``params_to_jax`` of a ``{name: grad}`` dict (or ``layer_params_to_jax``
+for one layer) gives the JAX package's gradient tree, which is how the
+parity tests compare the two packages' gradients.
+
 ``random_sasrec_params`` draws a JAX-layout tree from a numpy seed, so the
 tests and ``chip_smoke.py`` can feed the same weights to both packages
 without JAX on the card.
@@ -42,6 +47,16 @@ def layer_params_from_jax(layer: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             for leaf, value in layer.items() for name, tr in [_LAYER_MAP[leaf]]}
 
 
+def layer_params_to_jax(layer: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """One layer's parameters (or gradients), port names -> JAX leaves."""
+    out = {}
+    for name, value in layer.items():
+        leaf, tr = _LAYER_UNMAP[name]
+        a = value.detach().cpu().numpy().astype(np.float32)
+        out[leaf] = a.T.copy() if tr else a
+    return out
+
+
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX SASRec params -> the port's ``state_dict`` (float32 CPU tensors)."""
     qe = tree["query_encoder"]
@@ -55,19 +70,20 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """The port's SASRec ``state_dict`` -> a JAX-layout tree of numpy arrays."""
+    """The port's SASRec ``state_dict`` (or its gradients by the same names)
+    -> a JAX-layout tree of numpy arrays."""
     a = lambda name: state_dict[name].detach().cpu().numpy().astype(np.float32)
-    layers = {}
+    layers: Dict[str, Dict[str, torch.Tensor]] = {}
     prefix = "query_encoder.transformer.layers."
     for key in state_dict:
         if key.startswith(prefix):
             i, name = key[len(prefix):].split(".", 1)
-            leaf, tr = _LAYER_UNMAP[name]
-            layers.setdefault(f"layer_{i}", {})[leaf] = a(key).T.copy() if tr else a(key)
+            layers.setdefault(f"layer_{i}", {})[name] = state_dict[key]
     return {"query_encoder": {
         "item_encoder": {"embedding": a("query_encoder.item_encoder.weight")},
         "pos_emb_table": a("query_encoder.pos_emb_table"),
-        "transformer": {f"layer_{i}": layers[f"layer_{i}"] for i in range(len(layers))}}}
+        "transformer": {f"layer_{i}": layer_params_to_jax(layers[f"layer_{i}"])
+                        for i in range(len(layers))}}}
 
 
 def random_sasrec_params(seed: int, num_items: int, embed_dim: int, max_seq_len: int,

@@ -89,3 +89,52 @@ def test_synthetic_dataset_loads(tmp_path):
     assert len(val.data_index) == len(tst.data_index) == 60
     batch = next(iter(tst.eval_loader(16)))
     assert batch["in_item_id"].shape == (16, 30)
+
+
+@pytest.mark.parametrize("which", ["first", "tail"])
+def test_train_loader_matches_jax(seq_pair, which):
+    """Unshuffled training batches equal the JAX loader's, the tail batch
+    wrapped to the epoch's head in both."""
+    (_, ours), (_, theirs) = seq_pair
+    got = list(ours[0].train_loader(512, shuffle=False))
+    want = list(theirs[0].train_loader(512, shuffle=False))
+    assert len(got) == len(want) == -(-len(ours[0].data_index) // 512)
+    g, w = (got[0], want[0]) if which == "first" else (got[-1], want[-1])
+    assert sorted(g) == sorted(w) and int(g["_size"]) == 512
+    for key in w:
+        assert g[key].dtype == w[key].dtype, key
+        np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+
+
+def test_device_batch_fn_matches_jax_pos_batch(seq_pair):
+    """The device-resident window gather gives the JAX package's
+    ``_get_pos_batch`` batch for the same indices (here on the CPU)."""
+    import torch
+    (_, ours), (_, theirs) = seq_pair
+    host, batch_fn = ours[0].device_epoch_arrays()
+    arrays = {k: torch.from_numpy(v) for k, v in host.items()}
+    n = len(ours[0].data_index)
+    sel = np.random.default_rng(0).integers(0, n, 300)
+    sel[:2] = [0, n - 1]
+    got = batch_fn(arrays, torch.from_numpy(sel))
+    want = theirs[0]._get_pos_batch(sel)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert str(got[key].dtype).replace("torch.", "") == str(want[key].dtype), key
+        np.testing.assert_array_equal(got[key].numpy(), want[key], err_msg=key)
+
+
+def test_device_staging_raises_instead_of_truncating(seq_pair):
+    import copy
+    (_, ours), _ = seq_pair
+    trn = copy.copy(ours[0])
+    trn._use_field = {trn.fuid}                    # nothing left to stage
+    with pytest.raises(ValueError, match="no interaction column"):
+        trn.device_epoch_arrays()
+    for col, match in ((np.full(ours[0].num_inters, 2 ** 31, np.int64), "outside int32"),
+                       (np.full(ours[0].num_inters, 0.1, np.float64), "not exact in float32")):
+        trn = copy.copy(ours[0])
+        trn.inter_feat = copy.copy(trn.inter_feat)
+        trn.inter_feat._data = dict(trn.inter_feat._data, rating=col)
+        with pytest.raises(ValueError, match=match):
+            trn.device_epoch_arrays()

@@ -6,14 +6,15 @@ card with ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q``
 Tolerances: float32 throughout (TF32 off); sums are taken in another order
 than PyTorch's, so results agree to float32 rounding, not bit for bit.
 """
-import math
-
 import numpy as np
 import pytest
 import torch
 
 from recstudio_torch.ops.attention import additive_masks, fused_mha, mha_plain
-from recstudio_torch.ops.transformer_layer import (fused_transformer_layer,
+from recstudio_torch.ops.transformer_layer import (PARAM_NAMES, fused_transformer_layer,
+                                                   fused_transformer_layer_bwd,
+                                                   training_residuals,
+                                                   transformer_layer_bwd_plain,
                                                    transformer_layer_plain)
 from recstudio_torch.utils.convert import layer_params_from_jax, random_sasrec_params
 
@@ -98,12 +99,59 @@ def test_fused_transformer_layer_matches_plain(dev, B, L, D, F, H, act, eps):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-def test_fused_transformer_layer_refuses_training_dropout(dev):
-    tree = random_sasrec_params(0, 2, 32, 1, 64, 1)
+@pytest.mark.parametrize("B,L,D,F,H,act,p", [
+    (5, 20, 64, 128, 2, "gelu", 0.5), (3, 200, 128, 128, 2, "gelu", 0.5),
+    (4, 37, 96, 160, 3, "relu", 0.2), (2, 24, 64, 128, 2, "gelu", 0.0)])
+def test_fused_layer_training_matches_plain(dev, B, L, D, F, H, act, p):
+    """K1 (training) and K2 against the plain forward and autograd through
+    it, with dropout on: the kernels regenerate the plain version's masks
+    from the same seed. Tolerance: K1 as eval; gradients atol 1e-4 times
+    their largest magnitude (float32 sums of up to B L terms)."""
+    rng = np.random.default_rng(B * L + 1)
+    tree = random_sasrec_params(L + 1, 2, D, 1, F, 1)
     params = {n: t.to(dev) for n, t in
               layer_params_from_jax(tree["query_encoder"]["transformer"]["layer_0"]).items()}
-    x = torch.zeros((2, 4, 32), device=dev)
-    with pytest.raises(NotImplementedError):
-        fused_transformer_layer(x, params, None, None, 2, 0.1, "gelu", 1e-12, True)
-    assert math.isfinite(float(
-        fused_transformer_layer(x, params, None, None, 2, 0.1, "gelu", 1e-12, False).sum()))
+    x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    pad, causal = _masks(rng, B, L, dev)
+    seed = 12345
+    k1, k2 = fused_transformer_layer.launches, fused_transformer_layer_bwd.launches
+    out, res = training_residuals(x, params, pad, causal, H, p, act, 1e-12, seed)
+    dx, grads = fused_transformer_layer_bwd(g, x, params, pad, causal, H, p, act, 1e-12, seed,
+                                            res)
+    torch.cuda.synchronize()
+    assert (fused_transformer_layer.launches, fused_transformer_layer_bwd.launches) == \
+        (k1 + 1, k2 + 1)
+    want = transformer_layer_plain(x, params, pad, causal, H, act, 1e-12, p, seed, True)
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+    wdx, wgrads = transformer_layer_bwd_plain(g, x, params, pad, causal, H, p, act, 1e-12, seed)
+    torch.testing.assert_close(dx, wdx, rtol=1e-4, atol=1e-4 * float(wdx.abs().max()))
+    for name in PARAM_NAMES:
+        torch.testing.assert_close(grads[name], wgrads[name], rtol=1e-4,
+                                   atol=1e-4 * max(float(wgrads[name].abs().max()), 1e-3),
+                                   msg=name)
+    dx2, grads2 = fused_transformer_layer_bwd(g, x, params, pad, causal, H, p, act, 1e-12,
+                                              seed, res)
+    assert torch.equal(dx, dx2)                   # no atomics: bitwise repeatable
+    assert all(torch.equal(grads[n], grads2[n]) for n in PARAM_NAMES)
+
+
+def test_fused_layer_autograd_and_eval_path(dev):
+    """In training mode the entry point is differentiable through K2; in
+    eval mode it still launches the eval kernel, ignoring the seed."""
+    tree = random_sasrec_params(0, 2, 32, 1, 64, 1)
+    params = {n: t.to(dev).requires_grad_() for n, t in
+              layer_params_from_jax(tree["query_encoder"]["transformer"]["layer_0"]).items()}
+    x = torch.randn((2, 4, 32), device=dev, requires_grad=True)
+    before = fused_transformer_layer_bwd.launches
+    fused_transformer_layer(x, params, None, None, 2, 0.1, "gelu", 1e-12, True, 5).sum().backward()
+    torch.cuda.synchronize()
+    assert fused_transformer_layer_bwd.launches == before + 1
+    assert torch.isfinite(x.grad).all() and all(torch.isfinite(p.grad).all()
+                                                for p in params.values())
+    with torch.no_grad():
+        a = fused_transformer_layer(x, params, None, None, 2, 0.1, "gelu", 1e-12, False, 5)
+        b = fused_transformer_layer(x, params, None, None, 2, 0.1, "gelu", 1e-12, False, 6)
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        fused_transformer_layer(x.double(), params, None, None, 2, 0.1, "gelu", 1e-12, True, 5)

@@ -170,9 +170,15 @@ def test_transformer_layer_module_matches_jax(L, D, H, F):
 
 
 def test_training_mode_is_refused():
+    """Training-mode dropout needs the model's generator for its seeds, and
+    per-example attention masks are not ported; both are refused."""
     mod = TransformerLayer(16, 2, 32, 0.1, "gelu", 1e-12)   # nn.Module starts in training mode
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="torch.Generator"):
         mod(torch.zeros(1, 4, 16))
+    with pytest.raises(NotImplementedError):
+        mod(torch.zeros(1, 4, 16), attn_mask=torch.zeros((1, 4, 4), dtype=torch.bool),
+            rng=torch.Generator())
+    assert mod(torch.zeros(1, 4, 16), rng=torch.Generator()).shape == (1, 4, 16)
 
 
 @pytest.mark.parametrize("pooling", ["last", "mean", "sum", "max"])

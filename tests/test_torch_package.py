@@ -71,12 +71,20 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_cpu_wrappers_use_the_plain_version_and_count_nothing():
-    from recstudio_torch.ops import (fused_mha, fused_transformer_layer, launch_counts,
+    from recstudio_torch.ops import (fused_mha, fused_transformer_layer,
+                                     fused_transformer_layer_bwd, launch_counts,
                                      reset_launch_counts)
+    from recstudio_torch.ops.transformer_layer import param_shapes
     reset_launch_counts()
     q = torch.randn(1, 1, 4, 8)
     fused_mha(q, q, q)
-    assert launch_counts() == {"fused_transformer_layer": 0, "fused_mha": 0}
+    x = torch.randn(1, 4, 8)
+    params = {n: torch.randn(shape) for n, shape in param_shapes(8, 16).items()}
+    fused_transformer_layer(x, params, None, None, 2, 0.5, "gelu", 1e-12, True, 3)
+    fused_transformer_layer_bwd(torch.ones_like(x), x, params, None, None, 2, 0.5, "gelu",
+                                1e-12, 3)
+    assert launch_counts() == {"fused_transformer_layer": 0,
+                               "fused_transformer_layer_bwd": 0, "fused_mha": 0}
     assert fused_transformer_layer.launches == 0
 
 
