@@ -31,6 +31,19 @@ then:
   sasrec_ml100k_train_reference.json``), then 8 requests served through
   ``Predictor`` from the trained model, whose lists must give the same
   NDCG@10 as ``evaluate``;
+- phase F: BERT4Rec training and serving at the paper's ML-1m settings (L
+  200, d 64, F 128, 2 heads, 2 layers, dropout 0.2, mask ratio 0.2, batch
+  256) on the synthetic ml-1m shape: 20 timed optimizer steps (K1 and K2
+  with no attention mask, the catalog log-partition kernels K7, K8, K9),
+  one step's loss and gradients held against the plain path and its loss
+  against the materialized path (``train.fused_softmax: false``), then
+  every user served through ``Predictor(max_batch=256, k=20)`` with the
+  first two requests held to the plain path;
+- phase G: ``fit`` BERT4Rec on ml-100k at the repo's config for the epochs
+  of its JAX training reference, ``evaluate(test)``, test NDCG@10 held to
+  the JAX seeds' band (``recstudio_torch/assets/
+  bert4rec_ml100k_train_reference.json``), then 8 served requests whose
+  lists must give ``evaluate``'s NDCG@10;
 - each kernel against its plain PyTorch version on the phases' shapes,
   with its time, the plain version's, PyTorch's own call where one exists,
   and the card's bound for the same work.
@@ -41,8 +54,8 @@ non-zero. The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import itertools
 import json
-import math
 import os
 import subprocess
 import sys
@@ -52,6 +65,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 REFERENCE = os.path.join(REPO, "recstudio_torch", "assets", "sasrec_ml100k_reference.json")
 TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
                                "sasrec_ml100k_train_reference.json")
+BERT4REC_TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
+                                        "bert4rec_ml100k_train_reference.json")
 SAVE_DIR = os.path.join(REPO, "build", "recstudio_torch", "saved")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor
@@ -67,6 +82,9 @@ TOL_SCORES = 1e-4          # served scores: dot products of O(1) vectors, d <= 1
 TOL_GRAD = (1e-4, 1e-3)    # (atol as a share of max |g|, rtol)
 TOL_LOSS = 1e-5            # phase D loss, relative
 TOL_METRIC = 1e-6          # phase E: served NDCG@10 against evaluate()'s
+# logZ (K7): logsumexp of up to 500,000 float32 terms, each thread summing
+# its share in order; values near 10
+TOL_LOGZ = (1e-4, 1e-5)
 
 
 class SmokeFailure(Exception):
@@ -109,11 +127,15 @@ def bound(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def attended_pairs(pad, attn) -> int:
+def attended_pairs(pad, attn=None) -> int:
     """(example, query, key) triples that attention must weigh on these
-    masks: the allowed keys of each query row, or all Lk keys of a row whose
-    keys are all masked (it averages them). Masked-out pairs need no work."""
-    allowed = ~(attn[None] | pad[:, None, :])            # [B, Lq, Lk]
+    masks (``attn`` None: no attention mask): the allowed keys of each
+    query row, or all Lk keys of a row whose keys are all masked (it
+    averages them). Masked-out pairs need no work."""
+    L = pad.shape[1]
+    allowed = ~pad[:, None, :].expand(-1, L, -1)         # [B, Lq, Lk]
+    if attn is not None:
+        allowed = allowed & ~attn[None]
     per_row = allowed.sum(-1)
     return int(per_row.masked_fill(per_row == 0, pad.shape[1]).sum())
 
@@ -337,39 +359,38 @@ def grad_errors(got, want):
     return max_abs, ok
 
 
-def phase_d(device):
-    """SASRec training at full width: timed steps, and one step held to the
-    plain path."""
-    import numpy as np
-    import torch
+def training_model(device, model_name, batch_size, **model_conf):
+    """``model_name`` on the synthetic ml-1m shape at L 200, seed 7, ready
+    for optimizer steps on device-resident batches: (model, conf, dataset,
+    test split, dataset name, ETL seconds)."""
     from recstudio_torch.data.synthetic import SHAPES, generate
     from recstudio_torch.utils import get_model
     t0 = time.perf_counter()
     name, config = generate("ml-1m-shape", *SHAPES["ml-1m-shape"], seed=7)
     config["max_seq_len"] = 200
-    cls, conf = get_model("SASRec")
-    conf["model"]["embed_dim"] = 128
-    conf["train"].update(batch_size=1024, seed=7)
+    cls, conf = get_model(model_name)
+    conf["model"].update(model_conf)
+    conf["train"].update(batch_size=batch_size, seed=7)
     ds = cls._get_dataset_class()(name, config=config)
-    trn, _, _ = ds.build(**conf["data"])
+    trn, _, tst = ds.build(**conf["data"])
     model = cls(conf, device=device)
     model._init_model(trn)
     model._init_parameter(trn)
     model.optimizer = model._get_optimizer()
     model._setup_scan_epoch(trn)
-    etl_s = time.perf_counter() - t0
-    mc = conf["model"]
-    shape = dict(B=conf["train"]["batch_size"], L=ds.max_seq_len, D=model.embed_dim,
-                 F=mc["hidden_size"],
-                 H=mc["head_num"], layers=mc["layer_num"], dropout=mc["dropout_rate"])
-    check(shape == dict(B=1024, L=200, D=128, F=128, H=2, layers=2, dropout=0.5),
-          f"phase D config {shape}")
-    batches = model._epoch_batches()
+    return model, conf, ds, tst, name, time.perf_counter() - t0
+
+
+def timed_steps(model, batches, n=20, warmup=3):
+    """``warmup`` optimizer steps, then ``n`` timed ones (host clock around
+    ``_grad_step`` and a synchronize): (the timed batches, sorted step ms,
+    losses, launch counts of the timed steps)."""
+    import torch
     model.net.train()
-    for _ in range(3):                                  # warm-up (allocator, first launches)
+    for _ in range(warmup):                             # allocator, first launches
         model._grad_step(next(batches))
     torch.cuda.synchronize()
-    steps = [next(batches) for _ in range(20)]
+    steps = [next(batches) for _ in range(n)]
 
     def run():
         times, losses = [], []
@@ -381,38 +402,62 @@ def phase_d(device):
         return times, torch.stack(losses)
 
     (times, losses), counts = counted(run)
-    times = sorted(times)
+    return steps, sorted(times), losses, counts
+
+
+def path_loss_and_grads(model, batch, states, set_path, *path):
+    """One training step's loss and gradients from the generator ``states``
+    on the path that ``set_path(*path)`` selects."""
+    model.generator.set_state(states[0])
+    model.device_generator.set_state(states[1])
+    set_path(*path)
+    model.net.zero_grad(set_to_none=True)
+    loss = model.training_step(batch)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                                  for n, p in model.net.named_parameters()}
+
+
+def input_mask_ms(device, B, L, D, p):
+    """Time of the step's one plain-PyTorch mask: the embedded sequence's
+    dropout (``ops/dropout.keep_scale``)."""
+    from recstudio_torch.ops.dropout import SITE_INPUT, keep_scale
+    return time_ms(lambda: keep_scale((B, L, D), p, 1, SITE_INPUT, device), iters=5)
+
+
+def phase_d(device):
+    """SASRec training at full width: timed steps, and one step held to the
+    plain path."""
+    import torch
+    model, conf, ds, _, name, etl_s = training_model(device, "SASRec", 1024, embed_dim=128)
+    mc = conf["model"]
+    shape = dict(B=conf["train"]["batch_size"], L=ds.max_seq_len, D=model.embed_dim,
+                 F=mc["hidden_size"],
+                 H=mc["head_num"], layers=mc["layer_num"], dropout=mc["dropout_rate"])
+    check(shape == dict(B=1024, L=200, D=128, F=128, H=2, layers=2, dropout=0.5),
+          f"phase D config {shape}")
+    batches = model._epoch_batches()
+    _, times, losses, counts = timed_steps(model, batches)
 
     # one step's loss and gradients, kernel path against plain path
     batch = next(batches)
     layers = model.query_encoder.transformer.layers
     states = (model.generator.get_state(), model.device_generator.get_state())
 
-    def loss_and_grads(plain):
-        model.generator.set_state(states[0])
-        model.device_generator.set_state(states[1])
+    def set_path(plain):
         for layer in layers:
             layer.plain = plain
-        model.net.zero_grad(set_to_none=True)
-        loss = model.training_step(batch)
-        loss.backward()
-        return float(loss.detach()), {n: p.grad.detach().clone()
-                                      for n, p in model.net.named_parameters()}
 
-    loss_k, grads_k = loss_and_grads(False)
-    loss_p, grads_p = loss_and_grads(True)
-    for layer in layers:
-        layer.plain = False
+    loss_k, grads_k = path_loss_and_grads(model, batch, states, set_path, False)
+    loss_p, grads_p = path_loss_and_grads(model, batch, states, set_path, True)
+    set_path(False)
     model.net.eval()
     max_abs, ok = grad_errors(grads_k, grads_p)
     p50 = times[len(times) // 2]
-    # the step's one plain-PyTorch mask at this shape: the embedded sequence's dropout
-    from recstudio_torch.ops.dropout import SITE_INPUT, keep_scale
-    input_mask_ms = time_ms(lambda: keep_scale((1024, shape["L"], shape["D"]), 0.5, 1,
-                                               SITE_INPUT, device), iters=5)
     out = {"phase": "D", "dataset": name, "shape": shape, "etl_s": etl_s, "steps": len(times),
            "launches": counts, "step_ms_p50": p50, "step_ms_max": times[-1],
-           "examples_per_s": 1024 / (p50 / 1e3), "input_dropout_mask_ms": input_mask_ms,
+           "examples_per_s": 1024 / (p50 / 1e3),
+           "input_dropout_mask_ms": input_mask_ms(device, 1024, shape["L"], shape["D"], 0.5),
            "loss_first": float(losses[0]),
            "loss_last": float(losses[-1]), "plain_loss": loss_p, "kernel_loss": loss_k,
            "grad_max_abs_err": max_abs, "grad_tol": TOL_GRAD, "loss_tol": TOL_LOSS,
@@ -426,26 +471,27 @@ def phase_d(device):
     return out
 
 
-def phase_e(device):
-    """fit + evaluate on ml-100k at the repo's config, then serve."""
+def fit_phase(device, tag, model_name, reference, dropout_key, expected, kernels):
+    """fit + evaluate on ml-100k at the repo's config for the reference's
+    epochs, test NDCG@10 held to the JAX seeds' band, then 8 requests served
+    from the trained weights."""
     import numpy as np
-    import torch
     from recstudio_torch.serving import Predictor
     from recstudio_torch.utils import get_model
-    with open(TRAIN_REFERENCE) as f:
+    with open(reference) as f:
         ref = json.load(f)
-    cls, conf = get_model("SASRec")
+    cls, conf = get_model(model_name)
     conf["train"]["epochs"] = ref["epochs"]
     conf["eval"]["save_path"] = SAVE_DIR
     ds = cls._get_dataset_class()("ml-100k")
     trn, val, tst = ds.build(**conf["data"])
     model = cls(conf, device=device)
-    mc = conf["model"]
+    mc, tc = conf["model"], conf["train"]
     shape = dict(embed_dim=model.embed_dim, hidden=mc["hidden_size"], heads=mc["head_num"],
-                 layers=mc["layer_num"], dropout=mc["dropout_rate"], L=ds.max_seq_len,
-                 batch=conf["train"]["batch_size"], epochs=conf["train"]["epochs"])
-    check(shape == dict(embed_dim=64, hidden=128, heads=2, layers=2, dropout=0.5, L=20,
-                        batch=512, epochs=ref["epochs"]), f"phase E config {shape}")
+                 layers=mc["layer_num"], dropout=mc[dropout_key],
+                 L=ds.max_seq_len, batch=tc["batch_size"], epochs=tc["epochs"])
+    shape.update({k: tc[k] for k in ("mask_ratio", "weight_decay") if k in expected})
+    check(shape == dict(expected, epochs=ref["epochs"]), f"phase {tag} config {shape}")
 
     def drive():
         t0 = time.perf_counter()
@@ -459,28 +505,143 @@ def phase_e(device):
     (fit_s, result, pred, (scores, ids, targets)), counts = counted(drive)
     served = rank_metrics(ids, targets)
     lo, hi = ref["ndcg@10_band"]
-    out = {"phase": "E", "dataset": "ml-100k", "config": shape, "launches": counts,
-           "fit_s": fit_s, "epochs": [{k: (round(v, 6) if isinstance(v, float) else v)
-                                       for k, v in e.items()} for e in model.epoch_log],
+    out = {"phase": tag, "model": model_name, "dataset": "ml-100k", "config": shape,
+           "launches": counts, "fit_s": fit_s,
+           "epochs": [{k: (round(v, 6) if isinstance(v, float) else v)
+                       for k, v in e.items()} for e in model.epoch_log],
            "test_ndcg@10": result["ndcg@10"], "test_recall@10": result["recall@10"],
            "jax_band_ndcg@10": [lo, hi], "jax_runs": ref["runs"],
            "requests": pred.stats()["requests"], "served_ndcg@10": served["ndcg@10"],
            "served_recall@10": served["recall@10"], **{"serve_" + k: v for k, v in
                                                        pred.stats().items()}}
+    if "untrained_ndcg@10" in ref:
+        out["jax_untrained_ndcg@10"] = ref["untrained_ndcg@10"]
     emit("PHASE", out)
-    check(counts["fused_transformer_layer_bwd"] > 0, "phase E launched no fused backward")
-    check(all(np.isfinite(e["train_loss"]) for e in model.epoch_log), "phase E loss")
+    for name in kernels:
+        check(counts[name] > 0, f"phase {tag} launched no {name}")
+    check(all(np.isfinite(e["train_loss"]) for e in model.epoch_log), f"phase {tag} loss")
     check(lo <= result["ndcg@10"] <= hi,
-          f"phase E test NDCG@10 {result['ndcg@10']} outside the JAX band [{lo}, {hi}]")
-    check(pred.stats()["requests"] == 8, "phase E served other than 8 requests")
+          f"phase {tag} test NDCG@10 {result['ndcg@10']} outside the JAX band [{lo}, {hi}]")
+    check(pred.stats()["requests"] == 8, f"phase {tag} served other than 8 requests")
     check(abs(served["ndcg@10"] - result["ndcg@10"]) <= TOL_METRIC and
           abs(served["recall@10"] - result["recall@10"]) <= TOL_METRIC,
-          "phase E: served lists do not come from the evaluated (trained) weights")
+          f"phase {tag}: served lists do not come from the evaluated (trained) weights")
     return out
 
 
+def phase_e(device):
+    """SASRec: fit + evaluate on ml-100k at the repo's config, then serve."""
+    return fit_phase(device, "E", "SASRec", TRAIN_REFERENCE, "dropout_rate",
+                     dict(embed_dim=64, hidden=128, heads=2, layers=2, dropout=0.5, L=20,
+                          batch=512), ["fused_transformer_layer_bwd"])
+
+
+def phase_f(device):
+    """BERT4Rec training and serving at full width: timed steps, one step
+    held to the plain path and to the materialized path, every user served."""
+    import numpy as np
+    import torch
+    from recstudio_torch.serving import Predictor
+    from recstudio_torch.utils.parity import topk_mismatches
+    model, conf, ds, tst, name, etl_s = training_model(device, "BERT4Rec", 256)
+    mc, tc = conf["model"], conf["train"]
+    shape = dict(B=tc["batch_size"], L=ds.max_seq_len, D=model.embed_dim, F=mc["hidden_size"],
+                 H=mc["head_num"], layers=mc["layer_num"], dropout=mc["dropout"],
+                 mask_ratio=tc["mask_ratio"], items=ds.num_items - 1)
+    check(shape == dict(B=256, L=200, D=64, F=128, H=2, layers=2, dropout=0.2, mask_ratio=0.2,
+                        items=3706), f"phase F config {shape}")
+    check(model._use_fused_softmax(), "phase F does not take the fused softmax step")
+    torch.cuda.reset_peak_memory_stats()
+    steps, times, losses, train_counts = timed_steps(model, model._epoch_batches())
+    step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # one step's loss and gradients on the kernel path, held to the plain
+    # path (plain layers, materialized scores with their autograd backward)
+    # and to the kernel layers with materialized scores
+    batch = steps[-1]
+    layers = model.query_encoder.transformer.layers
+    states = (model.generator.get_state(), model.device_generator.get_state())
+
+    def set_path(plain, fused="auto"):
+        for layer in layers:
+            layer.plain = plain
+        model.config["train"]["fused_softmax"] = fused
+
+    torch.cuda.reset_peak_memory_stats()
+    loss_k, grads_k = path_loss_and_grads(model, batch, states, set_path, False)
+    loss_p, grads_p = path_loss_and_grads(model, batch, states, set_path, True, "false")
+    loss_m, _ = path_loss_and_grads(model, batch, states, set_path, False, "false")
+    compare_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    set_path(False)
+    model.net.eval()
+    max_abs, ok = grad_errors(grads_k, grads_p)
+    del grads_k, grads_p
+
+    pred = Predictor(model, max_batch=256, k=20, train_data=tst).warm()
+    (scores, ids, targets), serve_counts = counted(lambda: serve_split(pred, model, tst, 256))
+    stats = pred.stats()
+    bad = n_cmp = 0
+    max_diff = 0.0
+    for batch in itertools.islice(tst.eval_loader(256), 2):
+        req = {f: batch[f] for f in sorted(model.query_fields)}
+        s_k, i_k = pred(req)
+        for layer in layers:
+            layer.plain = True
+        s_p, i_p = pred(req)
+        for layer in layers:
+            layer.plain = False
+        bad += topk_mismatches(i_k, s_k, i_p, s_p, TOL_SCORES)
+        max_diff = max(max_diff, float(np.abs(s_k - s_p).max()))
+        n_cmp += len(i_k)
+    counts = {k: train_counts[k] + serve_counts[k] for k in train_counts}
+    p50 = times[len(times) // 2]
+    out = {"phase": "F", "model": "BERT4Rec", "dataset": name, "shape": shape, "etl_s": etl_s,
+           "steps": len(times), "launches": counts, "train_launches": train_counts,
+           "step_ms_p50": p50, "step_ms_max": times[-1],
+           "examples_per_s": shape["B"] / (p50 / 1e3),
+           "input_dropout_mask_ms": input_mask_ms(device, shape["B"], shape["L"], shape["D"],
+                                                  shape["dropout"]),
+           "loss_first": float(losses[0]),
+           "loss_last": float(losses[-1]), "kernel_loss": loss_k, "plain_loss": loss_p,
+           "materialized_loss": loss_m, "grad_max_abs_err": max_abs, "grad_tol": TOL_GRAD,
+           "loss_tol": TOL_LOSS, "peak_mem_gb": step_peak, "compare_peak_mem_gb": compare_peak,
+           "served": len(ids), **{"serve_" + k: v for k, v in stats.items()},
+           **rank_metrics(ids, targets), "plain_rows": n_cmp, "plain_rows_disagreeing": bad,
+           "plain_max_score_diff": max_diff, "tol": TOL_SCORES}
+    emit("PHASE", out)
+    for kernel in ("fused_transformer_layer", "fused_transformer_layer_bwd",
+                   "catalog_logsumexp_fwd", "catalog_logsumexp_dq", "catalog_logsumexp_ditems"):
+        check(train_counts[kernel] > 0, f"phase F training launched no {kernel}")
+    check(serve_counts["fused_transformer_layer"] > 0, "phase F serving launched no fused layer")
+    check(bool(torch.isfinite(losses).all()), "phase F loss not finite")
+    check(abs(loss_k - loss_p) <= TOL_LOSS * abs(loss_p), f"phase F loss {loss_k} vs {loss_p}")
+    check(abs(loss_k - loss_m) <= TOL_LOSS * abs(loss_m),
+          f"phase F loss {loss_k} vs the materialized path's {loss_m}")
+    check(ok, f"phase F gradients disagree with the plain path: {max_abs}")
+    check(np.isfinite(scores).all() and scores.shape == (len(tst.data_index), 20),
+          "phase F scores")
+    check(bad == 0, f"phase F: {bad} of {n_cmp} lists differ between kernel and plain paths")
+    return out
+
+
+def phase_g(device):
+    """BERT4Rec: fit + evaluate on ml-100k at the repo's config, then serve."""
+    return fit_phase(device, "G", "BERT4Rec", BERT4REC_TRAIN_REFERENCE, "dropout",
+                     dict(embed_dim=64, hidden=128, heads=2, layers=2, dropout=0.2, L=20,
+                          batch=512, mask_ratio=0.2, weight_decay=1e-5),
+                     ["fused_transformer_layer", "fused_transformer_layer_bwd",
+                      "catalog_logsumexp_fwd", "catalog_logsumexp_dq",
+                      "catalog_logsumexp_ditems"])
+
+
 # ---------------------------------------------------------------------------
-def k1_versus_plain(device, B, L, D, F, H):
+def causal_mask(L, device, causal=True):
+    """The causal attention mask (True = disallow), or None (bidirectional)."""
+    import torch
+    return torch.triu(torch.ones((L, L), dtype=torch.bool, device=device), 1) if causal else None
+
+
+def k1_versus_plain(device, B, L, D, F, H, causal=True):
     import numpy as np
     import torch
     from recstudio_torch.ops.transformer_layer import (fused_transformer_layer,
@@ -491,18 +652,19 @@ def k1_versus_plain(device, B, L, D, F, H):
     params = layer_params(tree["query_encoder"]["transformer"]["layer_0"], device)
     x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(device)
     pad = torch.from_numpy(right_padding(rng, B, L)).to(device)
-    causal = torch.triu(torch.ones((L, L), dtype=torch.bool, device=device), 1)
-    kern = lambda: fused_transformer_layer(x, params, pad, causal, H, 0.0, "gelu", 1e-12, False)
-    plain = lambda: transformer_layer_plain(x, params, pad, causal, H, "gelu", 1e-12)
+    attn = causal_mask(L, device, causal)
+    kern = lambda: fused_transformer_layer(x, params, pad, attn, H, 0.0, "gelu", 1e-12, False)
+    plain = lambda: transformer_layer_plain(x, params, pad, attn, H, "gelu", 1e-12)
     with torch.no_grad():
         got, want = kern(), plain()
         torch.cuda.synchronize()
         max_abs, max_rel, ok = errors(got, want, TOL_K1)
         ms, plain_ms = time_ms(kern), time_ms(plain)
-    flops = 2 * B * L * D * (3 * D + D + 2 * F) + 4 * attended_pairs(pad, causal) * D
-    nbytes = 4 * (2 * B * L * D + 4 * D * D + 2 * D * F + 9 * D + F + B * L + L * L)
+    flops = 2 * B * L * D * (3 * D + D + 2 * F) + 4 * attended_pairs(pad, attn) * D
+    nbytes = 4 * (2 * B * L * D + 4 * D * D + 2 * D * F + 9 * D + F + B * L
+                  + (L * L if causal else 0))
     b_ms, by = bound(flops, nbytes)
-    return {"shape": dict(B=B, L=L, D=D, F=F, H=H), "max_abs_err": max_abs,
+    return {"shape": dict(B=B, L=L, D=D, F=F, H=H, causal=causal), "max_abs_err": max_abs,
             "max_rel_err": max_rel, "tol": TOL_K1, "ok": ok, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
 
@@ -540,7 +702,9 @@ def k3_versus_plain(device, B, H, L, Dh):
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
 
 
-def layer_inputs(device, B, L, D, F, seed):
+def layer_inputs(device, B, L, D, F, seed, causal=True):
+    """Seeded layer weights, x, an output gradient g, right padding and the
+    attention mask (None unless ``causal``)."""
     import numpy as np
     import torch
     from recstudio_torch.utils.convert import random_sasrec_params
@@ -550,19 +714,18 @@ def layer_inputs(device, B, L, D, F, seed):
     x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(device)
     g = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(device)
     pad = torch.from_numpy(right_padding(rng, B, L)).to(device)
-    causal = torch.triu(torch.ones((L, L), dtype=torch.bool, device=device), 1)
-    return params, x, g, pad, causal
+    return params, x, g, pad, causal_mask(L, device, causal)
 
 
-def k1_train_versus_plain(device, B, L, D, F, H, p=0.5, seed=2026):
+def k1_train_versus_plain(device, B, L, D, F, H, p=0.5, seed=2026, causal=True):
     """K1 in training mode (dropout on) against the plain forward with the
     same masks."""
     import torch
     from recstudio_torch.ops.transformer_layer import (training_residuals,
                                                        transformer_layer_plain)
-    params, x, _, pad, causal = layer_inputs(device, B, L, D, F, B + L + 2)
-    kern = lambda: training_residuals(x, params, pad, causal, H, p, "gelu", 1e-12, seed)[0]
-    plain = lambda: transformer_layer_plain(x, params, pad, causal, H, "gelu", 1e-12, p, seed,
+    params, x, _, pad, attn = layer_inputs(device, B, L, D, F, B + L + 2, causal)
+    kern = lambda: training_residuals(x, params, pad, attn, H, p, "gelu", 1e-12, seed)[0]
+    plain = lambda: transformer_layer_plain(x, params, pad, attn, H, "gelu", 1e-12, p, seed,
                                             True)
     with torch.no_grad():
         got, want = kern(), plain()
@@ -570,27 +733,28 @@ def k1_train_versus_plain(device, B, L, D, F, H, p=0.5, seed=2026):
         max_abs, max_rel, ok = errors(got, want, TOL_K1)
         ms, plain_ms = time_ms(kern), time_ms(plain, iters=5)
     M = B * L
-    flops = 2 * M * D * (3 * D + D + 2 * F) + 4 * attended_pairs(pad, causal) * D
+    flops = 2 * M * D * (3 * D + D + 2 * F) + 4 * attended_pairs(pad, attn) * D
     weights = 4 * D * D + 2 * D * F + 9 * D + F
     # x, weights, masks in; out and the residuals of K2 out
-    nbytes = 4 * (M * D + weights + B * L + L * L + M * D
+    nbytes = 4 * (M * D + weights + B * L + (L * L if causal else 0) + M * D
                   + M * (3 * D + 4 * D + 2 * F + 2) + B * H * L * 2)
     b_ms, by = bound(flops, nbytes)
-    return {"shape": dict(B=B, L=L, D=D, F=F, H=H, dropout=p), "max_abs_err": max_abs,
+    return {"shape": dict(B=B, L=L, D=D, F=F, H=H, dropout=p, causal=causal),
+            "max_abs_err": max_abs,
             "max_rel_err": max_rel, "tol": TOL_K1, "ok": ok, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
 
 
-def k2_versus_plain(device, B, L, D, F, H, p=0.5, seed=2027):
+def k2_versus_plain(device, B, L, D, F, H, p=0.5, seed=2027, causal=True):
     """K2 (dropout on) against autograd through the plain forward with the
     same masks; the plain time is the autograd backward alone."""
     import torch
     from recstudio_torch.ops.transformer_layer import (PARAM_NAMES, fused_transformer_layer_bwd,
                                                        training_residuals,
                                                        transformer_layer_plain)
-    params, x, g, pad, causal = layer_inputs(device, B, L, D, F, B + L + 3)
-    _, res = training_residuals(x, params, pad, causal, H, p, "gelu", 1e-12, seed)
-    kern = lambda: fused_transformer_layer_bwd(g, x, params, pad, causal, H, p, "gelu", 1e-12,
+    params, x, g, pad, attn = layer_inputs(device, B, L, D, F, B + L + 3, causal)
+    _, res = training_residuals(x, params, pad, attn, H, p, "gelu", 1e-12, seed)
+    kern = lambda: fused_transformer_layer_bwd(g, x, params, pad, attn, H, p, "gelu", 1e-12,
                                                seed, res)
     dx, grads = kern()
     dx2, grads2 = kern()
@@ -598,7 +762,7 @@ def k2_versus_plain(device, B, L, D, F, H, p=0.5, seed=2027):
     bitwise = torch.equal(dx, dx2) and all(torch.equal(grads[n], grads2[n]) for n in PARAM_NAMES)
     xs = x.detach().requires_grad_()
     ps = {n: params[n].detach().requires_grad_() for n in PARAM_NAMES}
-    out = transformer_layer_plain(xs, ps, pad, causal, H, "gelu", 1e-12, p, seed, True)
+    out = transformer_layer_plain(xs, ps, pad, attn, H, "gelu", 1e-12, p, seed, True)
     inputs = [xs, *(ps[n] for n in PARAM_NAMES)]
     plain = lambda: torch.autograd.grad(out, inputs, g, retain_graph=True)
     want = plain()
@@ -606,16 +770,83 @@ def k2_versus_plain(device, B, L, D, F, H, p=0.5, seed=2027):
                                                                             want[1:]))})
     ms, plain_ms = time_ms(kern), time_ms(plain, iters=5)
     M = B * L
-    flops = 2 * 2 * M * D * (3 * D + D + 2 * F) + 8 * attended_pairs(pad, causal) * D
+    flops = 2 * 2 * M * D * (3 * D + D + 2 * F) + 8 * attended_pairs(pad, attn) * D
     weights = 4 * D * D + 2 * D * F + 9 * D + F
     # x, masks, weights, the residuals and g in; dx and the twelve gradients out
-    nbytes = 4 * (M * D + B * L + L * L + weights + M * (3 * D + 4 * D + 2 * F + 2)
-                  + B * H * L * 2 + M * D + M * D + weights)
+    nbytes = 4 * (M * D + B * L + (L * L if causal else 0) + weights
+                  + M * (3 * D + 4 * D + 2 * F + 2) + B * H * L * 2 + M * D + M * D + weights)
     b_ms, by = bound(flops, nbytes)
-    return {"shape": dict(B=B, L=L, D=D, F=F, H=H, dropout=p), "max_abs_err": max_abs,
+    return {"shape": dict(B=B, L=L, D=D, F=F, H=H, dropout=p, causal=causal),
+            "max_abs_err": max_abs,
             "tol": TOL_GRAD, "ok": ok and bitwise, "bitwise_repeatable": bitwise, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": by,
             "gflop": flops / 1e9}
+
+
+def clse_inputs(device, M, N, D, seed):
+    """Query rows and a catalog at the scale of a trained model's, and the
+    cotangent of a BERT4Rec batch: nonzero (1 / count) on a fifth of the
+    rows, zero on the rest."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(M, D)).astype(np.float32)
+    items = rng.normal(0.0, 0.3, size=(N, D)).astype(np.float32)
+    keep = rng.random(M) < 0.2
+    g = np.where(keep, 1.0 / max(int(keep.sum()), 1), 0.0).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (q, items, g))
+
+
+def clse_versus_plain(device, M, N, D, seed=2028):
+    """K7, K8 and K9 against their plain versions at one shape: rows for
+    each, K8 and K9 also repeated bit for bit. The plain versions are
+    cuBLAS float32 (TF32 off) and ``torch.logsumexp``. K8's library time is
+    float32 ``scaled_dot_product_attention`` of the query rows over the
+    catalog as keys and values, ``softmax(q items^T) items``: all of K8's
+    arithmetic but the scale by g. No single PyTorch call computes logZ
+    alone (K7) or ``P^T (g o q)`` alone (K9)."""
+    import torch
+    from recstudio_torch.ops.softmax_z import (catalog_logsumexp_ditems,
+                                               catalog_logsumexp_ditems_plain,
+                                               catalog_logsumexp_dq, catalog_logsumexp_dq_plain,
+                                               catalog_logsumexp_fwd, catalog_logsumexp_plain)
+    q, items, g = clse_inputs(device, M, N, D, seed)
+    shape = dict(M=M, N=N, D=D)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[None, None], items[None, None], items[None, None], scale=1.0)
+    libraries = {"K8": sdpa, "K9": None}
+    rows = {}
+    with torch.no_grad():
+        logz = catalog_logsumexp_fwd(q, items)
+        want = catalog_logsumexp_plain(q, items)
+        torch.cuda.synchronize()
+        max_abs, max_rel, ok = errors(logz, want, TOL_LOGZ)
+        b_ms, by = bound(2 * M * N * D, 4 * (M * D + N * D + M))
+        rows["K7"] = {"shape": shape, "max_abs_err": max_abs, "max_rel_err": max_rel,
+                      "tol": TOL_LOGZ, "ok": ok and bool(torch.isfinite(logz).all()),
+                      "ms": time_ms(lambda: catalog_logsumexp_fwd(q, items)),
+                      "plain_ms": time_ms(lambda: catalog_logsumexp_plain(q, items)),
+                      "library_ms": None, "bound_ms": b_ms, "bound_by": by,
+                      "gflop": 2 * M * N * D / 1e9}
+        for tag, kern, plain, nbytes in (
+                ("K8", catalog_logsumexp_dq, catalog_logsumexp_dq_plain,
+                 4 * (2 * M * D + N * D + 2 * M)),
+                ("K9", catalog_logsumexp_ditems, catalog_logsumexp_ditems_plain,
+                 4 * (M * D + 2 * N * D + 2 * M))):
+            got, again = kern(q, items, logz, g), kern(q, items, logz, g)
+            want = plain(q, items, logz, g)
+            torch.cuda.synchronize()
+            max_abs, ok = grad_errors({"grad": got}, {"grad": want})
+            bitwise = torch.equal(got, again)
+            b_ms, by = bound(4 * M * N * D, nbytes)
+            rows[tag] = {"shape": shape, "max_abs_err": max_abs, "tol": TOL_GRAD,
+                         "ok": ok and bitwise, "bitwise_repeatable": bitwise,
+                         "ms": time_ms(lambda: kern(q, items, logz, g)),
+                         "plain_ms": time_ms(lambda: plain(q, items, logz, g)),
+                         "library_ms": time_ms(libraries[tag]) if libraries[tag] else None,
+                         "bound_ms": b_ms, "bound_by": by,
+                         "gflop": 4 * M * N * D / 1e9}
+    return rows
 
 
 def main() -> int:
@@ -641,7 +872,7 @@ def main() -> int:
         print(f"PTXAS {ln}", flush=True)
 
     phases = [phase_a(device), phase_b(device), phase_c(device), phase_d(device),
-              phase_e(device)]
+              phase_e(device), phase_f(device), phase_g(device)]
 
     k1_a = k1_versus_plain(device, 128, 20, 64, 128, 2)
     k1_b = k1_versus_plain(device, 256, 200, 128, 128, 2)
@@ -649,8 +880,20 @@ def main() -> int:
     k3_c = k3_versus_plain(device, 64, 2, 384, 64)
     k1_d = k1_train_versus_plain(device, 1024, 200, 128, 128, 2)
     k2_d = k2_versus_plain(device, 1024, 200, 128, 128, 2)
-    for name, res in (("K1@A", k1_a), ("K1@B", k1_b), ("K3@B", k3_b), ("K3@C", k3_c),
-                      ("K1train@D", k1_d), ("K2@D", k2_d)):
+    # phase F's shapes: BERT4Rec layers (no attention mask, dropout 0.2), and
+    # the log-partition over B L = 51,200 rows and 3,706 items; then 512 rows
+    # against a catalog of 500,000
+    k1_f = k1_versus_plain(device, 256, 200, 64, 128, 2, causal=False)
+    k1t_f = k1_train_versus_plain(device, 256, 200, 64, 128, 2, p=0.2, causal=False)
+    k2_f = k2_versus_plain(device, 256, 200, 64, 128, 2, p=0.2, causal=False)
+    clse_f = clse_versus_plain(device, 256 * 200, 3706, 64)
+    clse_cat = clse_versus_plain(device, 512, 500_000, 64)
+    rows = [("K1@A", k1_a), ("K1@B", k1_b), ("K3@B", k3_b), ("K3@C", k3_c),
+            ("K1train@D", k1_d), ("K2@D", k2_d), ("K1@F", k1_f), ("K1train@F", k1t_f),
+            ("K2@F", k2_f)]
+    rows += [(f"{k}@F", clse_f[k]) for k in ("K7", "K8", "K9")]
+    rows += [(f"{k}@cat500k", clse_cat[k]) for k in ("K7", "K8", "K9")]
+    for name, res in rows:
         emit("KERNEL_VS_PLAIN", {"kernel": name, "gpu": gpu, **res})
         check(res["ok"], f"{name} disagrees with its plain version: {res['max_abs_err']}")
 
@@ -672,6 +915,13 @@ def main() -> int:
          "replaces": "recstudio_tpu/ops/transformer_layer.py:292",
          "launches": launches("fused_transformer_layer_bwd"), **row(k2_d)},
     ]
+    for name, kid, line in (("catalog_logsumexp_fwd", "K7", 53),
+                            ("catalog_logsumexp_dq", "K8", 115),
+                            ("catalog_logsumexp_ditems", "K9", 135)):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "recstudio_torch/csrc/softmax_z.cu",
+                        "replaces": f"recstudio_tpu/ops/softmax_z.py:{line}",
+                        "launches": launches(name), **row(clse_f[kid])})
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

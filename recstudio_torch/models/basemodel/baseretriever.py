@@ -2,16 +2,18 @@
 
 Counterpart of ``recstudio_tpu/models/basemodel/baseretriever.py``: the
 shared-item-tower net of sequence models; training (``forward``: positive
-and sampled negative scores, ``sampling`` with method ``none``,
-``training_step``: the loss); the catalog encoding cached in
+and sampled negative scores, ``sampling`` with method ``none``, or with
+no sampler the positive scores and, for a full-score loss, the
+differentiable scores on the whole catalog; ``training_step``: the loss,
+through ``_fused_softmax_step`` for a softmax loss when
+``train.fused_softmax`` allows it); the catalog encoding cached in
 ``states["item_vector"]`` (``_epoch_refresh(-1)``), dropped whenever the
 weights change (``fit``, ``load_state_dict``); full-catalog top-k with the
 user's history masked inside the score matrix (``baseretriever.py:
 493-543``), which is exactly the reference's ``topk(k + len(hist))``-then-
 filter; and evaluation of the rank metrics over served top-k lists
 (``_make_eval_step``, ``baseretriever.py:726-752``). The other mining
-methods, the fused softmax step, approximate and sharded retrieval are not
-ported yet.
+methods, approximate and sharded retrieval are not ported yet.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ from torch import nn
 from ... import eval as eval_mod
 from ...ann.sampler import MaskedUniformSampler, UniformSampler
 from ...ops.topk import topk as topk_op
+from ...ops.softmax_z import catalog_logsumexp
+from ..loss_func import FullScoreLoss, SoftmaxLoss, softmax_loss_from_logz
 from ..module import Embedding
 from ..scorer import InnerProductScorer
 from .recommender import Recommender, batch_to_device
@@ -52,7 +56,7 @@ class BaseRetriever(Recommender):
         super().__init__(config, device)
         self.query_fields = None
         self.sampler = None
-        for key in ("ann", "mesh", "fused_softmax"):
+        for key in ("ann", "mesh"):
             if self.config["train"].get(key):
                 raise NotImplementedError(f"train.{key} is not ported yet")
 
@@ -94,11 +98,16 @@ class BaseRetriever(Recommender):
         return {f: v for f, v in batch.items() if f in self.query_fields}
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def _compute_item_vector(self) -> torch.Tensor:
-        """Encode the full catalog, items 1..N-1 (the [PAD] row excluded)."""
+    def _item_vectors(self) -> torch.Tensor:
+        """Encode the full catalog, items 1..N-1 (the [PAD] row excluded),
+        differentiably: the training step's catalog."""
         ids = torch.arange(1, self.num_items, device=self.device)
         return self.net.encode_item(ids)
+
+    @torch.no_grad()
+    def _compute_item_vector(self) -> torch.Tensor:
+        """The catalog encoding for inference."""
+        return self._item_vectors()
 
     def _epoch_refresh(self, nepoch: int):
         """Snapshot the catalog encoding from the current parameters into
@@ -124,16 +133,23 @@ class BaseRetriever(Recommender):
         kwargs = {"user_hist": user_hist} if isinstance(sampler, MaskedUniformSampler) else {}
         return sampler(query, num_neg, self.device_generator, pos_items=pos_items, **kwargs)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: Dict[str, torch.Tensor],
+                full_score: bool = False) -> Dict[str, torch.Tensor]:
         """Training scores (``baseretriever.py:342-389``): the positive
         item's score and, from the sampler, the negatives' scores with the
-        proposal log probabilities. Dropout seeds come from
-        ``self.generator``."""
+        proposal log probabilities; with no sampler and ``full_score``, the
+        differentiable scores on the whole catalog (``all_score``). Dropout
+        seeds come from ``self.generator``."""
         pos_vec = self.net.encode_item(batch[self.fiid])
         query = self.net.encode_query(self._get_query_feat(batch), self.generator)
         pos_score = self.score_func(query, pos_vec)
         if batch[self.fiid].dim() > 1:
             pos_score = torch.where(batch[self.fiid] == 0, float("-inf"), pos_score)
+        if self.sampler is None:
+            if not full_score:
+                return {"pos_score": pos_score}
+            return {"pos_score": pos_score,
+                    "all_score": self.score_func.catalog(query, self._item_vectors())}
         tc = self.config["train"]
         if not self.neg_count:
             raise ValueError("`negative_count` is required when a sampler is used")
@@ -144,10 +160,36 @@ class BaseRetriever(Recommender):
         return {"pos_score": pos_score, "log_pos_prob": log_pos_prob,
                 "neg_score": neg_score, "log_neg_prob": log_neg_prob}
 
+    def _use_fused_softmax(self) -> bool:
+        """The fused step's gate (``baseretriever.py:577-587``): a softmax
+        loss with no sampler and inner-product scores, unless
+        ``train.fused_softmax`` is ``false``. ``auto`` and ``true`` both take
+        it: ``catalog_logsumexp`` launches its kernels on the card and uses
+        their plain versions on the CPU."""
+        if str(self.config["train"].get("fused_softmax", "auto")).lower() == "false":
+            return False
+        return (type(self.loss_fn) is SoftmaxLoss and self.sampler is None
+                and type(self.score_func) is InnerProductScorer)
+
     def training_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The loss of one batch (``baseretriever.py:691-698``)."""
-        score = self.forward(batch)
+        if self._use_fused_softmax():
+            return self._fused_softmax_step(batch)
+        score = self.forward(batch, full_score=isinstance(self.loss_fn, FullScoreLoss))
         return self.loss_fn(label=batch[self.frating], **score)
+
+    def _fused_softmax_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """``SoftmaxLoss`` with the log-partition from ``catalog_logsumexp``
+        (K7, and K8 and K9 in the backward) instead of the ``[B(, L), N]``
+        score matrix (``baseretriever.py:700-724``). Every query row goes to
+        the kernels, padded or not, as on the TPU."""
+        query = self.net.encode_query(self._get_query_feat(batch), self.generator)
+        pos_score = self.score_func(query, self.net.encode_item(batch[self.fiid]))
+        if batch[self.fiid].dim() > 1:
+            pos_score = torch.where(batch[self.fiid] == 0, float("-inf"), pos_score)
+        d = query.shape[-1]
+        logz = catalog_logsumexp(query.reshape(-1, d), self._item_vectors())
+        return softmax_loss_from_logz(logz.reshape(query.shape[:-1]), pos_score)
 
     @torch.no_grad()
     def _eval_epoch(self, data, metric_names, cutoffs) -> Dict[str, float]:

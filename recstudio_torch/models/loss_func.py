@@ -3,8 +3,10 @@
 Counterpart of ``recstudio_tpu/models/loss_func.py``: a pairwise loss takes
 ``(label, pos_score, log_pos_prob, neg_score, log_neg_prob)``, the log
 probabilities being the sampler's proposal, and padding positions carry
-``pos_score == -inf`` and drop out of every reduction. Ported so far: the
-binary cross-entropy of SASRec; the other losses come with their models.
+``pos_score == -inf`` and drop out of every reduction; a full-score loss
+takes ``(label, pos_score, all_score)``, the scores on the whole catalog.
+Ported so far: the binary cross-entropy of SASRec and the softmax of
+BERT4Rec; the other losses come with their models.
 """
 from __future__ import annotations
 
@@ -16,6 +18,39 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     """``log(1 + exp(x))`` exactly, as ``jax.nn.softplus`` (torch's own
     switches to ``x`` above 20)."""
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+class FullScoreLoss:
+    """Needs scores on every item (``loss_func.py:19-23``)."""
+
+    def __call__(self, label, pos_score, all_score):
+        raise NotImplementedError
+
+
+class SoftmaxLoss(FullScoreLoss):
+    """``loss_func.py:39-54``: ``logsumexp(all_score) - pos_score`` over the
+    positions whose ``pos_score`` is finite. With one softmax per position
+    (``all_score [..., N]`` beside ``pos_score [...]``) it is the global mean
+    over those positions; with one softmax per row shared by several
+    positives (``pos_score [B, P]`` against ``all_score [B, N]``) it is the
+    mean over rows of each row's mean."""
+
+    def __call__(self, label, pos_score, all_score):
+        logz = torch.logsumexp(all_score, dim=-1)
+        return softmax_loss_from_logz(logz, pos_score)
+
+
+def softmax_loss_from_logz(logz: torch.Tensor, pos_score: torch.Tensor) -> torch.Tensor:
+    """``SoftmaxLoss`` from the log-partition ``logz`` (the materialized
+    path's ``logsumexp(all_score)``, or the fused step's
+    ``catalog_logsumexp``, ``baseretriever.py:715-724``)."""
+    valid = ~torch.isinf(pos_score)
+    zero = torch.zeros((), dtype=pos_score.dtype, device=pos_score.device)
+    if logz.shape == pos_score.shape:
+        out = torch.where(valid, logz - pos_score, zero)
+        return out.sum() / torch.clamp_min(valid.sum(), 1)
+    out = torch.where(valid, logz[..., None] - pos_score, zero)
+    return (out.sum(-1) / torch.clamp_min(valid.sum(-1), 1)).mean()
 
 
 class PairwiseLoss:

@@ -3,7 +3,8 @@
 Counterpart of ``recstudio_tpu/models/seq/sasrec.py``: a causal
 transformer over the item-embedding sequence plus learned positions,
 pooled at the last position, scored by inner product against the shared
-item table.
+item table. ``SASRecQueryEncoder`` is shared with BERT4Rec
+(``bidirectional=True``, no attention mask; training pooling ``"mask"``).
 """
 from __future__ import annotations
 
@@ -33,12 +34,14 @@ class SASRecQueryEncoder(nn.Module):
         self.pos_emb_table = nn.Parameter(torch.zeros(max_seq_len, embed_dim))
         self.transformer = TransformerEncoder(n_layer, embed_dim, n_head, hidden_size,
                                               dropout, activation, layer_norm_eps)
-        self.training_pooling = SeqPoolingLayer(training_pooling_type)
-        self.pooling = SeqPoolingLayer(eval_pooling_type)
+        self.training_pooling = _pooling(training_pooling_type)
+        self.pooling = _pooling(eval_pooling_type)
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Query vectors ``[B, D]``. In training mode the embedded sequence
+        """Query vectors ``[B, D]``, or ``[B, L, D]`` under pooling ``"mask"``
+        or ``"origin"`` (every position, ``sasrec.py:58-66``). In training
+        mode the embedded sequence
         and every layer drop at ``dropout`` (``sasrec.py:50-51``), with seeds
         drawn from ``rng``."""
         hist = batch["in_" + self.fiid]                       # [B, L]
@@ -51,7 +54,12 @@ class SASRecQueryEncoder(nn.Module):
             torch.ones((L, L), dtype=torch.bool, device=hist.device), 1)
         out = self.transformer(x, key_padding_mask=pad_mask, attn_mask=attn_mask, rng=rng)
         pooling = self.training_pooling if self.training else self.pooling
-        return pooling(out, batch["seqlen"])
+        return out if pooling is None else pooling(out, batch["seqlen"])
+
+
+def _pooling(pooling_type: str) -> Optional[SeqPoolingLayer]:
+    """``None`` for the types that keep every position."""
+    return None if pooling_type in ("mask", "origin") else SeqPoolingLayer(pooling_type)
 
 
 class SASRec(BaseRetriever):

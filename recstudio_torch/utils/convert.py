@@ -1,7 +1,8 @@
 """Parameter conversion between the JAX package and the port.
 
-``params_from_jax`` turns a JAX SASRec parameter tree (the nested dict of
-arrays that ``model.params`` holds) into the port's ``state_dict``;
+``params_from_jax`` turns a JAX SASRec or BERT4Rec parameter tree (the
+nested dict of arrays that ``model.params`` holds; BERT4Rec's item table
+has one more row, the ``[MASK]`` token) into the port's ``state_dict``;
 ``params_to_jax`` is the reverse. Flax kernels are ``[in, out]`` and the
 port's weights ``[out, in]``, so kernels are transposed. The fused
 ``qkv_kernel [D, 3D]`` is q|k|v blocks with the heads contiguous inside
@@ -58,7 +59,8 @@ def layer_params_to_jax(layer: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX SASRec params -> the port's ``state_dict`` (float32 CPU tensors)."""
+    """JAX SASRec or BERT4Rec params -> the port's ``state_dict`` (float32
+    CPU tensors)."""
     qe = tree["query_encoder"]
     sd = {"query_encoder.item_encoder.weight": _tensor(qe["item_encoder"]["embedding"]),
           "query_encoder.pos_emb_table": _tensor(qe["pos_emb_table"])}
@@ -70,8 +72,8 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """The port's SASRec ``state_dict`` (or its gradients by the same names)
-    -> a JAX-layout tree of numpy arrays."""
+    """The port's SASRec or BERT4Rec ``state_dict`` (or its gradients by the
+    same names) -> a JAX-layout tree of numpy arrays."""
     a = lambda name: state_dict[name].detach().cpu().numpy().astype(np.float32)
     layers: Dict[str, Dict[str, torch.Tensor]] = {}
     prefix = "query_encoder.transformer.layers."
@@ -89,7 +91,9 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 def random_sasrec_params(seed: int, num_items: int, embed_dim: int, max_seq_len: int,
                          hidden_size: int, n_layers: int) -> Dict[str, Any]:
     """Seeded numpy weights in the JAX layout. Kernels ~ N(0, 1/fan_in);
-    biases and LayerNorm offsets nonzero, so a wrong mapping shows."""
+    biases and LayerNorm offsets nonzero, so a wrong mapping shows. Every
+    table row but row 0 is drawn: BERT4Rec passes ``num_items + 1`` and gets
+    a nonzero ``[MASK]`` row."""
     rng = np.random.default_rng(seed)
     D, F = embed_dim, hidden_size
     f32 = lambda x: np.asarray(x, np.float32)
@@ -114,3 +118,4 @@ def random_sasrec_params(seed: int, num_items: int, embed_dim: int, max_seq_len:
     return {"query_encoder": {"item_encoder": {"embedding": emb},
                               "pos_emb_table": f32(rng.normal(0.0, 0.1, (max_seq_len, D))),
                               "transformer": layers}}
+

@@ -1,22 +1,24 @@
 """Model registry: name -> (model class, layered default config).
 
 The subset of ``recstudio_tpu/utils/registry.py`` this port implements:
-SASRec, and the dataset configs it is served on.
+SASRec and BERT4Rec, and the dataset configs they run on.
 """
 from __future__ import annotations
 
+import importlib
 import os
 from typing import Any, Dict, Tuple, Type
 
 from .config import CONFIG_DIR, deep_update, get_base_model_config, load_json
 
-# model name (lower case) -> (family, config files layered over basemodel)
-_MODELS = {"sasrec": ("seq", ("seq_all", "sasrec"))}
+# model name (lower case) -> (family, class name, config files layered over basemodel)
+_MODELS = {"sasrec": ("seq", "SASRec", ("seq_all", "sasrec")),
+           "bert4rec": ("seq", "BERT4Rec", ("seq_all", "bert4rec"))}
 
 
 def list_models() -> Dict[str, str]:
     """Return {model_name_lower: family}."""
-    return {name: family for name, (family, _) in _MODELS.items()}
+    return {name: family for name, (family, _, _) in _MODELS.items()}
 
 
 def get_model(model_name: str) -> Tuple[Type, Dict[str, Any]]:
@@ -24,12 +26,12 @@ def get_model(model_name: str) -> Tuple[Type, Dict[str, Any]]:
     lname = model_name.lower()
     if lname not in _MODELS:
         raise ValueError(f"Model '{model_name}' not found. Available: {sorted(_MODELS)}")
-    _, layers = _MODELS[lname]
-    from ..models.seq.sasrec import SASRec
+    family, class_name, layers = _MODELS[lname]
+    module = importlib.import_module(f"recstudio_torch.models.{family}.{lname}")
     conf = get_base_model_config()
     for name in layers:
         conf = deep_update(conf, load_json(name))
-    return SASRec, conf
+    return getattr(module, class_name), conf
 
 
 def get_dataset_default_config(dataset_name: str) -> Dict[str, Any]:

@@ -13,6 +13,14 @@ def test_sasrec_config_equals_jax():
     assert get_model("sasrec")[1] == want
 
 
+def test_bert4rec_config_equals_jax():
+    _, want = jax_get_model("BERT4Rec")
+    cls, got = get_model("BERT4Rec")
+    assert got == want
+    assert cls.__name__ == "BERT4Rec"
+    assert got["model"]["dropout"] == 0.2 and "dropout_rate" not in got["model"]
+
+
 def test_ml100k_config_equals_jax():
     assert get_dataset_default_config("ml-100k") == jax_dataset_config("ml-100k")
 
@@ -22,4 +30,4 @@ def test_unknown_dataset_falls_back_to_defaults():
 
 
 def test_registry_lists_what_is_ported():
-    assert list_models() == {"sasrec": "seq"}
+    assert list_models() == {"sasrec": "seq", "bert4rec": "seq"}

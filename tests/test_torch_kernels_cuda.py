@@ -11,6 +11,10 @@ import pytest
 import torch
 
 from recstudio_torch.ops.attention import additive_masks, fused_mha, mha_plain
+from recstudio_torch.ops.softmax_z import (catalog_logsumexp, catalog_logsumexp_ditems,
+                                           catalog_logsumexp_ditems_plain, catalog_logsumexp_dq,
+                                           catalog_logsumexp_dq_plain, catalog_logsumexp_fwd,
+                                           catalog_logsumexp_plain)
 from recstudio_torch.ops.transformer_layer import (PARAM_NAMES, fused_transformer_layer,
                                                    fused_transformer_layer_bwd,
                                                    training_residuals,
@@ -155,3 +159,90 @@ def test_fused_layer_autograd_and_eval_path(dev):
     assert torch.equal(a, b)
     with pytest.raises(ValueError):
         fused_transformer_layer(x.double(), params, None, None, 2, 0.1, "gelu", 1e-12, True, 5)
+
+
+def test_fused_layer_without_attention_mask(dev):
+    """The bidirectional layer of BERT4Rec: K1 (eval and training) and K2
+    with no attention mask, only key padding."""
+    B, L, D, F, H, p, seed = 4, 50, 64, 128, 2, 0.2, 99
+    rng = np.random.default_rng(5)
+    tree = random_sasrec_params(7, 2, D, 1, F, 1)
+    params = {n: t.to(dev) for n, t in
+              layer_params_from_jax(tree["query_encoder"]["transformer"]["layer_0"]).items()}
+    x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    pad, _ = _masks(rng, B, L, dev)
+    got = fused_transformer_layer(x, params, pad, None, H, 0.0, "gelu", 1e-12, False)
+    torch.testing.assert_close(got, transformer_layer_plain(x, params, pad, None, H, "gelu",
+                                                            1e-12), rtol=1e-4, atol=1e-4)
+    out, res = training_residuals(x, params, pad, None, H, p, "gelu", 1e-12, seed)
+    torch.testing.assert_close(out, transformer_layer_plain(x, params, pad, None, H, "gelu",
+                                                            1e-12, p, seed, True),
+                               rtol=1e-4, atol=1e-4)
+    dx, grads = fused_transformer_layer_bwd(g, x, params, pad, None, H, p, "gelu", 1e-12, seed,
+                                            res)
+    wdx, wgrads = transformer_layer_bwd_plain(g, x, params, pad, None, H, p, "gelu", 1e-12, seed)
+    torch.testing.assert_close(dx, wdx, rtol=1e-4, atol=1e-4 * float(wdx.abs().max()))
+    for name in PARAM_NAMES:
+        torch.testing.assert_close(grads[name], wgrads[name], rtol=1e-4,
+                                   atol=1e-4 * max(float(wgrads[name].abs().max()), 1e-3),
+                                   msg=name)
+
+
+def _clse_inputs(M, N, D, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(M, D)).astype(np.float32)).to(dev)
+    items = torch.from_numpy(rng.normal(0.0, 0.3, size=(N, D)).astype(np.float32)).to(dev)
+    g = rng.normal(size=M).astype(np.float32)
+    g[rng.random(M) < 0.8] = 0.0
+    return q, items, torch.from_numpy(g).to(dev)
+
+
+@pytest.mark.parametrize("M,N,D", [(300, 1000, 64), (37, 5000, 200), (1000, 129, 16),
+                                   (512, 40000, 64), (5, 3, 256), (6000, 3706, 64)])
+def test_catalog_logsumexp_kernels_match_plain(dev, M, N, D):
+    """K7, K8, K9 against their plain versions, ragged tiles and every
+    split plan (one range, items split, rows split). Tolerance: logZ atol
+    1e-4 (sums of up to 40,000 terms); gradients atol 1e-4 times their
+    largest magnitude, rtol 1e-3. K8 and K9 repeat bit for bit."""
+    q, items, g = _clse_inputs(M, N, D, dev, M + N)
+    counts = [f.launches for f in (catalog_logsumexp_fwd, catalog_logsumexp_dq,
+                                   catalog_logsumexp_ditems)]
+    logz = catalog_logsumexp_fwd(q, items)
+    dq = catalog_logsumexp_dq(q, items, logz, g)
+    ditems = catalog_logsumexp_ditems(q, items, logz, g)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (catalog_logsumexp_fwd, catalog_logsumexp_dq,
+                                 catalog_logsumexp_ditems)] == [c + 1 for c in counts]
+    torch.testing.assert_close(logz, catalog_logsumexp_plain(q, items), rtol=1e-5, atol=1e-4)
+    for got, want in ((dq, catalog_logsumexp_dq_plain(q, items, logz, g)),
+                      (ditems, catalog_logsumexp_ditems_plain(q, items, logz, g))):
+        torch.testing.assert_close(got, want, rtol=1e-3,
+                                   atol=1e-4 * max(float(want.abs().max()), 1e-6))
+    assert torch.equal(dq, catalog_logsumexp_dq(q, items, logz, g))
+    assert torch.equal(ditems, catalog_logsumexp_ditems(q, items, logz, g))
+    assert bool((dq[g == 0] == 0).all())
+
+
+def test_catalog_logsumexp_autograd_on_the_card(dev):
+    q, items, g = _clse_inputs(700, 2000, 64, dev)
+    qs, its = q.clone().requires_grad_(), items.clone().requires_grad_()
+    before = catalog_logsumexp_dq.launches, catalog_logsumexp_ditems.launches
+    (catalog_logsumexp(qs, its) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (catalog_logsumexp_dq.launches, catalog_logsumexp_ditems.launches) == \
+        (before[0] + 1, before[1] + 1)
+    logz = catalog_logsumexp_fwd(q, items)
+    assert torch.equal(qs.grad, catalog_logsumexp_dq(q, items, logz, g))
+    assert torch.equal(its.grad, catalog_logsumexp_ditems(q, items, logz, g))
+
+
+def test_catalog_logsumexp_refuses_what_it_does_not_take(dev):
+    q, items, g = _clse_inputs(8, 16, 64, dev)
+    with pytest.raises(ValueError, match="width"):
+        catalog_logsumexp_fwd(torch.zeros((8, 300), device=dev), torch.zeros((16, 300),
+                                                                             device=dev))
+    with pytest.raises(ValueError):
+        catalog_logsumexp_fwd(q.double(), items.double())
+    with pytest.raises(ValueError):
+        catalog_logsumexp_dq(q, items, torch.zeros(7, device=dev), g)

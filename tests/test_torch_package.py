@@ -71,7 +71,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_cpu_wrappers_use_the_plain_version_and_count_nothing():
-    from recstudio_torch.ops import (fused_mha, fused_transformer_layer,
+    from recstudio_torch.ops import (catalog_logsumexp, fused_mha, fused_transformer_layer,
                                      fused_transformer_layer_bwd, launch_counts,
                                      reset_launch_counts)
     from recstudio_torch.ops.transformer_layer import param_shapes
@@ -83,8 +83,12 @@ def test_cpu_wrappers_use_the_plain_version_and_count_nothing():
     fused_transformer_layer(x, params, None, None, 2, 0.5, "gelu", 1e-12, True, 3)
     fused_transformer_layer_bwd(torch.ones_like(x), x, params, None, None, 2, 0.5, "gelu",
                                 1e-12, 3)
+    q, items = torch.randn(5, 8, requires_grad=True), torch.randn(7, 8, requires_grad=True)
+    catalog_logsumexp(q, items).sum().backward()
     assert launch_counts() == {"fused_transformer_layer": 0,
-                               "fused_transformer_layer_bwd": 0, "fused_mha": 0}
+                               "fused_transformer_layer_bwd": 0, "fused_mha": 0,
+                               "catalog_logsumexp_fwd": 0, "catalog_logsumexp_dq": 0,
+                               "catalog_logsumexp_ditems": 0}
     assert fused_transformer_layer.launches == 0
 
 
