@@ -44,6 +44,13 @@ then:
   the JAX seeds' band (``recstudio_torch/assets/
   bert4rec_ml100k_train_reference.json``), then 8 served requests whose
   lists must give ``evaluate``'s NDCG@10;
+- phase H: long-sequence SASRec at L 1024 (d 128, F 128, 2 heads, 2
+  layers, dropout 0, batch 256) on the synthetic ml-1m shape: 20 timed
+  optimizer steps whose attention runs the flash kernels K4 (forward), K5
+  and K6 (backward), one step's loss and gradients held against the plain
+  path (dense ``mha_plain``), then every user served through
+  ``Predictor(max_batch=256, k=20)`` (K4 alone) with the first two
+  requests held to the plain path;
 - each kernel against its plain PyTorch version on the phases' shapes,
   with its time, the plain version's, PyTorch's own call where one exists,
   and the card's bound for the same work.
@@ -76,6 +83,10 @@ PEAK_BYTES = 3.35e12
 
 TOL_K1 = (1e-4, 1e-4)      # (atol, rtol): float32 sums of <= 1024 terms, then LayerNorm
 TOL_K3 = (2e-5, 1e-4)      # float32 sums of <= 512 terms; outputs are averages of v
+# K4: float32 sums of <= 2048 terms, outputs averages of v; its row
+# statistics (max, sum) to 1e-4
+TOL_K4 = (2e-5, 1e-4)
+TOL_STATS = (1e-4, 1e-4)
 TOL_SCORES = 1e-4          # served scores: dot products of O(1) vectors, d <= 128
 # gradients (K2, phase D): float32 sums of up to B L = 204,800 terms in
 # another order than cuBLAS's; per tensor, relative to its largest value
@@ -226,6 +237,28 @@ def request_breakdown(pred, model, batch, p50_ms: float):
     return out
 
 
+def plain_serving_diffs(pred, model, split, layers, n_requests=2, batch_size=256):
+    """Serve the first ``n_requests`` requests of ``split`` on the kernel path
+    and on the plain path (``layer.plain``) with the same weights: (rows
+    whose lists disagree, rows compared, largest score difference)."""
+    import numpy as np
+    from recstudio_torch.utils.parity import topk_mismatches
+    bad = n_cmp = 0
+    max_diff = 0.0
+    for batch in itertools.islice(split.eval_loader(batch_size), n_requests):
+        req = {f: batch[f] for f in sorted(model.query_fields)}
+        s_k, i_k = pred(req)
+        for layer in layers:
+            layer.plain = True
+        s_p, i_p = pred(req)
+        for layer in layers:
+            layer.plain = False
+        bad += topk_mismatches(i_k, s_k, i_p, s_p, TOL_SCORES)
+        max_diff = max(max_diff, float(np.abs(s_k - s_p).max()))
+        n_cmp += len(i_k)
+    return bad, n_cmp, max_diff
+
+
 def counted(fn):
     """Run ``fn`` with every launch count zeroed first; return (result, counts)."""
     import torch
@@ -275,7 +308,6 @@ def phase_b(device):
     import numpy as np
     from recstudio_torch.data.synthetic import SHAPES, generate
     from recstudio_torch.serving import Predictor
-    from recstudio_torch.utils.parity import topk_mismatches
     t0 = time.perf_counter()
     name, config = generate("ml-1m-shape", *SHAPES["ml-1m-shape"], seed=7)
     config["max_seq_len"] = 200
@@ -285,22 +317,8 @@ def phase_b(device):
     (scores, ids, targets), counts = counted(lambda: serve_split(pred, model, tst, 256))
     stats = pred.stats()
     # the same weights through the plain path, on the first two requests
-    layers = model.query_encoder.transformer.layers
-    batches = iter(tst.eval_loader(256))
-    bad = n_cmp = 0
-    max_diff = 0.0
-    for _ in range(2):
-        batch = next(batches)
-        req = {f: batch[f] for f in sorted(model.query_fields)}
-        s_k, i_k = pred(req)
-        for layer in layers:
-            layer.plain = True
-        s_p, i_p = pred(req)
-        for layer in layers:
-            layer.plain = False
-        bad += topk_mismatches(i_k, s_k, i_p, s_p, TOL_SCORES)
-        max_diff = max(max_diff, float(np.abs(s_k - s_p).max()))
-        n_cmp += len(i_k)
+    bad, n_cmp, max_diff = plain_serving_diffs(pred, model, tst,
+                                               model.query_encoder.transformer.layers)
     out = {"phase": "B", "dataset": name, "users": ds.num_users - 1, "items": ds.num_items - 1,
            "inters": int(ds.num_inters), "L": ds.max_seq_len, "embed_dim": model.embed_dim,
            "etl_s": etl_s, "served": len(ids), "launches": counts, **stats,
@@ -359,15 +377,15 @@ def grad_errors(got, want):
     return max_abs, ok
 
 
-def training_model(device, model_name, batch_size, **model_conf):
-    """``model_name`` on the synthetic ml-1m shape at L 200, seed 7, ready
-    for optimizer steps on device-resident batches: (model, conf, dataset,
-    test split, dataset name, ETL seconds)."""
+def training_model(device, model_name, batch_size, L=200, **model_conf):
+    """``model_name`` on the synthetic ml-1m shape at ``max_seq_len`` L,
+    seed 7, ready for optimizer steps on device-resident batches: (model,
+    conf, dataset, test split, dataset name, ETL seconds)."""
     from recstudio_torch.data.synthetic import SHAPES, generate
     from recstudio_torch.utils import get_model
     t0 = time.perf_counter()
     name, config = generate("ml-1m-shape", *SHAPES["ml-1m-shape"], seed=7)
-    config["max_seq_len"] = 200
+    config["max_seq_len"] = L
     cls, conf = get_model(model_name)
     conf["model"].update(model_conf)
     conf["train"].update(batch_size=batch_size, seed=7)
@@ -416,6 +434,39 @@ def path_loss_and_grads(model, batch, states, set_path, *path):
     loss.backward()
     return float(loss.detach()), {n: p.grad.detach().clone()
                                   for n, p in model.net.named_parameters()}
+
+
+def steps_and_comparison(model, set_path, *plain_paths):
+    """20 timed steps on device-resident batches (their peak memory alone),
+    then the last timed batch's loss and gradients on the kernel path
+    (``set_path(False)``) and on each of ``plain_paths`` (argument tuples of
+    ``set_path``) from the same generator states, with those steps' own
+    peak memory. Returns (metrics, losses of the timed steps, their launch
+    counts, [(loss, max gradient error, gradients ok) per plain path]);
+    the model is left on the kernel path, in eval mode."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    steps, times, losses, counts = timed_steps(model, model._epoch_batches())
+    step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    batch = steps[-1]
+    states = (model.generator.get_state(), model.device_generator.get_state())
+    torch.cuda.reset_peak_memory_stats()
+    loss_k, grads_k = path_loss_and_grads(model, batch, states, set_path, False)
+    compared = []
+    for path in plain_paths:
+        loss, grads = path_loss_and_grads(model, batch, states, set_path, *path)
+        compared.append((loss, *grad_errors(grads_k, grads)))
+        del grads
+    compare_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    set_path(False)
+    model.net.eval()
+    p50 = times[len(times) // 2]
+    metrics = {"steps": len(times), "step_ms_p50": p50, "step_ms_max": times[-1],
+               "examples_per_s": int(model.config["train"]["batch_size"]) / (p50 / 1e3),
+               "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+               "kernel_loss": loss_k, "grad_tol": TOL_GRAD, "loss_tol": TOL_LOSS,
+               "peak_mem_gb": step_peak, "compare_peak_mem_gb": compare_peak}
+    return metrics, losses, counts, compared
 
 
 def input_mask_ms(device, B, L, D, p):
@@ -542,7 +593,6 @@ def phase_f(device):
     import numpy as np
     import torch
     from recstudio_torch.serving import Predictor
-    from recstudio_torch.utils.parity import topk_mismatches
     model, conf, ds, tst, name, etl_s = training_model(device, "BERT4Rec", 256)
     mc, tc = conf["model"], conf["train"]
     shape = dict(B=tc["batch_size"], L=ds.max_seq_len, D=model.embed_dim, F=mc["hidden_size"],
@@ -551,60 +601,30 @@ def phase_f(device):
     check(shape == dict(B=256, L=200, D=64, F=128, H=2, layers=2, dropout=0.2, mask_ratio=0.2,
                         items=3706), f"phase F config {shape}")
     check(model._use_fused_softmax(), "phase F does not take the fused softmax step")
-    torch.cuda.reset_peak_memory_stats()
-    steps, times, losses, train_counts = timed_steps(model, model._epoch_batches())
-    step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-
-    # one step's loss and gradients on the kernel path, held to the plain
-    # path (plain layers, materialized scores with their autograd backward)
-    # and to the kernel layers with materialized scores
-    batch = steps[-1]
     layers = model.query_encoder.transformer.layers
-    states = (model.generator.get_state(), model.device_generator.get_state())
 
     def set_path(plain, fused="auto"):
         for layer in layers:
             layer.plain = plain
         model.config["train"]["fused_softmax"] = fused
 
-    torch.cuda.reset_peak_memory_stats()
-    loss_k, grads_k = path_loss_and_grads(model, batch, states, set_path, False)
-    loss_p, grads_p = path_loss_and_grads(model, batch, states, set_path, True, "false")
-    loss_m, _ = path_loss_and_grads(model, batch, states, set_path, False, "false")
-    compare_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    set_path(False)
-    model.net.eval()
-    max_abs, ok = grad_errors(grads_k, grads_p)
-    del grads_k, grads_p
+    # one step's loss and gradients on the kernel path, held to the plain
+    # path (plain layers, materialized scores with their autograd backward)
+    # and to the kernel layers with materialized scores
+    metrics, losses, train_counts, ((loss_p, max_abs, ok), (loss_m, _, _)) = \
+        steps_and_comparison(model, set_path, (True, "false"), (False, "false"))
+    loss_k = metrics["kernel_loss"]
 
     pred = Predictor(model, max_batch=256, k=20, train_data=tst).warm()
     (scores, ids, targets), serve_counts = counted(lambda: serve_split(pred, model, tst, 256))
     stats = pred.stats()
-    bad = n_cmp = 0
-    max_diff = 0.0
-    for batch in itertools.islice(tst.eval_loader(256), 2):
-        req = {f: batch[f] for f in sorted(model.query_fields)}
-        s_k, i_k = pred(req)
-        for layer in layers:
-            layer.plain = True
-        s_p, i_p = pred(req)
-        for layer in layers:
-            layer.plain = False
-        bad += topk_mismatches(i_k, s_k, i_p, s_p, TOL_SCORES)
-        max_diff = max(max_diff, float(np.abs(s_k - s_p).max()))
-        n_cmp += len(i_k)
+    bad, n_cmp, max_diff = plain_serving_diffs(pred, model, tst, layers)
     counts = {k: train_counts[k] + serve_counts[k] for k in train_counts}
-    p50 = times[len(times) // 2]
     out = {"phase": "F", "model": "BERT4Rec", "dataset": name, "shape": shape, "etl_s": etl_s,
-           "steps": len(times), "launches": counts, "train_launches": train_counts,
-           "step_ms_p50": p50, "step_ms_max": times[-1],
-           "examples_per_s": shape["B"] / (p50 / 1e3),
+           "launches": counts, "train_launches": train_counts, **metrics,
            "input_dropout_mask_ms": input_mask_ms(device, shape["B"], shape["L"], shape["D"],
                                                   shape["dropout"]),
-           "loss_first": float(losses[0]),
-           "loss_last": float(losses[-1]), "kernel_loss": loss_k, "plain_loss": loss_p,
-           "materialized_loss": loss_m, "grad_max_abs_err": max_abs, "grad_tol": TOL_GRAD,
-           "loss_tol": TOL_LOSS, "peak_mem_gb": step_peak, "compare_peak_mem_gb": compare_peak,
+           "plain_loss": loss_p, "materialized_loss": loss_m, "grad_max_abs_err": max_abs,
            "served": len(ids), **{"serve_" + k: v for k, v in stats.items()},
            **rank_metrics(ids, targets), "plain_rows": n_cmp, "plain_rows_disagreeing": bad,
            "plain_max_score_diff": max_diff, "tol": TOL_SCORES}
@@ -632,6 +652,59 @@ def phase_g(device):
                      ["fused_transformer_layer", "fused_transformer_layer_bwd",
                       "catalog_logsumexp_fwd", "catalog_logsumexp_dq",
                       "catalog_logsumexp_ditems"])
+
+
+def phase_h(device):
+    """Long-sequence SASRec (L 1024, dropout 0): timed training steps whose
+    attention runs K4, K5 and K6; one step held to the plain path; every
+    user served through K4, two requests held to the plain path."""
+    import numpy as np
+    import torch
+    from recstudio_torch.serving import Predictor
+    model, conf, ds, tst, name, etl_s = training_model(device, "SASRec", 256, L=1024,
+                                                       embed_dim=128, dropout_rate=0.0)
+    mc = conf["model"]
+    shape = dict(B=conf["train"]["batch_size"], L=ds.max_seq_len, D=model.embed_dim,
+                 F=mc["hidden_size"], H=mc["head_num"], layers=mc["layer_num"],
+                 act=mc["activation"], eps=mc["layer_norm_eps"], dropout=mc["dropout_rate"],
+                 items=ds.num_items - 1)
+    check(shape == dict(B=256, L=1024, D=128, F=128, H=2, layers=2, act="gelu", eps=1e-12,
+                        dropout=0.0, items=3706), f"phase H config {shape}")
+    layers = model.query_encoder.transformer.layers
+
+    def set_path(plain):
+        for layer in layers:
+            layer.plain = plain
+
+    # one step's loss and gradients, kernel path against plain path
+    metrics, losses, train_counts, ((loss_p, max_abs, ok),) = \
+        steps_and_comparison(model, set_path, (True,))
+    loss_k = metrics["kernel_loss"]
+
+    pred = Predictor(model, max_batch=256, k=20, train_data=tst).warm()
+    (scores, ids, targets), serve_counts = counted(lambda: serve_split(pred, model, tst, 256))
+    stats = pred.stats()
+    bad, n_cmp, max_diff = plain_serving_diffs(pred, model, tst, layers)
+    counts = {k: train_counts[k] + serve_counts[k] for k in train_counts}
+    out = {"phase": "H", "model": "SASRec", "dataset": name, "shape": shape, "etl_s": etl_s,
+           "launches": counts, "train_launches": train_counts, "serve_launches": serve_counts,
+           **metrics, "plain_loss": loss_p, "grad_max_abs_err": max_abs,
+           "served": len(ids), **{"serve_" + k: v for k, v in stats.items()},
+           **rank_metrics(ids, targets), "plain_rows": n_cmp, "plain_rows_disagreeing": bad,
+           "plain_max_score_diff": max_diff, "tol": TOL_SCORES}
+    emit("PHASE", out)
+    for kernel in ("flash_mha_fwd", "flash_mha_bwd_dq", "flash_mha_bwd_dkv"):
+        check(train_counts[kernel] > 0, f"phase H training launched no {kernel}")
+    check(serve_counts["flash_mha_fwd"] > 0, "phase H serving launched no flash_mha_fwd")
+    for kernel in ("fused_transformer_layer", "fused_mha"):
+        check(counts[kernel] == 0, f"phase H launched {kernel} at L 1024")
+    check(bool(torch.isfinite(losses).all()), "phase H loss not finite")
+    check(abs(loss_k - loss_p) <= TOL_LOSS * abs(loss_p), f"phase H loss {loss_k} vs {loss_p}")
+    check(ok, f"phase H gradients disagree with the plain path: {max_abs}")
+    check(np.isfinite(scores).all() and scores.shape == (len(tst.data_index), 20),
+          "phase H scores")
+    check(bad == 0, f"phase H: {bad} of {n_cmp} lists differ between kernel and plain paths")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -849,6 +922,129 @@ def clse_versus_plain(device, M, N, D, seed=2028):
     return rows
 
 
+def flash_inputs(device, B, H, L, Dh, causal, all_masked, seed):
+    """q, k, v, an output gradient g [B, H, L, Dh], right padding (example 0
+    fully masked if asked), the causal mask or None, and the additive masks."""
+    import numpy as np
+    import torch
+    from recstudio_torch.ops.attention import additive_masks
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(B, H, L, Dh)).astype(np.float32)).to(device)
+                  for _ in range(4))
+    pad_np = right_padding(rng, B, L)
+    if all_masked:
+        pad_np[0] = True
+    pad = torch.from_numpy(pad_np).to(device)
+    attn = causal_mask(L, device, causal)
+    return q, k, v, g, pad, attn, additive_masks(pad, attn)
+
+
+def sdpa_mask(pad_add, attn_add):
+    """The combined, clamped additive mask that SDPA takes: [B, 1, Lq, Lk],
+    or [B, 1, 1, Lk] with no attention mask."""
+    import torch
+    mask = pad_add[:, None, None, :]
+    if attn_add is not None:
+        mask = attn_add[None, None] + mask
+    return mask.clamp_min(torch.finfo(torch.float32).min)
+
+
+def flash_bound(B, H, L, Dh, pairs, causal, ops_per_pair, tensors, row_floats):
+    """The card's least time for a flash kernel: ``ops_per_pair`` Dh
+    operations for each attended pair of each head, against each input read
+    once and each output written once: ``tensors`` [B, H, L, Dh] tensors,
+    ``row_floats`` floats of each query row (statistics, delta) and the
+    masks. Returns ((ms, bound by), operations)."""
+    flops = ops_per_pair * Dh * H * pairs
+    nbytes = 4 * (B * H * L * (Dh * tensors + row_floats) + B * L + (L * L if causal else 0))
+    return bound(flops, nbytes), flops
+
+
+def k4_versus_plain(device, B, H, L, Dh, causal=True, all_masked=True, seed=2029):
+    """K4 against its plain version (out and the row statistics); with
+    ``all_masked`` example 0 must come out as the average of its L values.
+    Library time: float32 SDPA with the combined clamped mask."""
+    import torch
+    from recstudio_torch.ops.attention import flash_mha_fwd, flash_mha_plain
+    q, k, v, _, pad, attn, (pad_add, attn_add) = flash_inputs(device, B, H, L, Dh, causal,
+                                                              all_masked, seed)
+    kern = lambda: flash_mha_fwd(q, k, v, pad_add, attn_add)
+    plain = lambda: flash_mha_plain(q, k, v, pad_add, attn_add)
+    mask = sdpa_mask(pad_add, attn_add)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    with torch.no_grad():
+        (got, stats), (want, want_stats) = kern(), plain()
+        torch.cuda.synchronize()
+        max_abs, max_rel, ok = errors(got, want, TOL_K4)
+        _, _, stats_ok = errors(stats, want_stats, TOL_STATS)
+        masked_ok = not all_masked or bool(torch.allclose(
+            got[0], v[0].mean(dim=1, keepdim=True).expand_as(got[0]), atol=TOL_K4[0],
+            rtol=TOL_K4[1]))
+        del want, want_stats
+        ms, plain_ms, library_ms = time_ms(kern), time_ms(plain, iters=5), time_ms(lib, iters=5)
+    pairs = attended_pairs(pad, attn)
+    # q, k, v in, out out; stats (max, sum) out
+    (b_ms, by), flops = flash_bound(B, H, L, Dh, pairs, causal, 4, 4, 2)
+    return {"shape": dict(B=B, H=H, L=L, Dh=Dh, causal=causal, all_masked_example=all_masked),
+            "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": TOL_K4,
+            "ok": ok and stats_ok and masked_ok, "stats_ok": stats_ok,
+            "all_masked_row_uniform": masked_ok, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
+
+
+def k5_k6_versus_plain(device, B, H, L, Dh, causal=True, all_masked=False, seed=2030):
+    """K5 and K6 on K4's out and statistics, held to their explicit plain
+    versions and to autograd of ``mha_plain`` (TOL_GRAD relative to each
+    tensor's largest value), each repeated bit for bit. Library time for
+    both: SDPA's backward, one call that computes dq, dk and dv together."""
+    import torch
+    from recstudio_torch.ops.attention import (flash_mha_bwd_dkv, flash_mha_bwd_dkv_plain,
+                                               flash_mha_bwd_dq, flash_mha_bwd_dq_plain,
+                                               flash_mha_fwd, mha_plain)
+    q, k, v, g, pad, attn, (pad_add, attn_add) = flash_inputs(device, B, H, L, Dh, causal,
+                                                              all_masked, seed)
+    masks = (pad_add, attn_add)
+    with torch.no_grad():
+        out, stats = flash_mha_fwd(q, k, v, *masks)
+    k5 = lambda: flash_mha_bwd_dq(q, k, v, *masks, out, stats, g)
+    (dq, delta), (dq2, delta2) = k5(), k5()
+    k6 = lambda: flash_mha_bwd_dkv(q, k, v, *masks, stats, g, delta)
+    (dk, dv), (dk2, dv2) = k6(), k6()
+    torch.cuda.synchronize()
+    p5 = lambda: flash_mha_bwd_dq_plain(q, k, v, *masks, out, stats, g)
+    p6 = lambda: flash_mha_bwd_dkv_plain(q, k, v, *masks, stats, g, delta)
+    want_dq = p5()[0]
+    want_dk, want_dv = p6()
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    auto = torch.autograd.grad(mha_plain(qs, ks, vs, *masks), (qs, ks, vs), g)
+    err5, ok5 = grad_errors({"dq": dq}, {"dq": want_dq})
+    err6, ok6 = grad_errors({"dk": dk, "dv": dv}, {"dk": want_dk, "dv": want_dv})
+    aerr5, aok5 = grad_errors({"dq": dq}, {"dq": auto[0]})
+    aerr6, aok6 = grad_errors({"dk": dk, "dv": dv}, {"dk": auto[1], "dv": auto[2]})
+    bit5 = torch.equal(dq, dq2) and torch.equal(delta, delta2)
+    bit6 = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    del want_dq, want_dk, want_dv, auto, dq2, dk2, dv2
+    mask = sdpa_mask(pad_add, attn_add)
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    lib = lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), g, retain_graph=True)
+    ms5, ms6 = time_ms(k5), time_ms(k6)
+    plain5, plain6, library_ms = time_ms(p5, iters=5), time_ms(p6, iters=5), time_ms(lib, iters=5)
+    pairs = attended_pairs(pad, attn)
+    shape = dict(B=B, H=H, L=L, Dh=Dh, causal=causal, all_masked_example=all_masked)
+    # K5 reads q, k, v, dO, out and stats, writes dq and delta; K6 reads q,
+    # k, v, dO, stats and delta, writes dk and dv
+    (b5, by5), f5 = flash_bound(B, H, L, Dh, pairs, causal, 6, 6, 3)
+    (b6, by6), f6 = flash_bound(B, H, L, Dh, pairs, causal, 8, 6, 3)
+    row = lambda err, ok, aerr, aok, bit, ms, plain_ms, b_ms, by, flops: {
+        "shape": shape, "max_abs_err": max(err, aerr), "plain_max_abs_err": err,
+        "autograd_max_abs_err": aerr, "tol": TOL_GRAD, "ok": ok and aok and bit,
+        "bitwise_repeatable": bit, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library": "SDPA backward (dq, dk, dv together)", "bound_ms": b_ms, "bound_by": by,
+        "gflop": flops / 1e9}
+    return (row(err5, ok5, aerr5, aok5, bit5, ms5, plain5, b5, by5, f5),
+            row(err6, ok6, aerr6, aok6, bit6, ms6, plain6, b6, by6, f6))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -872,7 +1068,7 @@ def main() -> int:
         print(f"PTXAS {ln}", flush=True)
 
     phases = [phase_a(device), phase_b(device), phase_c(device), phase_d(device),
-              phase_e(device), phase_f(device), phase_g(device)]
+              phase_e(device), phase_f(device), phase_g(device), phase_h(device)]
 
     k1_a = k1_versus_plain(device, 128, 20, 64, 128, 2)
     k1_b = k1_versus_plain(device, 256, 200, 128, 128, 2)
@@ -893,6 +1089,16 @@ def main() -> int:
             ("K2@F", k2_f)]
     rows += [(f"{k}@F", clse_f[k]) for k in ("K7", "K8", "K9")]
     rows += [(f"{k}@cat500k", clse_cat[k]) for k in ("K7", "K8", "K9")]
+    # phase H's attention (B 256, L 1024, Dh 64, causal, example 0 fully
+    # masked in K4's row), BERT4Rec's route at L 2048 (no attention mask),
+    # and an Lk that is a multiple of no tile
+    k4_h = k4_versus_plain(device, 256, 2, 1024, 64)
+    k4_bidir = k4_versus_plain(device, 64, 2, 2048, 64, causal=False)
+    k4_odd = k4_versus_plain(device, 64, 2, 600, 32)
+    k5_h, k6_h = k5_k6_versus_plain(device, 256, 2, 1024, 64)
+    k5_m, k6_m = k5_k6_versus_plain(device, 16, 2, 1024, 64, all_masked=True)
+    rows += [("K4@H", k4_h), ("K4@bidir", k4_bidir), ("K4@odd", k4_odd), ("K5@H", k5_h),
+             ("K6@H", k6_h), ("K5@masked", k5_m), ("K6@masked", k6_m)]
     for name, res in rows:
         emit("KERNEL_VS_PLAIN", {"kernel": name, "gpu": gpu, **res})
         check(res["ok"], f"{name} disagrees with its plain version: {res['max_abs_err']}")
@@ -922,6 +1128,13 @@ def main() -> int:
                         "source": "recstudio_torch/csrc/softmax_z.cu",
                         "replaces": f"recstudio_tpu/ops/softmax_z.py:{line}",
                         "launches": launches(name), **row(clse_f[kid])})
+    for name, kid, line, res in (("flash_mha_fwd", "K4", 133, k4_h),
+                                 ("flash_mha_bwd_dq", "K5", 220, k5_h),
+                                 ("flash_mha_bwd_dkv", "K6", 246, k6_h)):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "recstudio_torch/csrc/flash_attention.cu",
+                        "replaces": f"recstudio_tpu/ops/attention.py:{line}",
+                        "launches": launches(name), **row(res)})
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,9 +9,13 @@ JAX module (``layers.py:391-433``):
 - inside the fused layer's gate (d <= 256, F <= 1024, L <= 256, gelu or
   relu, a 2-D mask): ``fused_transformer_layer`` (K1, with K2 as its
   backward in training mode);
-- otherwise: the projections in PyTorch and the attention through
-  ``fused_mha`` (K3), as ``_xla_layer``; with training dropout the
-  attention keeps the dense plain path, as ``_xla_layer`` does.
+- otherwise, in eval mode or with dropout 0: the projections in PyTorch and
+  the attention through ``fused_mha``, as ``_xla_layer`` does
+  (``layers.py:413-421``): K3 for L <= 512 (its backward autograd of the
+  plain version), the flash kernels above (K4 forward, K5 and K6 backward);
+- otherwise (training with dropout > 0): the dense plain layer, which is
+  what ``_xla_layer`` computes there (``layers.py:422-433``, no kernel: the
+  JAX package's attention kernels have no dropout inside the softmax).
 
 In training mode with dropout, each layer call draws its seed from the
 ``torch.Generator`` passed as ``rng`` (the model's), as the JAX layer draws
@@ -93,7 +97,7 @@ class TransformerLayer(nn.Module):
         if fused:
             return fused_transformer_layer(*args, self.dropout, self.activation,
                                            self.layer_norm_eps, self.training, seed)
-        # projections in PyTorch, attention through fused_mha (K3)
+        # projections in PyTorch, attention through fused_mha (K3, or K4-K6 at L > 512)
         q, k, v = qkv_heads(x, self.params(), self.n_head)
         attn = fused_mha(q, k, v, key_padding_mask, attn_mask)
         return layer_tail(x, attn, self.params(), self.activation, self.layer_norm_eps)

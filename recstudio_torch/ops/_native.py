@@ -30,6 +30,9 @@ _U64, _U32 = ctypes.c_ulonglong, ctypes.c_uint
 _DROP = [_U64, _U32, _F, _I]      # seed, 24-bit threshold, 1 / (1 - p), active
 _SIGNATURES = {
     "rs_mha_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "rs_flash_fwd": [_P] * 7 + [_I] * 5 + [_F, _P],
+    "rs_flash_bwd_dq": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "rs_flash_bwd_dkv": [_P] * 10 + [_I] * 5 + [_F, _P],
     "rs_transformer_layer_fwd": [_P] * 20 + [_I] * 6 + [_F, _F, _P],
     "rs_transformer_layer_fwd_train": [_P] * 26 + [_I] * 6 + [_F, _F] + _DROP + [_P],
     "rs_transformer_layer_bwd": [_P] * 34 + [_I] * 6 + [_F] + _DROP + [_P],

@@ -10,7 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from recstudio_torch.ops.attention import additive_masks, fused_mha, mha_plain
+from recstudio_torch.models.module import TransformerLayer
+from recstudio_torch.ops.attention import (additive_masks, flash_mha_bwd_dkv,
+                                           flash_mha_bwd_dkv_plain, flash_mha_bwd_dq,
+                                           flash_mha_bwd_dq_plain, flash_mha_fwd,
+                                           flash_mha_plain, fused_mha, mha_plain)
 from recstudio_torch.ops.softmax_z import (catalog_logsumexp, catalog_logsumexp_ditems,
                                            catalog_logsumexp_ditems_plain, catalog_logsumexp_dq,
                                            catalog_logsumexp_dq_plain, catalog_logsumexp_fwd,
@@ -80,9 +84,120 @@ def test_fused_mha_refuses_what_it_does_not_take(dev):
         fused_mha(q.double(), q.double(), q.double())
     with pytest.raises(ValueError):
         fused_mha(q, q.transpose(2, 3), q)
-    with pytest.raises(NotImplementedError):
-        big = torch.zeros((1, 1, 600, 16), device=dev)
-        fused_mha(big, big, big)
+    big = torch.zeros((1, 1, 600, 16), device=dev)
+    before = flash_mha_fwd.launches, fused_mha.launches
+    assert fused_mha(big, big, big).shape == big.shape   # Lk > 512: the flash kernel K4
+    assert (flash_mha_fwd.launches, fused_mha.launches) == (before[0] + 1, before[1])
+    wide = torch.zeros((1, 1, 600, 257), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fused_mha(wide, wide, wide)
+
+
+def _flash_inputs(dev, B, H, Lq, Lk, Dh, causal, all_masked, seed):
+    """q, g [B, H, Lq, Dh], k, v [B, H, Lk, Dh], right padding (example 0
+    fully masked if asked) and the causal mask, as additive masks."""
+    rng = np.random.default_rng(seed)
+    q, g = (torch.from_numpy(rng.normal(size=(B, H, Lq, Dh)).astype(np.float32)).to(dev)
+            for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(B, H, Lk, Dh)).astype(np.float32)).to(dev)
+            for _ in range(2))
+    lens = rng.integers(1, Lk + 1, size=B)
+    pad = np.arange(Lk)[None, :] >= lens[:, None]
+    if all_masked:
+        pad[0] = True
+    attn = torch.triu(torch.ones((Lq, Lk), dtype=torch.bool, device=dev), 1) if causal else None
+    return q, k, v, g, additive_masks(torch.from_numpy(pad).to(dev), attn)
+
+
+def _assert_grad_close(got, want, name):
+    """Gradients: atol 1e-4 times the tensor's largest magnitude, rtol 1e-3
+    (float32 sums of up to Lk terms in another order than cuBLAS's)."""
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4 * float(want.abs().max()),
+                               msg=name)
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,Dh,causal,all_masked", [
+    (2, 2, 1024, 1024, 64, True, False), (2, 2, 2048, 2048, 64, False, False),
+    (3, 1, 600, 600, 32, True, True), (2, 1, 520, 700, 128, False, True),
+    (2, 2, 1024, 1024, 128, True, True), (1, 2, 640, 640, 256, True, False)],
+    ids=["causal-1024", "bidir-2048", "odd-600-masked", "lq-ne-lk-masked",
+         "dh128-masked", "dh256"])
+def test_flash_kernels_match_plain(dev, B, H, Lq, Lk, Dh, causal, all_masked):
+    """K4 against its plain version (out to rtol 1e-4 / atol 2e-5: averages
+    of v over up to 2048 keys; the row statistics to 1e-4), K5 and K6
+    against theirs on K4's out and statistics and against autograd of
+    mha_plain. A fully masked example averages its Lk values, and its
+    gradient is autograd's (P = 1 / Lk)."""
+    q, k, v, g, (pad_add, attn_add) = _flash_inputs(dev, B, H, Lq, Lk, Dh, causal, all_masked,
+                                                    Lq + Lk + Dh)
+    counts = [f.launches for f in (flash_mha_fwd, flash_mha_bwd_dq, flash_mha_bwd_dkv)]
+    out, stats = flash_mha_fwd(q, k, v, pad_add, attn_add)
+    dq, delta = flash_mha_bwd_dq(q, k, v, pad_add, attn_add, out, stats, g)
+    dk, dv = flash_mha_bwd_dkv(q, k, v, pad_add, attn_add, stats, g, delta)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (flash_mha_fwd, flash_mha_bwd_dq, flash_mha_bwd_dkv)] == \
+        [c + 1 for c in counts]
+    want_out, want_stats = flash_mha_plain(q, k, v, pad_add, attn_add)
+    torch.testing.assert_close(out, want_out, rtol=1e-4, atol=2e-5)
+    torch.testing.assert_close(stats, want_stats, rtol=1e-4, atol=1e-4)
+    if all_masked:
+        torch.testing.assert_close(out[0], v[0].mean(dim=1, keepdim=True).expand_as(out[0]),
+                                   rtol=1e-4, atol=2e-5)
+    wdq, wdelta = flash_mha_bwd_dq_plain(q, k, v, pad_add, attn_add, out, stats, g)
+    wdk, wdv = flash_mha_bwd_dkv_plain(q, k, v, pad_add, attn_add, stats, g, wdelta)
+    torch.testing.assert_close(delta, wdelta, rtol=1e-4, atol=1e-4)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    auto = torch.autograd.grad(mha_plain(qs, ks, vs, pad_add, attn_add), (qs, ks, vs), g)
+    for name, got, plain, autograd in (("dq", dq, wdq, auto[0]), ("dk", dk, wdk, auto[1]),
+                                       ("dv", dv, wdv, auto[2])):
+        _assert_grad_close(got, plain, name)
+        _assert_grad_close(got, autograd, name)
+
+
+def test_flash_backward_repeats_bitwise(dev):
+    """Every block of K5 and K6 owns its outputs: no atomics, so the same
+    inputs give bitwise the same gradients."""
+    q, k, v, g, (pad_add, attn_add) = _flash_inputs(dev, 4, 2, 1024, 1024, 64, True, False, 3)
+    out, stats = flash_mha_fwd(q, k, v, pad_add, attn_add)
+    first = flash_mha_bwd_dq(q, k, v, pad_add, attn_add, out, stats, g)
+    first += flash_mha_bwd_dkv(q, k, v, pad_add, attn_add, stats, g, first[1])
+    second = flash_mha_bwd_dq(q, k, v, pad_add, attn_add, out, stats, g)
+    second += flash_mha_bwd_dkv(q, k, v, pad_add, attn_add, stats, g, second[1])
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert torch.equal(out, flash_mha_fwd(q, k, v, pad_add, attn_add)[0])
+
+
+def test_long_sequence_layer_trains_through_the_flash_kernels(dev):
+    """A TransformerLayer at L 600 in training mode with dropout 0 takes the
+    projections + fused_mha branch: K4 forward, K5 and K6 backward; its
+    gradients agree with the plain layer's (dense mha_plain)."""
+    B, L, D, F, H = 3, 600, 64, 128, 2
+    rng = np.random.default_rng(8)
+    tree = random_sasrec_params(9, 2, D, 1, F, 1)
+    layer = TransformerLayer(D, H, F, 0.0, "gelu", 1e-12).to(dev).train()
+    with torch.no_grad():
+        for name, value in layer_params_from_jax(
+                tree["query_encoder"]["transformer"]["layer_0"]).items():
+            getattr(layer, name).copy_(value)
+    x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    pad, causal = _masks(rng, B, L, dev)
+    inputs = [x.clone().requires_grad_(), *layer.parameters()]
+
+    def grads(plain):
+        layer.plain = plain
+        return torch.autograd.grad(layer(inputs[0], pad, causal), inputs, g)
+
+    counts = [f.launches for f in (flash_mha_fwd, flash_mha_bwd_dq, flash_mha_bwd_dkv,
+                                   fused_mha, fused_transformer_layer)]
+    got = grads(False)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (flash_mha_fwd, flash_mha_bwd_dq, flash_mha_bwd_dkv,
+                                 fused_mha, fused_transformer_layer)] == \
+        [counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3], counts[4]]
+    want = grads(True)
+    for i, (a, b) in enumerate(zip(got, want)):
+        _assert_grad_close(a, b, f"input {i}")
 
 
 @pytest.mark.parametrize("B,L,D,F,H,act,eps", [

@@ -85,8 +85,12 @@ def test_cpu_wrappers_use_the_plain_version_and_count_nothing():
                                 1e-12, 3)
     q, items = torch.randn(5, 8, requires_grad=True), torch.randn(7, 8, requires_grad=True)
     catalog_logsumexp(q, items).sum().backward()
+    long_q = torch.randn(1, 1, 600, 4, requires_grad=True)   # Lk > 512: the flash route
+    fused_mha(long_q, long_q, long_q).sum().backward()
     assert launch_counts() == {"fused_transformer_layer": 0,
                                "fused_transformer_layer_bwd": 0, "fused_mha": 0,
+                               "flash_mha_fwd": 0, "flash_mha_bwd_dq": 0,
+                               "flash_mha_bwd_dkv": 0,
                                "catalog_logsumexp_fwd": 0, "catalog_logsumexp_dq": 0,
                                "catalog_logsumexp_ditems": 0}
     assert fused_transformer_layer.launches == 0
