@@ -742,37 +742,51 @@ def k1_versus_plain(device, B, L, D, F, H, causal=True):
             "library_ms": None, "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
 
 
-def k3_versus_plain(device, B, H, L, Dh):
+def k3_versus_plain(device, B, H, L, Dh, causal=True):
+    """K3 through ``fused_mha`` against mha_plain with right padding,
+    example 0 fully masked, and the causal mask (or none); with the kernel's
+    time alone on masks made once (``kernel_only_ms``: ``fused_mha`` makes
+    them from the boolean masks on every call), and the share of (query
+    tile, key tile) pairs it computes and of query tiles that make the extra
+    pass for rows with no allowed key (``mha_tiles``, the kernel's skip
+    rule)."""
     import numpy as np
     import torch
-    from recstudio_torch.ops.attention import additive_masks, fused_mha, mha_plain
+    from recstudio_torch.ops.attention import (MHA_TILE, additive_masks, fused_mha, mha_fwd,
+                                               mha_plain, mha_tiles)
     rng = np.random.default_rng(B + L + 1)
     q, k, v = (torch.from_numpy(rng.normal(size=(B, H, L, Dh)).astype(np.float32)).to(device)
                for _ in range(3))
     pad_np = right_padding(rng, B, L)
     pad_np[0] = True                   # one example whose keys are all masked
     pad = torch.from_numpy(pad_np).to(device)
-    causal = torch.triu(torch.ones((L, L), dtype=torch.bool, device=device), 1)
-    pad_add, attn_add = additive_masks(pad, causal)
-    sdpa_mask = (attn_add[None, None] + pad_add[:, None, None, :]).clamp_min(
-        torch.finfo(torch.float32).min)
-    kern = lambda: fused_mha(q, k, v, pad, causal)
+    attn = causal_mask(L, device, causal)
+    pad_add, attn_add = additive_masks(pad, attn)
+    mask = sdpa_mask(pad_add, attn_add)
+    kern = lambda: fused_mha(q, k, v, pad, attn)
+    kern_only = lambda: mha_fwd(q, k, v, pad_add, attn_add)
     plain = lambda: mha_plain(q, k, v, pad_add, attn_add)
-    lib = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
     with torch.no_grad():
         got, want = kern(), plain()
         torch.cuda.synchronize()
         max_abs, max_rel, ok = errors(got, want, TOL_K3)
         masked_row_ok = bool(torch.allclose(got[0], v[0].mean(dim=1, keepdim=True).expand_as(
             got[0]), atol=TOL_K3[0], rtol=TOL_K3[1]))
-        ms, plain_ms, library_ms = time_ms(kern), time_ms(plain), time_ms(lib)
-    flops = 4 * H * attended_pairs(pad, causal) * Dh
-    nbytes = 4 * (4 * B * H * L * Dh + B * L + L * L)
+        bitwise = torch.equal(got, kern()) and torch.equal(got, kern_only())
+        ms, kernel_ms = time_ms(kern), time_ms(kern_only)
+        plain_ms, library_ms = time_ms(plain), time_ms(lib)
+    tiles, extra = mha_tiles(pad, attn, L, L, *MHA_TILE)
+    flops = 4 * H * attended_pairs(pad, attn) * Dh
+    nbytes = 4 * (4 * B * H * L * Dh + B * L + (L * L if causal else 0))
     b_ms, by = bound(flops, nbytes)
-    return {"shape": dict(B=B, H=H, L=L, Dh=Dh), "max_abs_err": max_abs,
-            "max_rel_err": max_rel, "tol": TOL_K3, "ok": ok and masked_row_ok,
-            "all_masked_row_uniform": masked_row_ok, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
+    return {"shape": dict(B=B, H=H, L=L, Dh=Dh, causal=causal), "max_abs_err": max_abs,
+            "max_rel_err": max_rel, "tol": TOL_K3, "ok": ok and masked_row_ok and bitwise,
+            "all_masked_row_uniform": masked_row_ok, "bitwise_repeatable": bitwise,
+            "tile": list(MHA_TILE), "tiles_computed_share": float(tiles.float().mean()),
+            "extra_pass_share": float(extra.float().mean()), "ms": ms,
+            "kernel_only_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
 
 
 def layer_inputs(device, B, L, D, F, seed, causal=True):
@@ -1074,6 +1088,8 @@ def main() -> int:
     k1_b = k1_versus_plain(device, 256, 200, 128, 128, 2)
     k3_b = k3_versus_plain(device, 256, 2, 200, 64)
     k3_c = k3_versus_plain(device, 64, 2, 384, 64)
+    # BERT4Rec's attention through K1 at F: no attention mask, right padding
+    k3_f = k3_versus_plain(device, 256, 2, 200, 32, causal=False)
     k1_d = k1_train_versus_plain(device, 1024, 200, 128, 128, 2)
     k2_d = k2_versus_plain(device, 1024, 200, 128, 128, 2)
     # phase F's shapes: BERT4Rec layers (no attention mask, dropout 0.2), and
@@ -1085,6 +1101,7 @@ def main() -> int:
     clse_f = clse_versus_plain(device, 256 * 200, 3706, 64)
     clse_cat = clse_versus_plain(device, 512, 500_000, 64)
     rows = [("K1@A", k1_a), ("K1@B", k1_b), ("K3@B", k3_b), ("K3@C", k3_c),
+            ("K3@F", k3_f),
             ("K1train@D", k1_d), ("K2@D", k2_d), ("K1@F", k1_f), ("K1train@F", k1t_f),
             ("K2@F", k2_f)]
     rows += [(f"{k}@F", clse_f[k]) for k in ("K7", "K8", "K9")]

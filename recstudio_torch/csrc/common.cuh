@@ -35,6 +35,33 @@ struct MhaParams {
   DropParams drop;
 };
 
+// The masked logit of a real (query, key) pair from its raw dot product s
+// and the two additive mask terms: scaled, + attn, + pad, clamped at
+// finfo.min, in that order. The forward (attention.cu) and the backward
+// (transformer_layer_bwd.cu) both call it, so the backward's P is exactly
+// the P whose (max, sum) the forward stored. The rounded intrinsics keep
+// nvcc from contracting the scale and the first addition into one fma in
+// one kernel and not in the other; for the port's masks (0 or finfo.min)
+// the result equals the contracted one bit for bit. rs_raw_logit is the
+// logit before the clamp: the gradient passes the clamp where it is >=
+// finfo.min (torch.clamp_min's rule) and is cut where both masks are
+// finfo.min (the sum is -inf).
+__device__ __forceinline__ float rs_raw_logit(float s, float scale, float attn, float pad) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(s, scale), attn), pad);
+}
+
+__device__ __forceinline__ float rs_logit(float s, float scale, float attn, float pad) {
+  return fmaxf(rs_raw_logit(s, scale, attn, pad), RS_NEG);
+}
+
+// rs_raw_logit with the mask terms read from p's masks (either may be null).
+__device__ __forceinline__ float masked_raw_logit(const MhaParams& p, float s, int b, int qi,
+                                                  int kj) {
+  const float a = p.attn_add ? p.attn_add[qi * p.Lk + kj] : 0.f;
+  const float pad = p.pad_add ? p.pad_add[b * p.Lk + kj] : 0.f;
+  return rs_raw_logit(s, p.scale, a, pad);
+}
+
 // Launches the masked attention kernel of attention.cu on `stream`.
 cudaError_t rs_launch_mha(const MhaParams& p, cudaStream_t stream);
 // The same kernel in training mode: dropout of the probabilities and the

@@ -287,7 +287,10 @@ ln_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ xhat,
 // query rows, keys in tiles of 32, one key per lane); the dk/dv kernel
 // swaps the roles (4 warps x 4 key rows, queries in tiles of 32, one query
 // per lane). s is computed with the forward's operand order, so P = exp(s -
-// max) / sum is the forward's softmax.
+// max) / sum is the forward's softmax. dS passes the clamp at finfo.min as
+// torch.clamp_min's gradient does (rs_raw_logit, common.cuh): it is cut
+// where both masks are finfo.min, which matters only on a row whose keys
+// are all masked (P = 1 / Lk there).
 constexpr int kTK = 32;
 constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = 4;
@@ -302,16 +305,6 @@ struct MhaBwdParams {
   float* dv;
   float* Di;           // [B, H, Lq]: dA_i . A_i
 };
-
-// The forward's masked logit of a real (query, key) pair, from the raw
-// dot product s, in the forward's order of operations.
-__device__ __forceinline__ float masked_logit(const MhaParams& p, float s, int b, int qi,
-                                              int kj) {
-  s *= p.scale;
-  const float a = p.attn_add ? p.attn_add[qi * p.Lk + kj] : 0.f;
-  const float pad = p.pad_add ? p.pad_add[b * p.Lk + kj] : 0.f;
-  return fmaxf((s + a) + pad, RS_NEG);
-}
 
 template <int DPL>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -390,11 +383,12 @@ mha_bwd_dq_kernel(const MhaBwdParams bp) {
       }
       float ds = 0.f;
       if (kvalid && qi < p.Lq) {
-        const float pr = expf(masked_logit(p, s, b, qi, kj) - mrow[rr]) / lrow[rr];
+        const float raw = masked_raw_logit(p, s, b, qi, kj);
+        const float pr = expf(fmaxf(raw, RS_NEG) - mrow[rr]) / lrow[rr];
         const float keep = rs_keep(p.drop, kSiteAttn,
                                    (((unsigned long long)b * p.H + h) * p.Lq + qi) *
                                            (unsigned long long)p.Lk + kj);
-        ds = pr * (dpv * keep - drow[rr]);
+        if (raw >= RS_NEG) ds = pr * (dpv * keep - drow[rr]);
       }
       for (int j = 0; j < kTK; ++j) {
         const float w = __shfl_sync(kFull, ds, j);
@@ -484,10 +478,11 @@ mha_bwd_dkv_kernel(const MhaBwdParams bp) {
       }
       float ds = 0.f, pk = 0.f;
       if (qvalid && kj < p.Lk) {
-        const float pr = expf(masked_logit(p, s, b, qi, kj) - m_i) / l_i;
+        const float raw = masked_raw_logit(p, s, b, qi, kj);
+        const float pr = expf(fmaxf(raw, RS_NEG) - m_i) / l_i;
         const float keep = rs_keep(p.drop, kSiteAttn,
                                    ((unsigned long long)(row0 + qi)) * p.Lk + kj);
-        ds = pr * (dpv * keep - d_i);
+        if (raw >= RS_NEG) ds = pr * (dpv * keep - d_i);
         pk = pr * keep;
       }
       for (int j = 0; j < kTK; ++j) {

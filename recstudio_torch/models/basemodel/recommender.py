@@ -56,10 +56,31 @@ def clip_by_global_norm(params: List[torch.Tensor], max_norm: float) -> None:
     torch._foreach_mul_(grads, factor)
 
 
+# train.precision values the port honours: it computes in float32 throughout,
+# which is what "fp32" asks for and at least what "default" and "bf16_3x"
+# (three bf16 passes, float32-like) give on the TPU.
+HONOURED_PRECISIONS = ("default", "fp32", "bf16_3x")
+
+
+def check_train_config(tc: Dict[str, Any]) -> None:
+    """Raise on ``train`` keys the port accepts in its config but does not
+    honour, instead of ignoring them."""
+    precision = str(tc.get("precision", "default")).lower()
+    if precision not in HONOURED_PRECISIONS:
+        raise NotImplementedError(f"train.precision {tc['precision']!r} is not ported "
+                                  f"(the port computes in float32: {HONOURED_PRECISIONS})")
+    if str(tc.get("ckpt_backend", "pickle")).lower() != "pickle":
+        raise NotImplementedError(f"train.ckpt_backend {tc['ckpt_backend']!r} is not ported "
+                                  "(checkpoints are torch.save files)")
+    if tc.get("tensorboard_path") is not None:
+        raise NotImplementedError("train.tensorboard_path is not ported (no TensorBoard logs)")
+
+
 class Recommender:
     def __init__(self, config: Optional[Dict] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.config = config if config is not None else get_base_model_config()
+        check_train_config(self.config["train"])
         self.device = resolve_device(device)
         seed = self.config["train"].get("seed")
         if seed is not None:

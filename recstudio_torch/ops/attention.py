@@ -8,7 +8,8 @@ Lk values). It dispatches on Lk as ``_dispatch``/``_fwd`` do
 (``attention.py:357-378``):
 
 - Lk <= 512: on a CUDA tensor the hand-written kernel ``csrc/attention.cu``
-  (K3, replacing the Pallas ``_mha_kernel``), counted in
+  (K3, replacing the Pallas ``_mha_kernel``; it skips the key tiles of
+  ``MHA_TILE`` that the masks cover fully, ``mha_tiles``), counted in
   ``fused_mha.launches``; on a CPU tensor ``mha_plain``. Its backward
   recomputes through autograd of ``mha_plain``, as the JAX package
   differentiates the short regime through ``mha_xla``
@@ -39,6 +40,7 @@ import torch
 NEG = torch.finfo(torch.float32).min
 MAX_KEYS = 512      # ``_FLASH_THRESHOLD`` of the JAX package
 MAX_HEAD_DIM = 256  # accumulator width of csrc/attention.cu and csrc/flash_attention.cu
+MHA_TILE = (32, 32)  # K3's (query rows, keys) a block at every Dh: kTileRows, kTileKeys
 
 
 def additive_masks(key_padding_mask: Optional[torch.Tensor],
@@ -173,7 +175,13 @@ def _launch(name: str, dev, *args) -> None:
         lib.call(name, *args, torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _mha_cuda(q, k, v, pad_add, attn_add) -> torch.Tensor:
+def mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            pad_add: Optional[torch.Tensor] = None,
+            attn_add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3 on additive masks (Lk <= 512): ``[B, H, Lq, Dh]``, counted in
+    ``fused_mha.launches``; ``mha_plain`` on a CPU tensor."""
+    if q.device.type == "cpu":
+        return mha_plain(q, k, v, pad_add, attn_add)
     B, H, Lq, Lk, Dh = _check_mha(q, k, v, pad_add, attn_add)
     if Lk > MAX_KEYS:
         raise ValueError(f"Lk={Lk} > {MAX_KEYS} goes to the flash kernel, not to K3")
@@ -182,6 +190,30 @@ def _mha_cuda(q, k, v, pad_add, attn_add) -> torch.Tensor:
             _ptr(attn_add), out.data_ptr(), B, H, Lq, Lk, Dh, 1.0 / math.sqrt(Dh))
     fused_mha.launches += 1
     return out
+
+
+def mha_tiles(key_padding_mask: Optional[torch.Tensor], attn_mask: Optional[torch.Tensor],
+              Lq: int, Lk: int, tq: int, tk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's skip rule in plain torch, per example (the same for every head):
+    bool ``[B, nq, nk]``, True for the (query tile, key tile) pairs it
+    computes (some real row and key of the pair allowed), and bool ``[B,
+    nq]``, True for the query tiles that hold a row with no allowed key
+    (they make one more pass over all Lk values). Masks as ``fused_mha``'s."""
+    B = 1 if key_padding_mask is None else key_padding_mask.shape[0]
+    ref = key_padding_mask if key_padding_mask is not None else attn_mask
+    dev = ref.device if ref is not None else torch.device("cpu")
+    allowed = torch.ones((B, Lq, Lk), dtype=torch.bool, device=dev)
+    if key_padding_mask is not None:
+        allowed &= ~key_padding_mask[:, None, :]
+    if attn_mask is not None:
+        allowed &= ~attn_mask[None]
+    nq, nk = -(-Lq // tq), -(-Lk // tk)
+    padded = torch.zeros((B, nq * tq, nk * tk), dtype=torch.bool, device=dev)
+    padded[:, :Lq, :Lk] = allowed
+    tiles = padded.view(B, nq, tq, nk, tk).any(dim=4).any(dim=2)
+    empty = torch.zeros((B, nq * tq), dtype=torch.bool, device=dev)
+    empty[:, :Lq] = ~allowed.any(dim=-1)
+    return tiles, empty.view(B, nq, tq).any(dim=-1)
 
 
 def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -249,7 +281,7 @@ class _Mha(torch.autograd.Function):
     def forward(ctx, q, k, v, pad_add, attn_add):
         ctx.save_for_backward(q, k, v)
         ctx.masks = (pad_add, attn_add)
-        return _mha_cuda(q, k, v, pad_add, attn_add)
+        return mha_fwd(q, k, v, pad_add, attn_add)
 
     @staticmethod
     def backward(ctx, g):

@@ -52,10 +52,11 @@ class Predictor:
         return out, n
 
     def _dummy(self) -> Dict[str, np.ndarray]:
-        L = self.model.query_encoder.max_seq_len
         out = {}
         for f in sorted(self.model.query_fields):
-            shape = (self.max_batch, L) if f.startswith("in_") else (self.max_batch,)
+            # only a sequence field has a length: other query towers have no max_seq_len
+            shape = ((self.max_batch, self.model.query_encoder.max_seq_len) if f.startswith("in_")
+                     else (self.max_batch,))
             out[f] = np.zeros(shape, np.int32)
         return out
 

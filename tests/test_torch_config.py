@@ -1,4 +1,6 @@
 """The port's configs (JSON copies) merge to the JAX package's YAML configs."""
+import pytest
+
 from recstudio_tpu.utils import get_dataset_default_config as jax_dataset_config
 from recstudio_tpu.utils import get_model as jax_get_model
 
@@ -31,3 +33,23 @@ def test_unknown_dataset_falls_back_to_defaults():
 
 def test_registry_lists_what_is_ported():
     assert list_models() == {"sasrec": "seq", "bert4rec": "seq"}
+
+
+@pytest.mark.parametrize("key,value", [
+    ("precision", "bf16"), ("precision", "bfloat16"), ("precision", "int8-someday"),
+    ("ckpt_backend", "orbax"), ("tensorboard_path", "./tb")])
+def test_train_keys_the_port_does_not_honour_raise(key, value):
+    """A train key the port would silently ignore is refused when the model
+    is built, as an unported learner is when its optimizer is made."""
+    cls, conf = get_model("SASRec")
+    conf["train"][key] = value
+    with pytest.raises(NotImplementedError, match=key):
+        cls(conf, device="cpu")
+
+
+@pytest.mark.parametrize("precision", ["default", "fp32", "bf16_3x", "FP32"])
+def test_float32_precisions_are_accepted(precision):
+    cls, conf = get_model("SASRec")
+    conf["train"]["precision"] = precision
+    conf["train"]["ckpt_backend"] = "pickle"
+    assert cls(conf, device="cpu").config["train"]["precision"] == precision

@@ -14,7 +14,7 @@ from recstudio_torch.models.module import TransformerLayer
 from recstudio_torch.ops.attention import (additive_masks, flash_mha_bwd_dkv,
                                            flash_mha_bwd_dkv_plain, flash_mha_bwd_dq,
                                            flash_mha_bwd_dq_plain, flash_mha_fwd,
-                                           flash_mha_plain, fused_mha, mha_plain)
+                                           flash_mha_plain, fused_mha, mha_fwd, mha_plain)
 from recstudio_torch.ops.softmax_z import (catalog_logsumexp, catalog_logsumexp_ditems,
                                            catalog_logsumexp_ditems_plain, catalog_logsumexp_dq,
                                            catalog_logsumexp_dq_plain, catalog_logsumexp_fwd,
@@ -47,16 +47,36 @@ def _masks(rng, B, L, dev, all_masked_row=False):
     return torch.from_numpy(pad).to(dev), causal
 
 
-@pytest.mark.parametrize("B,H,Lq,Lk,Dh,causal", [
-    (3, 2, 20, 20, 32, True), (2, 2, 200, 200, 64, True), (2, 1, 384, 384, 128, True),
-    (2, 4, 7, 45, 16, False), (1, 1, 33, 512, 256, False)])
-def test_fused_mha_matches_plain(dev, B, H, Lq, Lk, Dh, causal):
-    rng = np.random.default_rng(Lq + Lk + Dh)
+def _mha_inputs(dev, B, H, Lq, Lk, Dh, seed):
+    rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.normal(size=(B, H, Lq, Dh)).astype(np.float32)).to(dev)
     k, v = (torch.from_numpy(rng.normal(size=(B, H, Lk, Dh)).astype(np.float32)).to(dev)
             for _ in range(2))
-    pad = torch.from_numpy(rng.random((B, Lk)) < 0.3).to(dev)
-    pad[:, 0] = False
+    return rng, q, k, v
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,Dh,causal,padding", [
+    (3, 2, 20, 20, 32, True, "random"), (2, 2, 200, 200, 64, True, "random"),
+    (2, 1, 384, 384, 128, True, "random"), (2, 4, 7, 45, 16, False, "random"),
+    (1, 1, 33, 512, 256, False, "random"),
+    (4, 2, 200, 200, 64, True, "right"), (3, 2, 384, 384, 64, True, "right"),
+    (4, 2, 200, 200, 32, False, "right"), (3, 2, 150, 300, 128, True, "right"),
+    (2, 1, 200, 200, 256, True, "right"), (3, 2, 100, 100, 30, True, "right"),
+    (2, 2, 77, 130, 37, False, "random")],
+    ids=["L20-dh32", "L200-dh64", "L384-dh128", "lq7-lk45-dh16", "lk512-dh256",
+         "B-right", "C-right", "F-right-dh32", "lq150-lk300-dh128", "L200-dh256",
+         "dh30", "lq77-lk130-dh37"])
+def test_fused_mha_matches_plain(dev, B, H, Lq, Lk, Dh, causal, padding):
+    """K3 against mha_plain (TOL_K3: rtol 1e-4, atol 2e-5; outputs are
+    averages of v): ragged tiles, Lq != Lk, every head width of the plan,
+    and widths that are not a multiple of 4 (4-byte copies)."""
+    rng, q, k, v = _mha_inputs(dev, B, H, Lq, Lk, Dh, Lq + Lk + Dh)
+    if padding == "right":
+        lens = rng.integers(1, Lk + 1, size=B)
+        pad = torch.from_numpy(np.arange(Lk)[None, :] >= lens[:, None]).to(dev)
+    else:
+        pad = torch.from_numpy(rng.random((B, Lk)) < 0.3).to(dev)
+        pad[:, 0] = False
     attn = torch.triu(torch.ones((Lq, Lk), dtype=torch.bool, device=dev), 1) if causal else None
     before = fused_mha.launches
     got = fused_mha(q, k, v, pad, attn)
@@ -64,6 +84,40 @@ def test_fused_mha_matches_plain(dev, B, H, Lq, Lk, Dh, causal):
     assert fused_mha.launches == before + 1
     want = mha_plain(q, k, v, *additive_masks(pad, attn))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-5)
+    assert torch.equal(mha_fwd(q, k, v, *additive_masks(pad, attn)), got)   # the same launch
+    assert fused_mha.launches == before + 2
+
+
+@pytest.mark.parametrize("Dh", [64, 32])
+def test_fused_mha_rows_whose_key_tiles_are_all_skipped(dev, Dh):
+    """Rows with no allowed key: a fully padded example (every key tile of
+    its blocks skipped), and the first query tile's rows masked by the
+    attention mask while the other rows keep keys. Each comes out as the
+    average of its Lk values; the other rows as mha_plain's."""
+    B, H, L = 3, 2, 200
+    rng, q, k, v = _mha_inputs(dev, B, H, L, L, Dh, Dh)
+    pad, causal = _masks(rng, B, L, dev, all_masked_row=True)
+    attn = causal.clone()
+    attn[:70] = True
+    for mask, empty_rows in ((causal, None), (attn, slice(0, 70))):
+        got = fused_mha(q, k, v, pad, mask)
+        torch.cuda.synchronize()
+        mean = v.mean(dim=2, keepdim=True)
+        torch.testing.assert_close(got[0], mean[0].expand_as(got[0]), rtol=1e-4, atol=2e-5)
+        if empty_rows is not None:
+            torch.testing.assert_close(got[:, :, empty_rows],
+                                       mean.expand_as(got)[:, :, empty_rows],
+                                       rtol=1e-4, atol=2e-5)
+        torch.testing.assert_close(got, mha_plain(q, k, v, *additive_masks(pad, mask)),
+                                   rtol=1e-4, atol=2e-5)
+
+
+def test_fused_mha_repeats_bitwise(dev):
+    """Every block owns its rows and sums in a fixed order: the same inputs
+    give bitwise the same output."""
+    rng, q, k, v = _mha_inputs(dev, 8, 2, 200, 200, 64, 4)
+    pad, causal = _masks(rng, 8, 200, dev, all_masked_row=True)
+    assert torch.equal(fused_mha(q, k, v, pad, causal), fused_mha(q, k, v, pad, causal))
 
 
 def test_fused_mha_all_masked_row_is_uniform(dev):
@@ -91,6 +145,11 @@ def test_fused_mha_refuses_what_it_does_not_take(dev):
     wide = torch.zeros((1, 1, 600, 257), device=dev)
     with pytest.raises(ValueError, match="head dim"):
         fused_mha(wide, wide, wide)
+    wide = torch.zeros((1, 1, 64, 257), device=dev)   # Lk <= 512: K3 takes Dh <= 256 too
+    before = fused_mha.launches
+    with pytest.raises(ValueError, match="head dim"):
+        fused_mha(wide, wide, wide)
+    assert fused_mha.launches == before
 
 
 def _flash_inputs(dev, B, H, Lq, Lk, Dh, causal, all_masked, seed):
@@ -218,13 +277,16 @@ def test_fused_transformer_layer_matches_plain(dev, B, L, D, F, H, act, eps):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("B,L,D,F,H,act,p", [
-    (5, 20, 64, 128, 2, "gelu", 0.5), (3, 200, 128, 128, 2, "gelu", 0.5),
-    (4, 37, 96, 160, 3, "relu", 0.2), (2, 24, 64, 128, 2, "gelu", 0.0)])
-def test_fused_layer_training_matches_plain(dev, B, L, D, F, H, act, p):
+@pytest.mark.parametrize("B,L,D,F,H,act,p,all_masked", [
+    (5, 20, 64, 128, 2, "gelu", 0.5, False), (3, 200, 128, 128, 2, "gelu", 0.5, False),
+    (4, 37, 96, 160, 3, "relu", 0.2, False), (2, 24, 64, 128, 2, "gelu", 0.0, False),
+    (3, 200, 128, 128, 2, "gelu", 0.5, True)])
+def test_fused_layer_training_matches_plain(dev, B, L, D, F, H, act, p, all_masked):
     """K1 (training) and K2 against the plain forward and autograd through
     it, with dropout on: the kernels regenerate the plain version's masks
-    from the same seed. Tolerance: K1 as eval; gradients atol 1e-4 times
+    from the same seed. With a fully padded example, K2 recomputes P from
+    the statistics K3 writes for rows whose key tiles it skipped
+    (finfo.min, Lk). Tolerance: K1 as eval; gradients atol 1e-4 times
     their largest magnitude (float32 sums of up to B L terms)."""
     rng = np.random.default_rng(B * L + 1)
     tree = random_sasrec_params(L + 1, 2, D, 1, F, 1)
@@ -232,7 +294,7 @@ def test_fused_layer_training_matches_plain(dev, B, L, D, F, H, act, p):
               layer_params_from_jax(tree["query_encoder"]["transformer"]["layer_0"]).items()}
     x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
     g = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
-    pad, causal = _masks(rng, B, L, dev)
+    pad, causal = _masks(rng, B, L, dev, all_masked_row=all_masked)
     seed = 12345
     k1, k2 = fused_transformer_layer.launches, fused_transformer_layer_bwd.launches
     out, res = training_residuals(x, params, pad, causal, H, p, act, 1e-12, seed)

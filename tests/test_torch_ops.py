@@ -203,3 +203,87 @@ def test_gelu_is_the_tanh_form():
     x = np.linspace(-6, 6, 101, dtype=np.float32)
     np.testing.assert_allclose(gelu_tanh(torch.from_numpy(x)).numpy(),
                                np.asarray(jax.nn.gelu(jnp.asarray(x))), rtol=1e-6, atol=1e-6)
+
+
+def _tile_skipped_attention(q, k, v, pad, attn, tq, tk):
+    """Attention computed as K3 does: only the key tiles ``mha_tiles``
+    marks for a row's query tile, and a row with no allowed key set to the
+    mean of its Lk values."""
+    from recstudio_torch.ops.attention import NEG, _raw_logits, mha_tiles
+    Lq, Lk = q.shape[2], k.shape[2]
+    tiles, _ = mha_tiles(pad, attn, Lq, Lk, tq, tk)
+    computed = tiles.repeat_interleave(tq, 1).repeat_interleave(tk, 2)[:, :Lq, :Lk]
+    s = torch.clamp_min(_raw_logits(q, k, *additive_masks(pad, attn)), NEG)
+    s = s.masked_fill(~computed[:, None], float("-inf"))
+    out = torch.softmax(s, dim=-1).nan_to_num(0.0) @ v
+    allowed = (~pad[:, None, :]) & (~attn[None])
+    empty = ~allowed.any(-1)                                        # [B, Lq]
+    return torch.where(empty[:, None, :, None], v.mean(dim=2, keepdim=True), out)
+
+
+@pytest.mark.parametrize("Lq,Lk,tq,tk,fully_padded", [
+    (200, 200, 64, 64, False), (384, 384, 64, 64, True), (200, 200, 32, 32, True),
+    (45, 70, 32, 64, False)], ids=["B-tiles", "C-tiles-padded", "small-tiles", "lq-ne-lk"])
+def test_skipping_masked_key_tiles_keeps_the_function(Lq, Lk, tq, tk, fully_padded):
+    """K3's skip rule (``mha_tiles``): leaving out every key tile whose
+    pairs the masks cover fully, and averaging the rows with no allowed
+    key, gives mha_plain's output; a causal mask skips the tiles above the
+    diagonal and right padding those past an example's length."""
+    from recstudio_torch.ops.attention import mha_tiles
+    rng = np.random.default_rng(Lq + Lk + tq)
+    B, H, Dh = 3, 2, 8
+    q = torch.from_numpy(rng.normal(size=(B, H, Lq, Dh)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(B, H, Lk, Dh)).astype(np.float32))
+            for _ in range(2))
+    lens = rng.integers(1, Lk + 1, size=B)
+    pad_np = np.arange(Lk)[None, :] >= lens[:, None]
+    if fully_padded:
+        pad_np[0] = True
+    pad = torch.from_numpy(pad_np)
+    attn = torch.triu(torch.ones((Lq, Lk), dtype=torch.bool), 1)
+    got = _tile_skipped_attention(q, k, v, pad, attn, tq, tk)
+    torch.testing.assert_close(got, mha_plain(q, k, v, *additive_masks(pad, attn)),
+                               rtol=RTOL, atol=ATOL)
+    tiles, empty = mha_tiles(pad, attn, Lq, Lk, tq, tk)
+    nq, nk = -(-Lq // tq), -(-Lk // tk)
+    assert tiles.shape == (B, nq, nk) and empty.shape == (B, nq)
+    causal_tiles = sum(min(nk, ((i + 1) * tq - 1) // tk + 1) for i in range(nq))
+    assert int(tiles[1:].sum(dim=(1, 2)).max()) <= causal_tiles
+    assert bool(empty[0].all()) == fully_padded and not bool(empty[1:].any())
+    if fully_padded:
+        assert not bool(tiles[0].any())
+
+
+def test_tiles_without_masks_are_all_computed():
+    from recstudio_torch.ops.attention import mha_tiles
+    tiles, empty = mha_tiles(None, None, 200, 200, 64, 64)
+    assert tiles.shape == (1, 4, 4) and bool(tiles.all()) and not bool(empty.any())
+    tiles, _ = mha_tiles(None, torch.triu(torch.ones((128, 128), dtype=torch.bool), 1),
+                         128, 128, 64, 64)
+    assert tiles[0].tolist() == [[True, False], [True, True]]
+
+
+def test_tile_constant_is_the_kernel_plan():
+    """``MHA_TILE``, with which ``mha_tiles`` reports K3's skipped tiles, is
+    the tile plan the CUDA source compiles."""
+    import re
+    from pathlib import Path
+    from recstudio_torch.ops.attention import MHA_TILE
+    src = (Path(__file__).resolve().parents[1] / "recstudio_torch" / "csrc"
+           / "attention.cu").read_text()
+    plan = re.search(r"constexpr int kTileRows = (\d+), kTileKeys = (\d+);", src)
+    assert plan is not None and tuple(map(int, plan.groups())) == MHA_TILE
+
+
+def test_mha_fwd_on_the_cpu_is_the_plain_version():
+    """K3's wrapper on additive masks takes its plain version for a CPU
+    tensor, and launches nothing."""
+    from recstudio_torch.ops.attention import mha_fwd
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 2, 9, 8)).astype(np.float32))
+               for _ in range(3))
+    pad = torch.from_numpy(_pad(rng, 2, 9, right=True))
+    masks = additive_masks(pad, torch.triu(torch.ones((9, 9), dtype=torch.bool), 1))
+    before = fused_mha.launches
+    assert torch.equal(mha_fwd(q, k, v, *masks), mha_plain(q, k, v, *masks))
+    assert fused_mha.launches == before

@@ -147,6 +147,39 @@ def test_warm_works_for_sasrec(pair):
         JaxPredictor(jmodel, max_batch=16, k=K, train_data=jtst).warm()
 
 
+class _UserTowerRetriever:
+    """A retriever whose query tower embeds the user id alone: its encoder
+    has no ``max_seq_len``."""
+
+    def __init__(self, num_users=10, num_items=30, dim=8):
+        gen = torch.Generator().manual_seed(0)
+        self.query_encoder = torch.nn.Embedding(num_users, dim)
+        self.items = torch.randn(num_items, dim, generator=gen)
+        self.query_fields = {"user_id"}
+        self.fuid = "user_id"
+        self.device = torch.device("cpu")
+
+    def _epoch_refresh(self, nepoch):
+        pass
+
+    def topk(self, batch, k, user_hist=None):
+        with torch.no_grad():
+            scores = self.query_encoder(batch["user_id"].long()) @ self.items.T
+        return torch.topk(scores, k)
+
+
+def test_warm_works_for_a_non_sequence_query_tower():
+    """The dummy request reads the sequence length only for a sequence
+    field (``in_*``): a user-id tower warms up without one."""
+    pred = Predictor(_UserTowerRetriever(), max_batch=4, k=5)
+    assert not hasattr(pred.model.query_encoder, "max_seq_len")
+    assert pred.warm() is pred
+    dummy = pred._dummy()
+    assert sorted(dummy) == ["user_id"] and dummy["user_id"].shape == (4,)
+    scores, ids = pred({"user_id": np.array([1, 3], np.int32)})
+    assert scores.shape == ids.shape == (2, 5)
+
+
 def test_padding_is_exact(pair):
     """A request's rows come out the same alone (padded to max_batch) as
     inside a full request."""
