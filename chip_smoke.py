@@ -1010,11 +1010,15 @@ def k5_k6_versus_plain(device, B, H, L, Dh, causal=True, all_masked=False, seed=
     """K5 and K6 on K4's out and statistics, held to their explicit plain
     versions and to autograd of ``mha_plain`` (TOL_GRAD relative to each
     tensor's largest value), each repeated bit for bit. Library time for
-    both: SDPA's backward, one call that computes dq, dk and dv together."""
+    both: SDPA's backward, one call that computes dq, dk and dv together.
+    Each row reports the share of (query tile, key tile) pairs of
+    ``FLASH_TILE`` the kernels compute: those holding an allowed pair, and
+    every pair of a query tile that holds a row with no allowed key."""
     import torch
-    from recstudio_torch.ops.attention import (flash_mha_bwd_dkv, flash_mha_bwd_dkv_plain,
-                                               flash_mha_bwd_dq, flash_mha_bwd_dq_plain,
-                                               flash_mha_fwd, mha_plain)
+    from recstudio_torch.ops.attention import (FLASH_TILE, flash_mha_bwd_dkv,
+                                               flash_mha_bwd_dkv_plain, flash_mha_bwd_dq,
+                                               flash_mha_bwd_dq_plain, flash_mha_fwd, mha_plain,
+                                               mha_tiles)
     q, k, v, g, pad, attn, (pad_add, attn_add) = flash_inputs(device, B, H, L, Dh, causal,
                                                               all_masked, seed)
     masks = (pad_add, attn_add)
@@ -1044,6 +1048,8 @@ def k5_k6_versus_plain(device, B, H, L, Dh, causal=True, all_masked=False, seed=
     ms5, ms6 = time_ms(k5), time_ms(k6)
     plain5, plain6, library_ms = time_ms(p5, iters=5), time_ms(p6, iters=5), time_ms(lib, iters=5)
     pairs = attended_pairs(pad, attn)
+    tiles, empty = mha_tiles(pad, attn, L, L, *FLASH_TILE)
+    share = float((tiles | empty[:, :, None]).float().mean())
     shape = dict(B=B, H=H, L=L, Dh=Dh, causal=causal, all_masked_example=all_masked)
     # K5 reads q, k, v, dO, out and stats, writes dq and delta; K6 reads q,
     # k, v, dO, stats and delta, writes dk and dv
@@ -1052,7 +1058,8 @@ def k5_k6_versus_plain(device, B, H, L, Dh, causal=True, all_masked=False, seed=
     row = lambda err, ok, aerr, aok, bit, ms, plain_ms, b_ms, by, flops: {
         "shape": shape, "max_abs_err": max(err, aerr), "plain_max_abs_err": err,
         "autograd_max_abs_err": aerr, "tol": TOL_GRAD, "ok": ok and aok and bit,
-        "bitwise_repeatable": bit, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bitwise_repeatable": bit, "tile": list(FLASH_TILE), "tiles_computed_share": share,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "library": "SDPA backward (dq, dk, dv together)", "bound_ms": b_ms, "bound_by": by,
         "gflop": flops / 1e9}
     return (row(err5, ok5, aerr5, aok5, bit5, ms5, plain5, b5, by5, f5),

@@ -15,7 +15,8 @@
 // bound by bytes at L 200 (phase B) and by operations at L 384 (phase C),
 // Dh 64.
 //
-// Design (the register tile of flash_attention.cu's K4). A block of 256
+// Design (the register tile of register_tile.cuh, shared with the flash
+// backward K5, K6; after flash_attention.cu's K4). A block of 256
 // threads (16 x 16: tx = threadIdx.x & 15, ty = threadIdx.x >> 4) owns TQ
 // query rows in shared memory and streams tiles of TK keys and values,
 // copied with cp.async (16-byte copies where Dh, the strides and the
@@ -66,156 +67,18 @@
 // Each row's (max, sum) is stored for the backward, which recomputes P
 // tile by tile instead of reading it.
 #include "common.cuh"
+#include "register_tile.cuh"
 
 #include <cmath>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxTiles = 64;  // key tiles a block can mark (a 64-bit word)
 // The tile plan at every Dh: query rows TQ and keys TK of a block
 // (ops/attention.py MHA_TILE), each thread a 2 x 2 block of scores.
 constexpr int kTileRows = 32, kTileKeys = 32;
 constexpr int kRI = kTileRows / 16, kCJ = kTileKeys / 16;
-
-// The 16 threads tx of a row are lanes 0-15 or 16-31 of a warp.
-__device__ __forceinline__ float row_max(float x) {
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// cp.async copies of 16 or 4 bytes; src_bytes 0 fills the destination with
-// zeros (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [r0, r0 + ROWS) of a strided [L, Dh] operand into shared memory
-// (row stride LD), columns Dh..W-1 and rows >= L zero. Issued, not waited.
-template <int ROWS, int W, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, long long sl, int r0,
-                                          int L, int Dh, bool vec) {
-  if (vec) {
-    constexpr int Q4 = W / 4;
-    for (int idx = threadIdx.x; idx < ROWS * Q4; idx += kThreads) {
-      const int r = idx / Q4, c = (idx - r * Q4) * 4, gr = r0 + r;
-      const bool ok = gr < L && c < Dh;
-      cp_async16(dst + r * LD + c, ok ? src + gr * sl + c : src, ok ? 16 : 0);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < ROWS * W; idx += kThreads) {
-      const int r = idx / W, c = idx - r * W, gr = r0 + r;
-      const bool ok = gr < L && c < Dh;
-      cp_async4(dst + r * LD + c, ok ? src + gr * sl + c : src, ok ? 4 : 0);
-    }
-  }
-}
-
-// s[i][j] = q row (ty + 16 i) . k row (tx + 16 j): fmaf over d in order.
-template <int RI, int CJ, int LD>
-__device__ __forceinline__ void score_dots(float s[RI][CJ], const float* qs, const float* ks,
-                                           int Dh, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
-  const int Dh4 = Dh & ~3;
-#pragma unroll 1
-  for (int d = 0; d < Dh4; d += 4) {
-    float4 x[RI], y[CJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) x[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) y[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        float a = s[i][j];
-        a = fmaf(x[i].x, y[j].x, a);
-        a = fmaf(x[i].y, y[j].y, a);
-        a = fmaf(x[i].z, y[j].z, a);
-        s[i][j] = fmaf(x[i].w, y[j].w, a);
-      }
-  }
-  for (int d = Dh4; d < Dh; ++d) {
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j)
-        s[i][j] = fmaf(qs[(ty + 16 * i) * LD + d], ks[(tx + 16 * j) * LD + d], s[i][j]);
-  }
-}
-
-// Accumulator column k of thread tx: groups of VEC adjacent columns, so the
-// P V product reads V with 8- or 16-byte loads.
-template <int DK>
-struct Cols {
-  static constexpr int VEC = DK >= 4 ? 4 : DK;
-  __device__ static __forceinline__ int col(int k, int tx) {
-    return (k / VEC) * 16 * VEC + tx * VEC + k % VEC;
-  }
-};
-
-// acc[i][k] += sum_c ps[(ty + 16 i) LDP + c] vs[c LD + col(k)], c < TK.
-template <int RI, int DK, int TK, int LD, int LDP>
-__device__ __forceinline__ void pv_product(float acc[RI][DK], const float* ps, const float* vs,
-                                           int ty, int tx) {
-  constexpr int VEC = Cols<DK>::VEC;
-#pragma unroll 1
-  for (int c = 0; c < TK; c += 4) {
-    float4 x[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) x[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * LDP + c);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      float y[DK];
-      const float* row = vs + (c + cc) * LD + tx * VEC;
-#pragma unroll
-      for (int g = 0; g < DK / VEC; ++g) {
-        if (VEC == 4) {
-          const float4 t = *reinterpret_cast<const float4*>(row + g * 64);
-          y[g * VEC] = t.x;
-          y[g * VEC + 1] = t.y;
-          y[g * VEC + 2] = t.z;
-          y[g * VEC + 3] = t.w;
-        } else {
-          const float2 t = *reinterpret_cast<const float2*>(row + g * 32);
-          y[g * VEC] = t.x;
-          y[g * VEC + 1] = t.y;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float w = cc == 0 ? x[i].x : cc == 1 ? x[i].y : cc == 2 ? x[i].z : x[i].w;
-#pragma unroll
-        for (int k = 0; k < DK; ++k) acc[i][k] = fmaf(w, y[k], acc[i][k]);
-      }
-    }
-  }
-}
 
 __device__ __forceinline__ unsigned long long drop_index(const MhaParams& p, int b, int h, int qi,
                                                          int kj) {

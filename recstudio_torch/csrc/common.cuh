@@ -37,17 +37,19 @@ struct MhaParams {
 
 // The masked logit of a real (query, key) pair from its raw dot product s
 // and the two additive mask terms: scaled, + attn, + pad, clamped at
-// finfo.min, in that order. The forward (attention.cu) and the backward
-// (transformer_layer_bwd.cu) both call it, so the backward's P is exactly
-// the P whose (max, sum) the forward stored. The rounded intrinsics keep
-// nvcc from contracting the scale and the first addition into one fma in
-// one kernel and not in the other; for the port's masks (0 or finfo.min)
-// the result equals the contracted one bit for bit. rs_raw_logit is the
-// logit before the clamp: the gradient passes the clamp where it is >=
-// finfo.min (torch.clamp_min's rule) and is cut where both masks are
+// finfo.min, in that order. Every kernel that computes a score calls it:
+// the forwards (attention.cu K3, flash_attention.cu K4) and the backwards
+// that recompute their P (transformer_layer_bwd.cu, flash_attention.cu K5
+// and K6), so a backward's P is exactly the P whose (max, sum) its forward
+// stored. The rounded intrinsics (one fma for the scale and the attention
+// term, then the padding term) fix the arithmetic, so nvcc cannot contract
+// it in one kernel and not in the other; for the port's masks (0 or
+// finfo.min) the result equals the unfused one bit for bit. rs_raw_logit
+// is the logit before the clamp: the gradient passes the clamp where it is
+// >= finfo.min (torch.clamp_min's rule) and is cut where both masks are
 // finfo.min (the sum is -inf).
 __device__ __forceinline__ float rs_raw_logit(float s, float scale, float attn, float pad) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(s, scale), attn), pad);
+  return __fadd_rn(__fmaf_rn(s, scale, attn), pad);
 }
 
 __device__ __forceinline__ float rs_logit(float s, float scale, float attn, float pad) {

@@ -2,15 +2,17 @@
 //
 // Replace the Pallas kernels of recstudio_tpu/ops/attention.py that the JAX
 // package runs when Lk > 512 (_FLASH_THRESHOLD):
-//   K4 _flash_kernel:          out = P v and each row's statistics
-//   K5 _flash_bwd_dq_kernel:   dq = scale * dS k           (and delta, below)
-//   K6 _flash_bwd_dkv_kernel:  dv = P^T dO,  dk = scale * dS^T q
+//   K4 _flash_kernel (:133):          out = P v and each row's statistics
+//   K5 _flash_bwd_dq_kernel (:220):   dq = scale * dS k           (and delta, below)
+//   K6 _flash_bwd_dkv_kernel (:246):  dv = P^T dO,  dk = scale * dS^T q
 // with s = max(q k^T * scale + attn_add + pad_add, finfo.min) (masks added,
 // then clamped, attention.py:147-148), P = softmax(s) over the Lk keys, and
 //   dS = P o (dO v^T - delta),  delta = rowsum(dO o out).
 // q, dO and out are [B, H, Lq, Dh], k, v [B, H, Lk, Dh], contiguous float32;
 // pad_add [B, Lk] and attn_add [Lq, Lk] are additive masks, either may be
-// null. The [Lq, Lk] scores never reach device memory.
+// null. The [Lq, Lk] scores never reach device memory. Keys past Lk get no
+// weight (the TPU kernel's padding of Lk to its tile is not copied); query
+// rows past Lq get P = 0.
 //
 // Row statistics. The Pallas forward stores lse = max + log(sum); for a row
 // whose keys are all masked, max = finfo.min and lse rounds to finfo.min, so
@@ -25,45 +27,75 @@
 // (query, key) pair the masks allow, K5 6 Dh (S, dP, dq) and K6 8 Dh (S, dP,
 // dv, dk), against some (4 Lq + 4 Lk) Dh bytes. With a causal mask at L 1024,
 // Dh 64 that is hundreds of operations a byte: all three are bound by
-// operations. This first version computes in float32 on the SIMT cores (67
-// TFLOP/s peak), not on the tensor cores, and computes every pair, masked or
-// not: a causal row tile's fully masked key tiles are not skipped (neither
-// do the Pallas kernels skip them), and a row whose keys are all masked must
-// weigh all Lk of them.
+// operations, counted at the pairs the masks allow (a third of them under
+// the causal mask with right padding, phase H).
 //
-// Design (the softmax_z.cu tiling): a block of 256 threads (16 x 16) owns a
-// tile of rows in shared memory and streams 64-row tiles of the other
-// operand. Each thread computes a (RI x 4) block of the tile's scores (owned
-// rows ty + 16 i, streamed rows tx + 16 j), summing over d in order with
-// fmaf, so K4, K5 and K6 compute every score with bitwise the same
-// arithmetic and the backward's P is exactly the P that K4's statistics
-// normalise. The [rows, Dh] accumulators live in registers (rows ty + 16 i,
-// columns tx + 16 k).
-// - K4: 64 query rows a block; keys stream in tiles of 64 with an online
-//   softmax. The row max is shared by the 16 threads of a row (a half-warp
-//   shuffle); each thread keeps its own partial sum, merged at the end. P
-//   goes through shared memory into the P V product.
-// - K5: 64 query rows a block (32 for Dh > 128); computes delta for its rows
-//   from dO and out, stores it for K6, and streams key tiles: S and dP from
-//   the tiles, dS to shared memory, dq += dS k.
-// - K6: 64 keys a block (32 for Dh > 128); streams query tiles with their
-//   (max, sum, delta): P and dS to shared memory, dv += P^T dO, dk += dS^T q.
+// Scores, and why no tensor cores. Each kernel computes a pair's dot product
+// as fmaf(q[d], k[d], s) from s = 0 for d = 0..Dh-1 in order, then
+// rs_raw_logit (common.cuh), so K5's and K6's S is bitwise K4's and their P
+// is exactly the P that K4's (max, sum) normalise. A TF32 or 3xTF32 S or dP
+// on the tensor cores would break that identity unless K4 moved with them,
+// so all three compute in float32 on the SIMT cores (67 TFLOP/s peak) until
+// they move to the tensor cores together.
+//
+// K4 (its first design): a block of 256 threads (16 x 16) owns 64 query rows
+// in shared memory and streams every key tile of 64 with an online softmax,
+// masked or not. Each thread computes a 4 x 4 block of scores, reading one
+// column at a time; the row max is shared by the row's 16 threads (a
+// half-warp shuffle), each keeps its own partial sum, merged at the end. P
+// goes through shared memory into the P V product.
+//
+// K5 and K6: K3's register tile (register_tile.cuh) on the tiles the masks
+// leave work in. Of a pair of tiles, TQ query rows and TK keys (kFlashRows x
+// kFlashKeys at Dh <= 128, ops/attention.py FLASH_TILE; kWideRows x
+// kWideKeys above), a K5 block owns the query tile and streams key tiles, a
+// K6 block owns the key tile and streams query tiles. Owned and streamed
+// tiles sit in shared memory, copied with cp.async (16-byte copies where Dh
+// and the pointers allow, 4-byte ones otherwise); each streamed tile's copy
+// is waited for, while the SM's other blocks compute. Each thread computes a
+// block of S and dP reading both operands four columns at a time (row
+// stride an odd number of 16-byte words: no bank conflicts), keeps its
+// accumulator columns in registers, and sends dS (K5), or P and dS (K6),
+// through shared memory into dq += dS k, dv += P^T dO and dk += dS^T q, read
+// as float4. Tile plan: 64 x 64 at Dh <= 128 (4 x 4 scores a thread; two
+// blocks an SM at Dh <= 64, one at 128), 32 x 32 above (shared memory),
+// chosen by timing plans at phase H's shape and the masked case on the card
+// (PERF.md, tile sweep): 64 x 32, 32 x 64 and 32 x 32, and one block an SM, took
+// longer for the two kernels together. Shared memory at Dh 64: K5 87 KB,
+// K6 105 KB a block; at Dh 256 (32 x 32) K5 138 KB, K6 143 KB.
+//
+// Skipped tiles. Before it streams a tile, the block decides with
+// __syncthreads_or whether the pair of tiles holds an allowed pair: a real
+// row (qi < Lq) and a real key (kj < Lk) with attn_add != finfo.min and
+// pad_add != finfo.min; tile by tile, so any Lk works. Pairs of tiles that
+// hold none are neither copied nor computed: causal tiles above the
+// diagonal, and key tiles past an example's length under right padding. On
+// a row with an allowed key, max > finfo.min, so a skipped pair's P =
+// exp(finfo.min - max) / sum is exactly 0 and its dS is 0: skipping changes
+// nothing but the order of the sums. A row whose statistics hold max =
+// finfo.min has no allowed key, and its P = 1 / Lk on every key: its dS
+// passes the clamp wherever only one mask is finfo.min. So a query tile
+// holding such a row is computed against every key tile (K5 computes all of
+// them for its block; K6 streams every query tile that holds one). A block
+// whose tiles are all skipped still writes its outputs: K6's key tiles past
+// every row's reach get dk = dv = 0.
+//
 // Every block owns its outputs: no atomics, and the same inputs give bitwise
-// the same outputs. Keys past Lk get no weight (the TPU kernel's padding of
-// Lk to its tile is not copied); query rows past Lq get P = 0.
-// Shared memory at Dh 64: K4 66.5 KB, K5 83 KB, K6 100 KB a block; at Dh 256
-// the widest (K6, 32 owned keys) takes 215 KB of the 227 KB a block may use.
+// the same outputs. K5 writes delta for its rows; K6 reads it.
 #include "common.cuh"
+#include "register_tile.cuh"
 
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;   // 16 x 16: tx = threadIdx.x & 15, ty = threadIdx.x >> 4
-constexpr int kTS = 64;         // rows of a streamed tile (keys in K4, K5; queries in K6)
-constexpr int kLdp = kTS + 1;   // row stride of a P or dS tile in shared memory
+constexpr int kTS = 64;         // K4: keys of a streamed tile
+constexpr int kLdp = kTS + 1;   // K4: row stride of its P tile in shared memory
 constexpr int kMaxDh = 256;
-constexpr unsigned kFull = 0xffffffffu;
+// K5, K6: query rows and keys of a pair of tiles at Dh <= 128, and above.
+constexpr int kFlashRows = 64, kFlashKeys = 64;
+constexpr int kWideRows = 32, kWideKeys = 32;
 
 struct FlashArgs {
   const float* q;
@@ -87,19 +119,8 @@ struct FlashArgs {
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// The 16 threads tx of a row are lanes 0-15 or 16-31 of a warp.
-__device__ __forceinline__ float row_max(float x) {
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// Rows [r0, r0 + ROWS) of a row-major [L, Dh] matrix into shared memory with
-// row stride ld; zero in rows >= L and in columns Dh..W-1.
+// K4: rows [r0, r0 + ROWS) of a row-major [L, Dh] matrix into shared memory
+// with row stride ld; zero in rows >= L and in columns Dh..W-1.
 template <int ROWS, int W>
 __device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, int L, int Dh,
                                           int ld) {
@@ -111,7 +132,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, 
   }
 }
 
-// s[i][j] = a row (ty + 16 i) . b row (tx + 16 j), summed over d in order.
+// K4: s[i][j] = a row (ty + 16 i) . b row (tx + 16 j), summed over d in order.
 template <int RI>
 __device__ __forceinline__ void tile_dots(float s[RI][4], const float* a, const float* b,
                                           int Dh, int ld, int ty, int tx) {
@@ -132,7 +153,7 @@ __device__ __forceinline__ void tile_dots(float s[RI][4], const float* a, const 
   }
 }
 
-// acc[i][k] += sum_c p[(ty + 16 i) ldp + c] * m[c ld + tx + 16 k], c < kTS.
+// K4: acc[i][k] += sum_c p[(ty + 16 i) ldp + c] * m[c ld + tx + 16 k], c < kTS.
 template <int RI, int DK>
 __device__ __forceinline__ void tile_product(float acc[RI][DK], const float* p, const float* m,
                                              int ld, int ty, int tx) {
@@ -154,13 +175,32 @@ __device__ __forceinline__ float pad_term(const FlashArgs& a, int b, int kj) {
   return a.pad_add ? a.pad_add[(long long)b * a.Lk + kj] : 0.f;
 }
 
-// The unclamped logit of (query qi < Lq, key kj < Lk) with its padding term
-// pd: the same additions, in the same order, as attention.cu and the plain
-// version.
-__device__ __forceinline__ float raw_logit(const FlashArgs& a, float dot, int qi, int kj,
-                                           float pd) {
-  const float at = a.attn_add ? a.attn_add[(long long)qi * a.Lk + kj] : 0.f;
-  return (dot * a.scale + at) + pd;
+// The attention-mask term of (query qi < Lq, key kj < Lk).
+__device__ __forceinline__ float attn_term(const FlashArgs& a, int qi, int kj) {
+  return a.attn_add ? a.attn_add[(long long)qi * a.Lk + kj] : 0.f;
+}
+
+// 1 if one of the thread's pairs (query q + 16 i, key k + 16 j), i < NQ,
+// j < NK, is allowed: a real row and key that neither mask removes.
+template <int NQ, int NK>
+__device__ __forceinline__ int any_allowed(const FlashArgs& a, int b, int q, int k) {
+  int any = 0;
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    const int kj = k + 16 * j;
+    if (kj >= a.Lk || pad_term(a, b, kj) == RS_NEG) continue;
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const int qi = q + 16 * i;
+      if (qi < a.Lq && attn_term(a, qi, kj) != RS_NEG) any = 1;
+    }
+  }
+  return any;
+}
+
+// Row qi < Lq has no allowed key: its statistics' max is finfo.min.
+__device__ __forceinline__ bool no_allowed_key(const FlashArgs& a, long long bh, int qi) {
+  return qi < a.Lq && !(a.stats[(bh * a.Lq + qi) * 2] > RS_NEG);
 }
 
 // ---------------------------------------------------------------------------
@@ -207,7 +247,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashArgs a) 
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
-        s[i][j] = kj < a.Lk ? fmaxf(raw_logit(a, s[i][j], qi, kj, pd[j]), RS_NEG) : -INFINITY;
+        s[i][j] = kj < a.Lk ? rs_logit(s[i][j], a.scale, attn_term(a, qi, kj), pd[j]) : -INFINITY;
         tmax = fmaxf(tmax, s[i][j]);
       }
       // key k0 < Lk is in this tile, so the new max is finite
@@ -248,43 +288,58 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashArgs a) 
 }
 
 // ---------------------------------------------------------------------------
-// K5: grid (query tiles of 16 RI, H, B).
-template <int RI, int DK>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashArgs a) {
-  constexpr int TQ = 16 * RI, W = 16 * DK, ld = W + 1;
-  extern __shared__ float smem[];
-  float* qs = smem;               // [TQ][ld]
-  float* dos = qs + TQ * ld;      // [TQ][ld]
-  float* ks = dos + TQ * ld;      // [kTS][ld]
-  float* vs = ks + kTS * ld;      // [kTS][ld]
-  float* dss = vs + kTS * ld;     // [TQ][kLdp]
+// K5: grid (query tiles of TQ = 16 RI, H, B); key tiles of TK = 16 CJ.
+template <int RI, int CJ, int DK, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+    flash_bwd_dq_kernel(const FlashArgs a, const bool vec) {
+  constexpr int TQ = 16 * RI, TK = 16 * CJ, W = 16 * DK, LD = W + 4, LDP = TK + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;               // [TQ][LD]
+  float* dos = qs + TQ * LD;      // [TQ][LD]
+  float* ks = dos + TQ * LD;      // [TK][LD]
+  float* vs = ks + TK * LD;       // [TK][LD]
+  float* dss = vs + TK * LD;      // [TQ][LDP]
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int b = blockIdx.z, q0 = blockIdx.x * TQ;
   const long long bh = (long long)b * a.H + blockIdx.y;
   const float* kb = a.k + bh * a.Lk * a.Dh;
   const float* vb = a.v + bh * a.Lk * a.Dh;
-  load_rows<TQ, W>(qs, a.q + bh * a.Lq * a.Dh, q0, a.Lq, a.Dh, ld);
-  load_rows<TQ, W>(dos, a.dout + bh * a.Lq * a.Dh, q0, a.Lq, a.Dh, ld);
-  __syncthreads();
+  load_tile<TQ, W, LD>(qs, a.q + bh * a.Lq * a.Dh, a.Dh, q0, a.Lq, a.Dh, vec);
+  load_tile<TQ, W, LD>(dos, a.dout + bh * a.Lq * a.Dh, a.Dh, q0, a.Lq, a.Dh, vec);
+  cp_async_commit();
 
-  // each row's (max, sum) and delta = rowsum(dO o out); rows past Lq get
-  // max = +inf, so P = 0 there
-  float m[RI], l[RI], dl[RI];
+  // each row's max and 1 / sum; rows past Lq get max = +inf, so P = 0 there
+  float m[RI], il[RI], dl[RI];
+  int empty = 0;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int qi = q0 + ty + 16 * i;
     const bool ok = qi < a.Lq;
     const long long row = bh * a.Lq + qi;
+    m[i] = ok ? a.stats[row * 2] : INFINITY;
+    il[i] = ok ? 1.f / a.stats[row * 2 + 1] : 1.f;
+    empty |= ok && !(m[i] > RS_NEG);
+  }
+  // A row with no allowed key (max finfo.min) weighs every key: its block
+  // computes every key tile.
+  const bool every = __syncthreads_or(empty) || (!a.pad_add && !a.attn_add);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // delta = rowsum(dO o out)
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    const long long row = bh * a.Lq + qi;
     float part = 0.f;
 #pragma unroll
     for (int k = 0; k < DK; ++k) {
       const int d = tx + 16 * k;
-      if (ok && d < a.Dh) part = fmaf(dos[(ty + 16 * i) * ld + d], a.out[row * a.Dh + d], part);
+      if (qi < a.Lq && d < a.Dh)
+        part = fmaf(dos[(ty + 16 * i) * LD + d], a.out[row * a.Dh + d], part);
     }
     dl[i] = row_sum(part);
-    m[i] = ok ? a.stats[row * 2] : INFINITY;
-    l[i] = ok ? a.stats[row * 2 + 1] : 1.f;
-    if (ok && tx == 0) a.delta_out[row] = dl[i];
+    if (qi < a.Lq && tx == 0) a.delta_out[row] = dl[i];
   }
 
   float acc[RI][DK];
@@ -292,36 +347,42 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashArgs 
   for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int k = 0; k < DK; ++k) acc[i][k] = 0.f;
-  for (int k0 = 0; k0 < a.Lk; k0 += kTS) {
-    __syncthreads();  // the previous K, V and dS tiles are consumed
-    load_rows<kTS, W>(ks, kb, k0, a.Lk, a.Dh, ld);
-    load_rows<kTS, W>(vs, vb, k0, a.Lk, a.Dh, ld);
+  const int nt = (a.Lk + TK - 1) / TK;
+  for (int t = 0; t < nt; ++t) {
+    const int k0 = t * TK;
+    if (!every && !__syncthreads_or(any_allowed<RI, CJ>(a, b, q0 + ty, k0 + tx))) continue;
+    load_tile<TK, W, LD>(ks, kb, a.Dh, k0, a.Lk, a.Dh, vec);
+    load_tile<TK, W, LD>(vs, vb, a.Dh, k0, a.Lk, a.Dh, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
-    float s[RI][4], dp[RI][4], pd[4];
-    tile_dots<RI>(s, qs, ks, a.Dh, ld, ty, tx);
-    tile_dots<RI>(dp, dos, vs, a.Dh, ld, ty, tx);
+
+    float s[RI][CJ], dp[RI][CJ], pd[CJ];
+    score_dots<RI, CJ, LD>(s, qs, ks, a.Dh, ty, tx);
+    score_dots<RI, CJ, LD>(dp, dos, vs, a.Dh, ty, tx);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < CJ; ++j) {
       const int kj = k0 + tx + 16 * j;
       pd[j] = kj < a.Lk ? pad_term(a, b, kj) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
-      const int qi = min(q0 + ty + 16 * i, a.Lq - 1);
+      const int qi = min(q0 + ty + 16 * i, a.Lq - 1);  // rows past Lq: P = 0
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         const int kj = k0 + tx + 16 * j;
         float ds = 0.f;
         if (kj < a.Lk) {
-          const float raw = raw_logit(a, s[i][j], qi, kj, pd[j]);
-          const float p = expf(fmaxf(raw, RS_NEG) - m[i]) / l[i];
+          const float raw = rs_raw_logit(s[i][j], a.scale, attn_term(a, qi, kj), pd[j]);
+          const float p = expf(fmaxf(raw, RS_NEG) - m[i]) * il[i];
           ds = raw >= RS_NEG ? p * (dp[i][j] - dl[i]) : 0.f;
         }
-        dss[(ty + 16 * i) * kLdp + tx + 16 * j] = ds;
+        dss[(ty + 16 * i) * LDP + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
-    tile_product<RI, DK>(acc, dss, ks, ld, ty, tx);
+    pv_product<RI, DK, TK, LD, LDP>(acc, dss, ks, ty, tx);
+    __syncthreads();  // K, V and dS are consumed
   }
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
@@ -330,78 +391,99 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashArgs 
     const long long row = bh * a.Lq + qi;
 #pragma unroll
     for (int k = 0; k < DK; ++k) {
-      const int d = tx + 16 * k;
+      const int d = Cols<DK>::col(k, tx);
       if (d < a.Dh) a.dq[row * a.Dh + d] = acc[i][k] * a.scale;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K6: grid (key tiles of 16 RI, H, B).
-template <int RI, int DK>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashArgs a) {
-  constexpr int TK = 16 * RI, W = 16 * DK, ld = W + 1;
-  extern __shared__ float smem[];
-  float* ks = smem;               // [TK][ld]
-  float* vs = ks + TK * ld;       // [TK][ld]
-  float* qs = vs + TK * ld;       // [kTS][ld]
-  float* dos = qs + kTS * ld;     // [kTS][ld]
-  float* ps = dos + kTS * ld;     // [TK][kLdp]: P^T
-  float* dss = ps + TK * kLdp;    // [TK][kLdp]: dS^T
-  float* ms = dss + TK * kLdp;    // [kTS]: the query rows' max, sum and delta
-  float* ls = ms + kTS;
-  float* dls = ls + kTS;
+// K6: grid (key tiles of TK = 16 RI, H, B); query tiles of TQ = 16 CJ.
+template <int RI, int CJ, int DK, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+    flash_bwd_dkv_kernel(const FlashArgs a, const bool vec) {
+  constexpr int TK = 16 * RI, TQ = 16 * CJ, W = 16 * DK, LD = W + 4, LDP = TQ + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;               // [TK][LD]
+  float* vs = ks + TK * LD;       // [TK][LD]
+  float* qs = vs + TK * LD;       // [TQ][LD]
+  float* dos = qs + TQ * LD;      // [TQ][LD]
+  float* ps = dos + TQ * LD;      // [TK][LDP]: P^T
+  float* dss = ps + TK * LDP;     // [TK][LDP]: dS^T
+  float* ms = dss + TK * LDP;     // [TQ]: the query rows' max, 1 / sum and delta
+  float* ils = ms + TQ;
+  float* dls = ils + TQ;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int b = blockIdx.z, k0 = blockIdx.x * TK;
   const long long bh = (long long)b * a.H + blockIdx.y;
   const float* qb = a.q + bh * a.Lq * a.Dh;
   const float* dob = a.dout + bh * a.Lq * a.Dh;
-  load_rows<TK, W>(ks, a.k + bh * a.Lk * a.Dh, k0, a.Lk, a.Dh, ld);
-  load_rows<TK, W>(vs, a.v + bh * a.Lk * a.Dh, k0, a.Lk, a.Dh, ld);
+  load_tile<TK, W, LD>(ks, a.k + bh * a.Lk * a.Dh, a.Dh, k0, a.Lk, a.Dh, vec);
+  load_tile<TK, W, LD>(vs, a.v + bh * a.Lk * a.Dh, a.Dh, k0, a.Lk, a.Dh, vec);
+  cp_async_commit();
 
+  float pd[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int kj = k0 + ty + 16 * i;
+    pd[i] = kj < a.Lk ? pad_term(a, b, kj) : 0.f;
+  }
+  const bool masked = a.pad_add || a.attn_add;
   float dk[RI][DK], dv[RI][DK];
 #pragma unroll
   for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int k = 0; k < DK; ++k) dk[i][k] = dv[i][k] = 0.f;
-  for (int q0 = 0; q0 < a.Lq; q0 += kTS) {
-    __syncthreads();  // K, V are loaded; the previous Q, dO, P and dS tiles are consumed
-    load_rows<kTS, W>(qs, qb, q0, a.Lq, a.Dh, ld);
-    load_rows<kTS, W>(dos, dob, q0, a.Lq, a.Dh, ld);
-    if (threadIdx.x < kTS) {
+  const int nq = (a.Lq + TQ - 1) / TQ;
+  for (int t = 0; t < nq; ++t) {
+    const int q0 = t * TQ;
+    if (masked) {
+      // an allowed pair, or a row with no allowed key, which weighs every key
+      int need = any_allowed<CJ, RI>(a, b, q0 + tx, k0 + ty);
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) need |= no_allowed_key(a, bh, q0 + tx + 16 * j);
+      if (!__syncthreads_or(need)) continue;
+    }
+    load_tile<TQ, W, LD>(qs, qb, a.Dh, q0, a.Lq, a.Dh, vec);
+    load_tile<TQ, W, LD>(dos, dob, a.Dh, q0, a.Lq, a.Dh, vec);
+    cp_async_commit();
+    if (threadIdx.x < TQ) {
       const int qi = q0 + threadIdx.x;
       const bool ok = qi < a.Lq;            // rows past Lq: P = 0
       const long long row = bh * a.Lq + qi;
       ms[threadIdx.x] = ok ? a.stats[row * 2] : INFINITY;
-      ls[threadIdx.x] = ok ? a.stats[row * 2 + 1] : 1.f;
+      ils[threadIdx.x] = ok ? 1.f / a.stats[row * 2 + 1] : 1.f;
       dls[threadIdx.x] = ok ? a.delta[row] : 0.f;
     }
+    cp_async_wait<0>();
     __syncthreads();
-    float s[RI][4], dp[RI][4];
-    tile_dots<RI>(s, ks, qs, a.Dh, ld, ty, tx);    // key ty + 16 i, query tx + 16 j
-    tile_dots<RI>(dp, vs, dos, a.Dh, ld, ty, tx);
+
+    float s[RI][CJ], dp[RI][CJ];
+    score_dots<RI, CJ, LD>(s, ks, qs, a.Dh, ty, tx);    // key ty + 16 i, query tx + 16 j
+    score_dots<RI, CJ, LD>(dp, vs, dos, a.Dh, ty, tx);
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
       const int kj = k0 + ty + 16 * i;
-      const float pd = kj < a.Lk ? pad_term(a, b, kj) : 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         const int r = tx + 16 * j;
         const int qi = min(q0 + r, a.Lq - 1);
         float p = 0.f, ds = 0.f;
         if (kj < a.Lk) {
-          const float raw = raw_logit(a, s[i][j], qi, kj, pd);
-          p = expf(fmaxf(raw, RS_NEG) - ms[r]) / ls[r];
+          const float raw = rs_raw_logit(s[i][j], a.scale, attn_term(a, qi, kj), pd[i]);
+          p = expf(fmaxf(raw, RS_NEG) - ms[r]) * ils[r];
           ds = raw >= RS_NEG ? p * (dp[i][j] - dls[r]) : 0.f;
         }
-        ps[(ty + 16 * i) * kLdp + r] = p;
-        dss[(ty + 16 * i) * kLdp + r] = ds;
+        ps[(ty + 16 * i) * LDP + r] = p;
+        dss[(ty + 16 * i) * LDP + r] = ds;
       }
     }
     __syncthreads();
-    tile_product<RI, DK>(dv, ps, dos, ld, ty, tx);
-    tile_product<RI, DK>(dk, dss, qs, ld, ty, tx);
+    pv_product<RI, DK, TQ, LD, LDP>(dv, ps, dos, ty, tx);
+    pv_product<RI, DK, TQ, LD, LDP>(dk, dss, qs, ty, tx);
+    __syncthreads();  // Q, dO, P and dS are consumed
   }
+  cp_async_wait<0>();  // K and V, when no tile was computed
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int kj = k0 + ty + 16 * i;
@@ -409,7 +491,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashArgs
     const long long row = bh * a.Lk + kj;
 #pragma unroll
     for (int k = 0; k < DK; ++k) {
-      const int d = tx + 16 * k;
+      const int d = Cols<DK>::col(k, tx);
       if (d < a.Dh) {
         a.dk[row * a.Dh + d] = dk[i][k] * a.scale;
         a.dv[row * a.Dh + d] = dv[i][k];
@@ -421,39 +503,60 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashArgs
 // ---------------------------------------------------------------------------
 size_t tile_floats(int rows, int DK) { return (size_t)rows * (16 * DK + 1); }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int row_tiles, size_t smem_floats, const FlashArgs& a,
-                   cudaStream_t stream) {
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int row_tiles, size_t smem_floats, int H, int B,
+                   cudaStream_t stream, const Args&... args) {
   const size_t smem = smem_floats * sizeof(float);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(row_tiles, a.H, a.B), kThreads, smem, stream>>>(a);
+  kernel<<<dim3(row_tiles, H, B), kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
 template <int DK>
 cudaError_t launch_fwd(const FlashArgs& a, cudaStream_t stream) {
   const size_t floats = tile_floats(64 + 2 * kTS, DK) + (size_t)64 * kLdp;
-  return launch(flash_fwd_kernel<DK>, cdiv(a.Lq, 64), floats, a, stream);
+  return launch(flash_fwd_kernel<DK>, cdiv(a.Lq, 64), floats, a.H, a.B, stream, a);
 }
 
-template <int RI, int DK>
-cudaError_t launch_dq(const FlashArgs& a, cudaStream_t stream) {
-  const size_t floats = tile_floats(2 * 16 * RI + 2 * kTS, DK) + (size_t)16 * RI * kLdp;
-  return launch(flash_bwd_dq_kernel<RI, DK>, cdiv(a.Lq, 16 * RI), floats, a, stream);
+// Blocks an SM can hold by shared memory (227 KB, 1 KB of it reserved for
+// each block), at most 4: the register budget __launch_bounds__ gives.
+constexpr int blocks_per_sm(size_t floats) {
+  const size_t n = 232448 / (floats * sizeof(float) + 1024);
+  return n < 1 ? 1 : n > 4 ? 4 : (int)n;
 }
 
-template <int RI, int DK>
-cudaError_t launch_dkv(const FlashArgs& a, cudaStream_t stream) {
-  const size_t floats =
-      tile_floats(2 * 16 * RI + 2 * kTS, DK) + (size_t)2 * 16 * RI * kLdp + 3 * kTS;
-  return launch(flash_bwd_dkv_kernel<RI, DK>, cdiv(a.Lk, 16 * RI), floats, a, stream);
+// K5 owns TQ = 16 RI query rows and streams TK = 16 CJ keys; K6 owns TK =
+// 16 RI keys and streams TQ = 16 CJ query rows.
+template <int RI, int CJ, int DK>
+cudaError_t launch_dq(const FlashArgs& a, bool vec, cudaStream_t stream) {
+  constexpr int TQ = 16 * RI, TK = 16 * CJ, LD = 16 * DK + 4;
+  constexpr size_t floats = (size_t)2 * (TQ + TK) * LD + (size_t)TQ * (TK + 4);
+  return launch(flash_bwd_dq_kernel<RI, CJ, DK, blocks_per_sm(floats)>, cdiv(a.Lq, TQ), floats,
+                a.H, a.B, stream, a, vec);
+}
+
+template <int RI, int CJ, int DK>
+cudaError_t launch_dkv(const FlashArgs& a, bool vec, cudaStream_t stream) {
+  constexpr int TK = 16 * RI, TQ = 16 * CJ, LD = 16 * DK + 4;
+  constexpr size_t floats = (size_t)2 * (TK + TQ) * LD + (size_t)2 * TK * (TQ + 4) + 3 * TQ;
+  return launch(flash_bwd_dkv_kernel<RI, CJ, DK, blocks_per_sm(floats)>, cdiv(a.Lk, TK), floats,
+                a.H, a.B, stream, a, vec);
 }
 
 bool bad_shape(const FlashArgs& a) {
   return a.B < 1 || a.H < 1 || a.Lq < 1 || a.Lk < 1 || a.Dh < 1 || a.Dh > kMaxDh ||
          a.B > 65535 || a.H > 65535;
+}
+
+bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
+
+// 16-byte copies of every row of q, k, v and dout: Dh a multiple of 4 and
+// the tensors 16-byte aligned.
+bool vec_rows(const FlashArgs& a) {
+  return a.Dh % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+         aligned16(a.dout);
 }
 
 FlashArgs make_args(const float* q, const float* k, const float* v, const float* pad_add,
@@ -504,9 +607,11 @@ extern "C" int rs_flash_bwd_dq(const float* q, const float* k, const float* v,
   a.delta_out = delta;
   if (bad_shape(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (Dh <= 64) return (int)launch_dq<4, 4>(a, st);
-  if (Dh <= 128) return (int)launch_dq<4, 8>(a, st);
-  return (int)launch_dq<2, 16>(a, st);
+  const bool vec = vec_rows(a);
+  constexpr int RI = kFlashRows / 16, CJ = kFlashKeys / 16;
+  if (Dh <= 64) return (int)launch_dq<RI, CJ, 4>(a, vec, st);
+  if (Dh <= 128) return (int)launch_dq<RI, CJ, 8>(a, vec, st);
+  return (int)launch_dq<kWideRows / 16, kWideKeys / 16, 16>(a, vec, st);
 }
 
 // K6: dk, dv like k from the forward's stats, K5's delta and dout.
@@ -522,7 +627,9 @@ extern "C" int rs_flash_bwd_dkv(const float* q, const float* k, const float* v,
   a.dv = dv;
   if (bad_shape(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (Dh <= 64) return (int)launch_dkv<4, 4>(a, st);
-  if (Dh <= 128) return (int)launch_dkv<4, 8>(a, st);
-  return (int)launch_dkv<2, 16>(a, st);
+  const bool vec = vec_rows(a);
+  constexpr int RI = kFlashKeys / 16, CJ = kFlashRows / 16;
+  if (Dh <= 64) return (int)launch_dkv<RI, CJ, 4>(a, vec, st);
+  if (Dh <= 128) return (int)launch_dkv<RI, CJ, 8>(a, vec, st);
+  return (int)launch_dkv<kWideKeys / 16, kWideRows / 16, 16>(a, vec, st);
 }

@@ -13,6 +13,10 @@ The JAX flash path does not give the unpadded function on an example whose
 keys are all masked; ``test_fully_masked_example_differs_from_the_jax_flash_path``
 pins where, and that the port does.
 """
+import math
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +29,8 @@ from recstudio_tpu.utils import get_model as jax_get_model
 
 from recstudio_torch.ops import (flash_mha_bwd_dkv, flash_mha_bwd_dq, flash_mha_bwd_plain,
                                  flash_mha_fwd, flash_mha_plain, fused_mha, mha_plain)
-from recstudio_torch.ops.attention import additive_masks
+from recstudio_torch.ops.attention import (FLASH_TILE, _probs_and_dscores, additive_masks,
+                                           mha_tiles)
 from recstudio_torch.serving import Predictor
 from recstudio_torch.utils import get_model
 from recstudio_torch.utils.convert import params_from_jax, params_to_jax
@@ -185,6 +190,67 @@ def test_fully_masked_example_differs_from_the_jax_flash_path():
     assert np.abs(mean).max() > 100 * ATOL
     for got, want in zip(grads, jgrads):
         assert np.abs(got[0] - want[0]).max() > 10 * np.abs(got[0]).max()
+
+
+def test_flash_tile_constant_is_the_kernel_plan():
+    """``FLASH_TILE``, with which ``mha_tiles`` reports the pairs of tiles K5
+    and K6 compute, is the plan the CUDA source compiles at Dh <= 128."""
+    src = (Path(__file__).resolve().parents[1] / "recstudio_torch" / "csrc"
+           / "flash_attention.cu").read_text()
+    plan = re.search(r"constexpr int kFlashRows = (\d+), kFlashKeys = (\d+);", src)
+    assert plan is not None and tuple(map(int, plan.groups())) == FLASH_TILE
+
+
+def _tile_skipped_flash_bwd(q, k, v, pad, attn, out, stats, g):
+    """The flash backward as K5 and K6 compute it: only the pairs of
+    ``FLASH_TILE`` tiles that hold an allowed pair (``mha_tiles``) or whose
+    query tile holds a row with no allowed key; every other pair dropped.
+    Returns ``(dq, dk, dv)`` and the bool ``[B, Lq, Lk]`` pairs computed."""
+    tq, tk = FLASH_TILE
+    Lq, Lk = q.shape[2], k.shape[2]
+    tiles, empty = mha_tiles(pad, attn, Lq, Lk, tq, tk)
+    computed = (tiles | empty[:, :, None]).repeat_interleave(tq, 1) \
+        .repeat_interleave(tk, 2)[:, :Lq, :Lk]
+    pad_add, attn_add = additive_masks(pad, attn)
+    delta = (g * out).sum(dim=-1)
+    p, ds = _probs_and_dscores(q, k, v, pad_add, attn_add, stats, g, delta)
+    keep = computed[:, None]
+    p, ds = torch.where(keep, p, 0.0), torch.where(keep, ds, 0.0)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    return (ds @ k * scale, ds.transpose(-1, -2) @ q * scale, p.transpose(-1, -2) @ g), computed
+
+
+@pytest.mark.parametrize("Lq,Lk,lens,causal", [
+    (200, 200, (0, 63, 64, 65), True), (130, 200, (63, 64, 65, 200), True),
+    (150, 200, (0, 63, 64, 65), False)],
+    ids=["causal-tile-borders-padded", "lq-ne-lk", "no-attn-mask-padded"])
+def test_skipping_masked_flash_tiles_keeps_the_backward(Lq, Lk, lens, causal):
+    """K5's and K6's skip rule: dropping the pairs outside ``mha_tiles(...)[0]
+    | empty[:, :, None]`` at ``FLASH_TILE`` gives ``flash_mha_bwd_plain``'s
+    dq, dk and dv, with right padding at the tile borders (lengths 63, 64,
+    65). An example whose keys are all masked (length 0) keeps every pair of
+    its query tiles: its P = 1 / Lk weighs every key, and its dS passes the
+    clamp wherever only one mask is finfo.min."""
+    rng = np.random.default_rng(Lq + Lk + len(lens))
+    B, H, Dh = len(lens), 2, 8
+    q, g = (torch.from_numpy(rng.normal(size=(B, H, Lq, Dh)).astype(np.float32))
+            for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(B, H, Lk, Dh)).astype(np.float32))
+            for _ in range(2))
+    pad = torch.from_numpy(np.arange(Lk)[None, :] >= np.asarray(lens)[:, None])
+    attn = torch.triu(torch.ones((Lq, Lk), dtype=torch.bool), 1) if causal else None
+    masks = additive_masks(pad, attn)
+    out, stats = flash_mha_plain(q, k, v, *masks)
+    want = flash_mha_bwd_plain(q, k, v, *masks, out, stats, g)
+    got, computed = _tile_skipped_flash_bwd(q, k, v, pad, attn, out, stats, g)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   err_msg=name)
+    assert not bool(computed.all())
+    if lens[0] == 0:
+        assert bool(computed[0].all()) and float(want[0][0].abs().max()) > 100 * GRAD_ATOL
+    # examples 1 and 2 (lengths <= 65) reach no key tile from the third on
+    assert not bool(computed[1:3, :, 2 * FLASH_TILE[1]:].any())
 
 
 @pytest.mark.parametrize("dropout,training,branch", [

@@ -152,15 +152,16 @@ def test_fused_mha_refuses_what_it_does_not_take(dev):
     assert fused_mha.launches == before
 
 
-def _flash_inputs(dev, B, H, Lq, Lk, Dh, causal, all_masked, seed):
-    """q, g [B, H, Lq, Dh], k, v [B, H, Lk, Dh], right padding (example 0
-    fully masked if asked) and the causal mask, as additive masks."""
+def _flash_inputs(dev, B, H, Lq, Lk, Dh, causal, all_masked, seed, lens=None):
+    """q, g [B, H, Lq, Dh], k, v [B, H, Lk, Dh], right padding (random
+    lengths unless given; example 0 fully masked if asked) and the causal
+    mask, as additive masks."""
     rng = np.random.default_rng(seed)
     q, g = (torch.from_numpy(rng.normal(size=(B, H, Lq, Dh)).astype(np.float32)).to(dev)
             for _ in range(2))
     k, v = (torch.from_numpy(rng.normal(size=(B, H, Lk, Dh)).astype(np.float32)).to(dev)
             for _ in range(2))
-    lens = rng.integers(1, Lk + 1, size=B)
+    lens = rng.integers(1, Lk + 1, size=B) if lens is None else np.asarray(lens)
     pad = np.arange(Lk)[None, :] >= lens[:, None]
     if all_masked:
         pad[0] = True
@@ -175,20 +176,26 @@ def _assert_grad_close(got, want, name):
                                msg=name)
 
 
-@pytest.mark.parametrize("B,H,Lq,Lk,Dh,causal,all_masked", [
-    (2, 2, 1024, 1024, 64, True, False), (2, 2, 2048, 2048, 64, False, False),
-    (3, 1, 600, 600, 32, True, True), (2, 1, 520, 700, 128, False, True),
-    (2, 2, 1024, 1024, 128, True, True), (1, 2, 640, 640, 256, True, False)],
+@pytest.mark.parametrize("B,H,Lq,Lk,Dh,causal,all_masked,lens", [
+    (2, 2, 1024, 1024, 64, True, False, None), (2, 2, 2048, 2048, 64, False, False, None),
+    (3, 1, 600, 600, 32, True, True, None), (2, 1, 520, 700, 128, False, True, None),
+    (2, 2, 1024, 1024, 128, True, True, None), (1, 2, 640, 640, 256, True, False, None),
+    (4, 2, 1024, 1024, 64, True, True, (0, 63, 64, 65)),
+    (3, 1, 600, 800, 256, True, False, (63, 64, 65)),
+    (1, 1, 4200, 4200, 64, True, False, (4150,))],
     ids=["causal-1024", "bidir-2048", "odd-600-masked", "lq-ne-lk-masked",
-         "dh128-masked", "dh256"])
-def test_flash_kernels_match_plain(dev, B, H, Lq, Lk, Dh, causal, all_masked):
+         "dh128-masked", "dh256", "tile-borders-masked", "tile-borders-dh256",
+         "lk-4200"])
+def test_flash_kernels_match_plain(dev, B, H, Lq, Lk, Dh, causal, all_masked, lens):
     """K4 against its plain version (out to rtol 1e-4 / atol 2e-5: averages
-    of v over up to 2048 keys; the row statistics to 1e-4), K5 and K6
+    of v over up to 4200 keys; the row statistics to 1e-4), K5 and K6
     against theirs on K4's out and statistics and against autograd of
     mha_plain. A fully masked example averages its Lk values, and its
-    gradient is autograd's (P = 1 / Lk)."""
+    gradient is autograd's (P = 1 / Lk). Lengths at the borders of K5's and
+    K6's tiles (32 and 64 keys), and 66 key tiles of 64 (lk-4200): more
+    than one 64-bit word of tile marks would hold."""
     q, k, v, g, (pad_add, attn_add) = _flash_inputs(dev, B, H, Lq, Lk, Dh, causal, all_masked,
-                                                    Lq + Lk + Dh)
+                                                    Lq + Lk + Dh, lens)
     counts = [f.launches for f in (flash_mha_fwd, flash_mha_bwd_dq, flash_mha_bwd_dkv)]
     out, stats = flash_mha_fwd(q, k, v, pad_add, attn_add)
     dq, delta = flash_mha_bwd_dq(q, k, v, pad_add, attn_add, out, stats, g)
@@ -211,6 +218,30 @@ def test_flash_kernels_match_plain(dev, B, H, Lq, Lk, Dh, causal, all_masked):
                                        ("dv", dv, wdv, auto[2])):
         _assert_grad_close(got, plain, name)
         _assert_grad_close(got, autograd, name)
+
+
+@pytest.mark.parametrize("all_masked", [False, True], ids=["no-empty-row", "example-0-masked"])
+def test_flash_backward_of_keys_past_every_length(dev, all_masked):
+    """K6's key tiles past an example's length hold no allowed pair: with a
+    key in every row, their dk and dv are exactly 0 (P = 0 there). When
+    example 0 is fully padded, its rows weigh every key (P = 1 / Lk), and
+    its dk and dv are autograd's of mha_plain."""
+    lens = (0 if all_masked else 100, 300, 700)
+    q, k, v, g, masks = _flash_inputs(dev, 3, 2, 1024, 1024, 64, True, False, 11, lens)
+    out, stats = flash_mha_fwd(q, k, v, *masks)
+    _, delta = flash_mha_bwd_dq(q, k, v, *masks, out, stats, g)
+    dk, dv = flash_mha_bwd_dkv(q, k, v, *masks, stats, g, delta)
+    torch.cuda.synchronize()
+    for b, n in enumerate(lens):
+        if n:
+            assert not bool(dk[b, :, n:].any()) and not bool(dv[b, :, n:].any())
+            assert bool(dv[b, :, :n].abs().amax(dim=-1).gt(0).all())
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    auto = torch.autograd.grad(mha_plain(qs, ks, vs, *masks), (qs, ks, vs), g)
+    _assert_grad_close(dk, auto[1], "dk")
+    _assert_grad_close(dv, auto[2], "dv")
+    if all_masked:
+        assert float(dv[0].abs().min()) > 0.0
 
 
 def test_flash_backward_repeats_bitwise(dev):
