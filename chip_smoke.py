@@ -886,17 +886,19 @@ def clse_inputs(device, M, N, D, seed):
 
 def clse_versus_plain(device, M, N, D, seed=2028):
     """K7, K8 and K9 against their plain versions at one shape: rows for
-    each, K8 and K9 also repeated bit for bit. The plain versions are
+    each, K8 and K9 also repeated bit for bit, K8's with the item ranges of
+    its plan and its grid's blocks. The plain versions are
     cuBLAS float32 (TF32 off) and ``torch.logsumexp``. K8's library time is
     float32 ``scaled_dot_product_attention`` of the query rows over the
     catalog as keys and values, ``softmax(q items^T) items``: all of K8's
     arithmetic but the scale by g. No single PyTorch call computes logZ
     alone (K7) or ``P^T (g o q)`` alone (K9)."""
     import torch
-    from recstudio_torch.ops.softmax_z import (catalog_logsumexp_ditems,
+    from recstudio_torch.ops.softmax_z import (DQ_PLAN, catalog_logsumexp_ditems,
                                                catalog_logsumexp_ditems_plain,
                                                catalog_logsumexp_dq, catalog_logsumexp_dq_plain,
-                                               catalog_logsumexp_fwd, catalog_logsumexp_plain)
+                                               catalog_logsumexp_fwd, catalog_logsumexp_plain,
+                                               splits)
     q, items, g = clse_inputs(device, M, N, D, seed)
     shape = dict(M=M, N=N, D=D)
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -933,6 +935,9 @@ def clse_versus_plain(device, M, N, D, seed=2028):
                          "library_ms": time_ms(libraries[tag]) if libraries[tag] else None,
                          "bound_ms": b_ms, "bound_by": by,
                          "gflop": 4 * M * N * D / 1e9}
+    # K8's grid: row tiles of 64 times the item ranges of its plan (sized to the card)
+    rows["K8"]["splits"] = splits(M, N, D, DQ_PLAN)
+    rows["K8"]["grid_blocks"] = -(-M // 64) * rows["K8"]["splits"]
     return rows
 
 
@@ -975,11 +980,18 @@ def flash_bound(B, H, L, Dh, pairs, causal, ops_per_pair, tensors, row_floats):
 
 
 def k4_versus_plain(device, B, H, L, Dh, causal=True, all_masked=True, seed=2029):
-    """K4 against its plain version (out and the row statistics); with
-    ``all_masked`` example 0 must come out as the average of its L values.
-    Library time: float32 SDPA with the combined clamped mask."""
+    """K4 against its plain version (out and the row statistics), repeated
+    bit for bit; with ``all_masked`` example 0 must come out as the average
+    of its L values with statistics exactly (finfo.min, L). Reports the
+    share of (query tile, key tile) pairs of ``FLASH_TILE`` K4 computes or
+    passes over again: those holding an allowed pair (``mha_tiles``, the
+    kernel's skip rule), and every pair of a query tile that holds a row with
+    no allowed key (its one more pass over all L values), and the share of
+    such query tiles. Library time: float32 SDPA with the combined clamped
+    mask."""
     import torch
-    from recstudio_torch.ops.attention import flash_mha_fwd, flash_mha_plain
+    from recstudio_torch.ops.attention import (FLASH_TILE, flash_mha_fwd, flash_mha_plain,
+                                               mha_tiles)
     q, k, v, _, pad, attn, (pad_add, attn_add) = flash_inputs(device, B, H, L, Dh, causal,
                                                               all_masked, seed)
     kern = lambda: flash_mha_fwd(q, k, v, pad_add, attn_add)
@@ -988,21 +1000,28 @@ def k4_versus_plain(device, B, H, L, Dh, causal=True, all_masked=True, seed=2029
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
     with torch.no_grad():
         (got, stats), (want, want_stats) = kern(), plain()
+        again, again_stats = kern()
         torch.cuda.synchronize()
         max_abs, max_rel, ok = errors(got, want, TOL_K4)
         _, _, stats_ok = errors(stats, want_stats, TOL_STATS)
-        masked_ok = not all_masked or bool(torch.allclose(
+        bitwise = torch.equal(got, again) and torch.equal(stats, again_stats)
+        masked_ok = not all_masked or (bool(torch.allclose(
             got[0], v[0].mean(dim=1, keepdim=True).expand_as(got[0]), atol=TOL_K4[0],
-            rtol=TOL_K4[1]))
-        del want, want_stats
+            rtol=TOL_K4[1])) and bool((stats[0, ..., 0] == torch.finfo(torch.float32).min).all())
+            and bool((stats[0, ..., 1] == L).all()))
+        del want, want_stats, again, again_stats
         ms, plain_ms, library_ms = time_ms(kern), time_ms(plain, iters=5), time_ms(lib, iters=5)
     pairs = attended_pairs(pad, attn)
+    tiles, empty = mha_tiles(pad, attn, L, L, *FLASH_TILE)
     # q, k, v in, out out; stats (max, sum) out
     (b_ms, by), flops = flash_bound(B, H, L, Dh, pairs, causal, 4, 4, 2)
     return {"shape": dict(B=B, H=H, L=L, Dh=Dh, causal=causal, all_masked_example=all_masked),
             "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": TOL_K4,
-            "ok": ok and stats_ok and masked_ok, "stats_ok": stats_ok,
-            "all_masked_row_uniform": masked_ok, "ms": ms, "plain_ms": plain_ms,
+            "ok": ok and stats_ok and masked_ok and bitwise, "stats_ok": stats_ok,
+            "all_masked_row_uniform": masked_ok, "bitwise_repeatable": bitwise,
+            "tile": list(FLASH_TILE),
+            "tiles_computed_share": float((tiles | empty[:, :, None]).float().mean()),
+            "extra_pass_share": float(empty.float().mean()), "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
 
 

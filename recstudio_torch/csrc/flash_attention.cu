@@ -38,33 +38,37 @@
 // so all three compute in float32 on the SIMT cores (67 TFLOP/s peak) until
 // they move to the tensor cores together.
 //
-// K4 (its first design): a block of 256 threads (16 x 16) owns 64 query rows
-// in shared memory and streams every key tile of 64 with an online softmax,
-// masked or not. Each thread computes a 4 x 4 block of scores, reading one
-// column at a time; the row max is shared by the row's 16 threads (a
-// half-warp shuffle), each keeps its own partial sum, merged at the end. P
-// goes through shared memory into the P V product.
-//
-// K5 and K6: K3's register tile (register_tile.cuh) on the tiles the masks
+// Design: K3's register tile (register_tile.cuh) on the tiles the masks
 // leave work in. Of a pair of tiles, TQ query rows and TK keys (kFlashRows x
 // kFlashKeys at Dh <= 128, ops/attention.py FLASH_TILE; kWideRows x
-// kWideKeys above), a K5 block owns the query tile and streams key tiles, a
-// K6 block owns the key tile and streams query tiles. Owned and streamed
-// tiles sit in shared memory, copied with cp.async (16-byte copies where Dh
-// and the pointers allow, 4-byte ones otherwise); each streamed tile's copy
-// is waited for, while the SM's other blocks compute. Each thread computes a
-// block of S and dP reading both operands four columns at a time (row
-// stride an odd number of 16-byte words: no bank conflicts), keeps its
-// accumulator columns in registers, and sends dS (K5), or P and dS (K6),
-// through shared memory into dq += dS k, dv += P^T dO and dk += dS^T q, read
-// as float4. Tile plan: 64 x 64 at Dh <= 128 (4 x 4 scores a thread; two
-// blocks an SM at Dh <= 64, one at 128), 32 x 32 above (shared memory),
-// chosen by timing plans at phase H's shape and the masked case on the card
-// (PERF.md, tile sweep): 64 x 32, 32 x 64 and 32 x 32, and one block an SM, took
-// longer for the two kernels together. Shared memory at Dh 64: K5 87 KB,
-// K6 105 KB a block; at Dh 256 (32 x 32) K5 138 KB, K6 143 KB.
+// kWideKeys above), a K4 or K5 block owns the query tile and streams key
+// tiles, a K6 block owns the key tile and streams query tiles. Owned and
+// streamed tiles sit in shared memory, copied with cp.async (16-byte copies
+// where Dh and the pointers allow, 4-byte ones otherwise); each streamed
+// tile's copy is waited for while the SM's other blocks compute (K4 waits
+// for its V tile only after the scores). Each thread computes a block of S
+// (and dP) reading both operands four columns at a time (row stride an odd
+// number of 16-byte words: no bank conflicts), keeps its accumulator
+// columns in registers, and sends P (K4), dS (K5), or P and dS (K6) through
+// shared memory into out += P v, dq += dS k, dv += P^T dO and dk += dS^T q,
+// read as float4. K4 keeps an online softmax: the row max is shared by the
+// row's 16 threads (a half-warp shuffle), each keeps its own partial sum,
+// merged at the end.
 //
-// Skipped tiles. Before it streams a tile, the block decides with
+// Tile plan: 64 x 64 at Dh <= 128 (4 x 4 scores a thread), 32 x 32 above
+// (shared memory); __launch_bounds__ from the blocks an SM's shared memory
+// holds (blocks_per_sm): at Dh <= 64 K4 three (at most), K5 and K6 two,
+// one at 128. Chosen by timing plans at phase H's shape and the masked case
+// on the card (PERF.md, tile sweeps; scripts/torch_kernel_sweep.py for K4):
+// for K5 and K6, 64 x 32, 32 x 64, 32 x 32 and one block an SM took longer
+// for the two together. K4 shares their plan: at phase H, two blocks an SM
+// (128 registers) took 14 % longer than three (80 registers, a few bytes
+// spilled), 32 x 64 and 32 x 32 longer too, and 64 x 32 at four blocks an
+// SM 4 % less but with more spilled; running the last query tiles first
+// changed nothing. Shared memory at Dh 64: K4 68 KB, K5 87 KB, K6 105 KB a
+// block; at Dh 256 (32 x 32) K4 102 KB, K5 138 KB, K6 143 KB.
+//
+// Skipped tiles. Before it streams a tile, every kernel's block decides with
 // __syncthreads_or whether the pair of tiles holds an allowed pair: a real
 // row (qi < Lq) and a real key (kj < Lk) with attn_add != finfo.min and
 // pad_add != finfo.min; tile by tile, so any Lk works. Pairs of tiles that
@@ -74,11 +78,15 @@
 // exp(finfo.min - max) / sum is exactly 0 and its dS is 0: skipping changes
 // nothing but the order of the sums. A row whose statistics hold max =
 // finfo.min has no allowed key, and its P = 1 / Lk on every key: its dS
-// passes the clamp wherever only one mask is finfo.min. So a query tile
-// holding such a row is computed against every key tile (K5 computes all of
-// them for its block; K6 streams every query tile that holds one). A block
-// whose tiles are all skipped still writes its outputs: K6's key tiles past
-// every row's reach get dk = dv = 0.
+// passes the clamp wherever only one mask is finfo.min. K4 ends the pass
+// with max <= finfo.min on such a row (-inf when every tile was skipped);
+// only a block holding one makes one more pass over all Lk values, which
+// sets the row to their mean and its statistics to exactly (finfo.min, Lk),
+// what the unskipped softmax over Lk equal logits gives (as K3 does). In
+// the backward, a query tile holding such a row is computed against every
+// key tile (K5 computes all of them for its block; K6 streams every query
+// tile that holds one). A block whose tiles are all skipped still writes
+// its outputs: K6's key tiles past every row's reach get dk = dv = 0.
 //
 // Every block owns its outputs: no atomics, and the same inputs give bitwise
 // the same outputs. K5 writes delta for its rows; K6 reads it.
@@ -90,10 +98,8 @@
 
 namespace {
 
-constexpr int kTS = 64;         // K4: keys of a streamed tile
-constexpr int kLdp = kTS + 1;   // K4: row stride of its P tile in shared memory
 constexpr int kMaxDh = 256;
-// K5, K6: query rows and keys of a pair of tiles at Dh <= 128, and above.
+// K4, K5, K6: query rows and keys of a pair of tiles at Dh <= 128, and above.
 constexpr int kFlashRows = 64, kFlashKeys = 64;
 constexpr int kWideRows = 32, kWideKeys = 32;
 
@@ -118,57 +124,6 @@ struct FlashArgs {
 };
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// K4: rows [r0, r0 + ROWS) of a row-major [L, Dh] matrix into shared memory
-// with row stride ld; zero in rows >= L and in columns Dh..W-1.
-template <int ROWS, int W>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, int L, int Dh,
-                                          int ld) {
-  for (int idx = threadIdx.x; idx < ROWS * W; idx += kThreads) {
-    const int r = idx / W;
-    const int d = idx - r * W;
-    const int gr = r0 + r;
-    dst[r * ld + d] = (gr < L && d < Dh) ? src[(long long)gr * Dh + d] : 0.f;
-  }
-}
-
-// K4: s[i][j] = a row (ty + 16 i) . b row (tx + 16 j), summed over d in order.
-template <int RI>
-__device__ __forceinline__ void tile_dots(float s[RI][4], const float* a, const float* b,
-                                          int Dh, int ld, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  for (int d = 0; d < Dh; ++d) {
-    float x[RI], y[4];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) x[i] = a[(ty + 16 * i) * ld + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = b[(tx + 16 * j) * ld + d];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
-  }
-}
-
-// K4: acc[i][k] += sum_c p[(ty + 16 i) ldp + c] * m[c ld + tx + 16 k], c < kTS.
-template <int RI, int DK>
-__device__ __forceinline__ void tile_product(float acc[RI][DK], const float* p, const float* m,
-                                             int ld, int ty, int tx) {
-  for (int c = 0; c < kTS; ++c) {
-    float x[RI], y[DK];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) x[i] = p[(ty + 16 * i) * kLdp + c];
-#pragma unroll
-    for (int k = 0; k < DK; ++k) y[k] = m[c * ld + tx + 16 * k];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int k = 0; k < DK; ++k) acc[i][k] = fmaf(x[i], y[k], acc[i][k]);
-  }
-}
 
 // The key-padding term of key kj < Lk of example b.
 __device__ __forceinline__ float pad_term(const FlashArgs& a, int b, int kj) {
@@ -204,21 +159,23 @@ __device__ __forceinline__ bool no_allowed_key(const FlashArgs& a, long long bh,
 }
 
 // ---------------------------------------------------------------------------
-// K4: grid (query tiles of 64, H, B).
-template <int DK>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashArgs a) {
-  constexpr int RI = 4, TQ = 16 * RI, W = 16 * DK, ld = W + 1;
-  extern __shared__ float smem[];
-  float* qs = smem;               // [TQ][ld]
-  float* ks = qs + TQ * ld;       // [kTS][ld]
-  float* vs = ks + kTS * ld;      // [kTS][ld]
-  float* ps = vs + kTS * ld;      // [TQ][kLdp]
+// K4: grid (query tiles of TQ = 16 RI, H, B); key tiles of TK = 16 CJ.
+template <int RI, int CJ, int DK, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+    flash_fwd_kernel(const FlashArgs a, const bool vec) {
+  constexpr int TQ = 16 * RI, TK = 16 * CJ, W = 16 * DK, LD = W + 4, LDP = TK + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;               // [TQ][LD]
+  float* ks = qs + TQ * LD;       // [TK][LD]
+  float* vs = ks + TK * LD;       // [TK][LD]
+  float* ps = vs + TK * LD;       // [TQ][LDP]
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int b = blockIdx.z, q0 = blockIdx.x * TQ;
   const long long bh = (long long)b * a.H + blockIdx.y;
   const float* kb = a.k + bh * a.Lk * a.Dh;
   const float* vb = a.v + bh * a.Lk * a.Dh;
-  load_rows<TQ, W>(qs, a.q + bh * a.Lq * a.Dh, q0, a.Lq, a.Dh, ld);
+  load_tile<TQ, W, LD>(qs, a.q + bh * a.Lq * a.Dh, a.Dh, q0, a.Lq, a.Dh, vec);
+  cp_async_commit();
 
   float m[RI], l[RI], acc[RI][DK];
 #pragma unroll
@@ -228,15 +185,22 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashArgs a) 
 #pragma unroll
     for (int k = 0; k < DK; ++k) acc[i][k] = 0.f;
   }
-  for (int k0 = 0; k0 < a.Lk; k0 += kTS) {
-    __syncthreads();  // Q is loaded; the previous K, V and P tiles are consumed
-    load_rows<kTS, W>(ks, kb, k0, a.Lk, a.Dh, ld);
-    load_rows<kTS, W>(vs, vb, k0, a.Lk, a.Dh, ld);
+  const bool masked = a.pad_add || a.attn_add;
+  const int nt = (a.Lk + TK - 1) / TK;
+  for (int t = 0; t < nt; ++t) {
+    const int k0 = t * TK;
+    if (masked && !__syncthreads_or(any_allowed<RI, CJ>(a, b, q0 + ty, k0 + tx))) continue;
+    load_tile<TK, W, LD>(ks, kb, a.Dh, k0, a.Lk, a.Dh, vec);
+    cp_async_commit();
+    load_tile<TK, W, LD>(vs, vb, a.Dh, k0, a.Lk, a.Dh, vec);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and K; V still in flight
     __syncthreads();
-    float s[RI][4], pd[4];
-    tile_dots<RI>(s, qs, ks, a.Dh, ld, ty, tx);
+
+    float s[RI][CJ], pd[CJ];
+    score_dots<RI, CJ, LD>(s, qs, ks, a.Dh, ty, tx);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < CJ; ++j) {
       const int kj = k0 + tx + 16 * j;
       pd[j] = kj < a.Lk ? pad_term(a, b, kj) : 0.f;
     }
@@ -245,7 +209,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashArgs a) 
       const int qi = min(q0 + ty + 16 * i, a.Lq - 1);  // rows past Lq: computed, never stored
       float tmax = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         const int kj = k0 + tx + 16 * j;
         s[i][j] = kj < a.Lk ? rs_logit(s[i][j], a.scale, attn_term(a, qi, kj), pd[j]) : -INFINITY;
         tmax = fmaxf(tmax, s[i][j]);
@@ -255,9 +219,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashArgs a) 
       const float corr = expf(m[i] - mnew);
       float psum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         const float p = expf(s[i][j] - mnew);
-        ps[(ty + 16 * i) * kLdp + tx + 16 * j] = p;
+        ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
         psum += p;
       }
       l[i] = l[i] * corr + psum;
@@ -265,24 +229,59 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashArgs a) 
 #pragma unroll
       for (int k = 0; k < DK; ++k) acc[i][k] *= corr;
     }
+    cp_async_wait<0>();
     __syncthreads();
-    tile_product<RI, DK>(acc, ps, vs, ld, ty, tx);
+    pv_product<RI, DK, TK, LD, LDP>(acc, ps, vs, ty, tx);
+    __syncthreads();  // K, V and P are consumed
   }
-#pragma unroll
-  for (int i = 0; i < RI; ++i) l[i] = row_sum(l[i]);
+  cp_async_wait<0>();  // Q, when no tile was computed
+
+  // Rows with no allowed key: the mean of all Lk values.
+  bool empty[RI];
+  int any = 0;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
+    empty[i] = q0 + ty + 16 * i < a.Lq && !(m[i] > RS_NEG);
+    any |= empty[i];
+  }
+  if (__syncthreads_or(any)) {
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int k = 0; k < DK; ++k)
+        if (empty[i]) acc[i][k] = 0.f;
+    for (int t = 0; t < nt; ++t) {
+      const int k0 = t * TK;
+      load_tile<TK, W, LD>(vs, vb, a.Dh, k0, a.Lk, a.Dh, vec);
+      cp_async_commit();
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j)
+          ps[(ty + 16 * i) * LDP + tx + 16 * j] =
+              empty[i] && k0 + tx + 16 * j < a.Lk ? 1.f : 0.f;
+      cp_async_wait<0>();
+      __syncthreads();
+      pv_product<RI, DK, TK, LD, LDP>(acc, ps, vs, ty, tx);
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    float lrow = row_sum(l[i]);
     const int qi = q0 + ty + 16 * i;
     if (qi >= a.Lq) continue;
     const long long row = bh * a.Lq + qi;
+    if (empty[i]) lrow = (float)a.Lk;
     if (tx == 0) {
-      a.st[row * 2] = m[i];
-      a.st[row * 2 + 1] = l[i];
+      a.st[row * 2] = empty[i] ? RS_NEG : m[i];
+      a.st[row * 2 + 1] = lrow;
     }
 #pragma unroll
     for (int k = 0; k < DK; ++k) {
-      const int d = tx + 16 * k;
-      if (d < a.Dh) a.o[row * a.Dh + d] = acc[i][k] / l[i];
+      const int d = Cols<DK>::col(k, tx);
+      if (d < a.Dh) a.o[row * a.Dh + d] = acc[i][k] / lrow;
     }
   }
 }
@@ -501,8 +500,6 @@ __global__ void __launch_bounds__(kThreads, MINB)
 }
 
 // ---------------------------------------------------------------------------
-size_t tile_floats(int rows, int DK) { return (size_t)rows * (16 * DK + 1); }
-
 template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, int row_tiles, size_t smem_floats, int H, int B,
                    cudaStream_t stream, const Args&... args) {
@@ -514,17 +511,13 @@ cudaError_t launch(Kernel kernel, int row_tiles, size_t smem_floats, int H, int 
   return cudaGetLastError();
 }
 
-template <int DK>
-cudaError_t launch_fwd(const FlashArgs& a, cudaStream_t stream) {
-  const size_t floats = tile_floats(64 + 2 * kTS, DK) + (size_t)64 * kLdp;
-  return launch(flash_fwd_kernel<DK>, cdiv(a.Lq, 64), floats, a.H, a.B, stream, a);
-}
-
-// Blocks an SM can hold by shared memory (227 KB, 1 KB of it reserved for
-// each block), at most 4: the register budget __launch_bounds__ gives.
-constexpr int blocks_per_sm(size_t floats) {
-  const size_t n = 232448 / (floats * sizeof(float) + 1024);
-  return n < 1 ? 1 : n > 4 ? 4 : (int)n;
+// K4 owns TQ = 16 RI query rows and streams TK = 16 CJ keys.
+template <int RI, int CJ, int DK>
+cudaError_t launch_fwd(const FlashArgs& a, bool vec, cudaStream_t stream) {
+  constexpr int TQ = 16 * RI, TK = 16 * CJ, LD = 16 * DK + 4;
+  constexpr size_t floats = (size_t)(TQ + 2 * TK) * LD + (size_t)TQ * (TK + 4);
+  return launch(flash_fwd_kernel<RI, CJ, DK, blocks_per_sm(floats, 3)>, cdiv(a.Lq, TQ),
+                floats, a.H, a.B, stream, a, vec);
 }
 
 // K5 owns TQ = 16 RI query rows and streams TK = 16 CJ keys; K6 owns TK =
@@ -588,9 +581,12 @@ extern "C" int rs_flash_fwd(const float* q, const float* k, const float* v, cons
   a.st = stats;
   if (bad_shape(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (Dh <= 64) return (int)launch_fwd<4>(a, st);
-  if (Dh <= 128) return (int)launch_fwd<8>(a, st);
-  return (int)launch_fwd<16>(a, st);
+  const bool vec = vec_rows(a);
+  constexpr int RI = kFlashRows / 16, CJ = kFlashKeys / 16;
+  if (Dh <= 32) return (int)launch_fwd<RI, CJ, 2>(a, vec, st);
+  if (Dh <= 64) return (int)launch_fwd<RI, CJ, 4>(a, vec, st);
+  if (Dh <= 128) return (int)launch_fwd<RI, CJ, 8>(a, vec, st);
+  return (int)launch_fwd<kWideRows / 16, kWideKeys / 16, 16>(a, vec, st);
 }
 
 // K5: dq like q and delta [B, H, Lq] from the forward's out and stats and

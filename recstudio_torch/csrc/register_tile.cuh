@@ -1,6 +1,6 @@
 // The register tile of the attention kernels (attention.cu: K3;
-// flash_attention.cu: K5, K6), shared so that both compute a score the same
-// way. A block of kThreads = 256 threads is 16 x 16: tx = threadIdx.x & 15
+// flash_attention.cu: K4, K5, K6) and of the catalog query gradient
+// (softmax_z.cu: K8), shared so that all compute a score the same way. A block of kThreads = 256 threads is 16 x 16: tx = threadIdx.x & 15
 // and ty = threadIdx.x >> 4. A thread owns rows ty + 16 i of the block's
 // tile and streamed rows tx + 16 j. Tiles sit in shared memory with a row
 // stride LD that is an odd number of 16-byte words, so the float4 reads of
@@ -37,6 +37,13 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
                "r"(src_bytes));
+}
+
+// Blocks an SM can hold by shared memory (227 KB, 1 KB of it reserved for
+// each block), at most `cap`: the register budget __launch_bounds__ gives.
+constexpr int blocks_per_sm(size_t floats, int cap = 4) {
+  const size_t n = 232448 / (floats * sizeof(float) + 1024);
+  return n < 1 ? 1 : n > (size_t)cap ? cap : (int)n;
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }

@@ -37,7 +37,7 @@ _SIGNATURES = {
     "rs_transformer_layer_fwd_train": [_P] * 26 + [_I] * 6 + [_F, _F] + _DROP + [_P],
     "rs_transformer_layer_bwd": [_P] * 34 + [_I] * 6 + [_F] + _DROP + [_P],
     "rs_transformer_layer_bwd_workspace": [_I] * 5,
-    "rs_catalog_lse_splits": [_I] * 3,
+    "rs_catalog_lse_splits": [_I] * 4,
     "rs_catalog_lse_fwd": [_P] * 4 + [_I] * 3 + [_P],
     "rs_catalog_lse_bwd_dq": [_P] * 6 + [_I] * 3 + [_P],
     "rs_catalog_lse_bwd_ditems": [_P] * 6 + [_I] * 3 + [_P],

@@ -19,9 +19,11 @@ Lk values). It dispatches on Lk as ``_dispatch``/``_fwd`` do
   backward is ``flash_mha_bwd_dq`` (K5, replacing ``_flash_bwd_dq_kernel``;
   it also returns ``delta = rowsum(dO o out)``) and ``flash_mha_bwd_dkv``
   (K6, replacing ``_flash_bwd_dkv_kernel``), with P recomputed from the
-  saved statistics (``csrc/flash_attention.cu``; K5 and K6 skip the pairs of
-  ``FLASH_TILE`` tiles that the masks cover fully, ``mha_tiles``, unless
-  the query tile holds a row with no allowed key). Each launches its kernel
+  saved statistics (``csrc/flash_attention.cu``; K4, K5 and K6 skip the
+  pairs of ``FLASH_TILE`` tiles that the masks cover fully, ``mha_tiles``;
+  K4 makes one more pass over all Lk values for a query tile that holds a
+  row with no allowed key, and K5 and K6 compute every pair of such a
+  tile). Each launches its kernel
   on a CUDA tensor, or raises, and counts its launches in
   ``<function>.launches``; on a CPU tensor each computes the same function
   with its plain version (``flash_mha_plain``, ``flash_mha_bwd_dq_plain``,
@@ -43,7 +45,8 @@ NEG = torch.finfo(torch.float32).min
 MAX_KEYS = 512      # ``_FLASH_THRESHOLD`` of the JAX package
 MAX_HEAD_DIM = 256  # accumulator width of csrc/attention.cu and csrc/flash_attention.cu
 MHA_TILE = (32, 32)  # K3's (query rows, keys) a block at every Dh: kTileRows, kTileKeys
-# K5's and K6's (query rows, keys) of a pair of tiles at Dh <= 128: kFlashRows, kFlashKeys
+# K4's, K5's and K6's (query rows, keys) of a pair of tiles at Dh <= 128:
+# kFlashRows, kFlashKeys
 FLASH_TILE = (64, 64)
 
 

@@ -30,6 +30,9 @@ import torch
 from .attention import _check
 
 MAX_DIM = 256   # widest accumulator tile of csrc/softmax_z.cu
+# the kinds of ``rs_catalog_lse_splits``: K7's plan (items cut into ranges),
+# K9's (query rows cut), K8's (items cut, sized to the card)
+FWD_PLAN, DITEMS_PLAN, DQ_PLAN = 0, 1, 2
 
 
 def catalog_logsumexp_plain(query: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
@@ -75,11 +78,17 @@ def _check_inputs(query, items, *rows) -> Tuple[int, int, int]:
     return M, N, D
 
 
-def _workspace(lib, M: int, N: int, kind: int, per_split: int, dev) -> torch.Tensor:
+def splits(M: int, N: int, D: int, kind: int) -> int:
+    """The ranges a kernel cuts its long axis into (``kind``: ``FWD_PLAN``,
+    ``DITEMS_PLAN`` or ``DQ_PLAN``); K8's depend on the current CUDA device."""
+    from . import _native
+    return int(_native.load().lib.rs_catalog_lse_splits(M, N, D, kind))
+
+
+def _workspace(M: int, N: int, D: int, kind: int, per_split: int, dev) -> torch.Tensor:
     """The partial sums of the kernel's fixed ranges (empty with one range)."""
-    splits = int(lib.lib.rs_catalog_lse_splits(M, N, kind))
-    return torch.empty((splits * per_split if splits > 1 else 0,), dtype=torch.float32,
-                       device=dev)
+    s = splits(M, N, D, kind)
+    return torch.empty((s * per_split if s > 1 else 0,), dtype=torch.float32, device=dev)
 
 
 def _stream(dev):
@@ -93,9 +102,9 @@ def catalog_logsumexp_fwd(query: torch.Tensor, items: torch.Tensor) -> torch.Ten
     from . import _native
     M, N, D = _check_inputs(query, items)
     lib = _native.load()
-    part = _workspace(lib, M, N, 0, 2 * M, query.device)
     logz = torch.empty((M,), dtype=torch.float32, device=query.device)
     with torch.cuda.device(query.device):
+        part = _workspace(M, N, D, FWD_PLAN, 2 * M, query.device)
         lib.call("rs_catalog_lse_fwd", query.data_ptr(), items.data_ptr(), part.data_ptr(),
                  logz.data_ptr(), M, N, D, _stream(query.device))
     catalog_logsumexp_fwd.launches += 1
@@ -110,9 +119,9 @@ def catalog_logsumexp_dq(query: torch.Tensor, items: torch.Tensor, logz: torch.T
     from . import _native
     M, N, D = _check_inputs(query, items, logz, g)
     lib = _native.load()
-    part = _workspace(lib, M, N, 0, M * D, query.device)
     dq = torch.empty_like(query)
     with torch.cuda.device(query.device):
+        part = _workspace(M, N, D, DQ_PLAN, M * D, query.device)
         lib.call("rs_catalog_lse_bwd_dq", query.data_ptr(), items.data_ptr(), logz.data_ptr(),
                  g.data_ptr(), part.data_ptr(), dq.data_ptr(), M, N, D, _stream(query.device))
     catalog_logsumexp_dq.launches += 1
@@ -127,9 +136,9 @@ def catalog_logsumexp_ditems(query: torch.Tensor, items: torch.Tensor, logz: tor
     from . import _native
     M, N, D = _check_inputs(query, items, logz, g)
     lib = _native.load()
-    part = _workspace(lib, M, N, 1, N * D, query.device)
     ditems = torch.empty_like(items)
     with torch.cuda.device(query.device):
+        part = _workspace(M, N, D, DITEMS_PLAN, N * D, query.device)
         lib.call("rs_catalog_lse_bwd_ditems", query.data_ptr(), items.data_ptr(),
                  logz.data_ptr(), g.data_ptr(), part.data_ptr(), ditems.data_ptr(), M, N, D,
                  _stream(query.device))

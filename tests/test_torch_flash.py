@@ -29,8 +29,8 @@ from recstudio_tpu.utils import get_model as jax_get_model
 
 from recstudio_torch.ops import (flash_mha_bwd_dkv, flash_mha_bwd_dq, flash_mha_bwd_plain,
                                  flash_mha_fwd, flash_mha_plain, fused_mha, mha_plain)
-from recstudio_torch.ops.attention import (FLASH_TILE, _probs_and_dscores, additive_masks,
-                                           mha_tiles)
+from recstudio_torch.ops.attention import (FLASH_TILE, _probs_and_dscores, _raw_logits,
+                                           additive_masks, mha_tiles)
 from recstudio_torch.serving import Predictor
 from recstudio_torch.utils import get_model
 from recstudio_torch.utils.convert import params_from_jax, params_to_jax
@@ -193,12 +193,20 @@ def test_fully_masked_example_differs_from_the_jax_flash_path():
 
 
 def test_flash_tile_constant_is_the_kernel_plan():
-    """``FLASH_TILE``, with which ``mha_tiles`` reports the pairs of tiles K5
-    and K6 compute, is the plan the CUDA source compiles at Dh <= 128."""
+    """``FLASH_TILE``, with which ``mha_tiles`` reports the pairs of tiles K4,
+    K5 and K6 compute, is the plan the CUDA source compiles at Dh <= 128, and
+    each of the three launchers takes it there."""
     src = (Path(__file__).resolve().parents[1] / "recstudio_torch" / "csrc"
            / "flash_attention.cu").read_text()
     plan = re.search(r"constexpr int kFlashRows = (\d+), kFlashKeys = (\d+);", src)
     assert plan is not None and tuple(map(int, plan.groups())) == FLASH_TILE
+    for name, first, second in (("rs_flash_fwd", "Rows", "Keys"),
+                                ("rs_flash_bwd_dq", "Rows", "Keys"),
+                                ("rs_flash_bwd_dkv", "Keys", "Rows")):
+        body = src[src.index(f'extern "C" int {name}('):]
+        body = body[:body.index("\n}\n")]
+        assert f"constexpr int RI = kFlash{first} / 16, CJ = kFlash{second} / 16;" in body, name
+        assert re.search(r"if \(Dh <= 128\) return \(int\)launch_\w+<RI, CJ, 8>", body), name
 
 
 def _tile_skipped_flash_bwd(q, k, v, pad, attn, out, stats, g):
@@ -251,6 +259,76 @@ def test_skipping_masked_flash_tiles_keeps_the_backward(Lq, Lk, lens, causal):
         assert bool(computed[0].all()) and float(want[0][0].abs().max()) > 100 * GRAD_ATOL
     # examples 1 and 2 (lengths <= 65) reach no key tile from the third on
     assert not bool(computed[1:3, :, 2 * FLASH_TILE[1]:].any())
+
+
+def _tile_skipped_flash_fwd(q, k, v, pad, attn):
+    """The flash forward as K4 computes it: an online softmax over only the
+    key tiles of ``FLASH_TILE`` that ``mha_tiles`` marks for each query tile,
+    in order; then a row left with max <= finfo.min (no allowed key) takes
+    the mean of all Lk values and the statistics (finfo.min, Lk), K4's one
+    more pass. Returns ``(out, stats)``, the bool ``[B, Lq, Lk]`` pairs
+    computed and the bool ``[B, nq]`` query tiles that make the extra pass."""
+    tq, tk = FLASH_TILE
+    (B, H, Lq, Dh), Lk = q.shape, k.shape[2]
+    tiles, _ = mha_tiles(pad, attn, Lq, Lk, tq, tk)
+    rows = tiles.repeat_interleave(tq, 1)[:, :Lq]                 # [B, Lq, nk]
+    raw = _raw_logits(q, k, *additive_masks(pad, attn))
+    m = torch.full((B, H, Lq, 1), -math.inf)
+    total = torch.zeros((B, H, Lq, 1))
+    acc = torch.zeros_like(q)
+    for t in range(tiles.shape[2]):
+        keys = slice(t * tk, min((t + 1) * tk, Lk))
+        s = torch.clamp_min(raw[..., keys], NEG)
+        mnew = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr, p = torch.exp(m - mnew), torch.exp(s - mnew)
+        on = rows[:, None, :, t, None]
+        total = torch.where(on, total * corr + p.sum(dim=-1, keepdim=True), total)
+        acc = torch.where(on, acc * corr + p @ v[..., keys, :], acc)
+        m = torch.where(on, mnew, m)
+    empty = ~(m > NEG)
+    out = torch.where(empty, v.mean(dim=2, keepdim=True), acc / total)
+    stats = torch.cat([torch.where(empty, NEG, m), torch.where(empty, float(Lk), total)], -1)
+    computed = rows.repeat_interleave(tk, 2)[:, :, :Lk]
+    nq = tiles.shape[1]
+    padded = torch.zeros((B, nq * tq), dtype=torch.bool)
+    padded[:, :Lq] = empty.any(dim=1)[..., 0]
+    return out, stats, computed, padded.view(B, nq, tq).any(dim=-1)
+
+
+@pytest.mark.parametrize("Lq,Lk,lens,causal", [
+    (200, 200, (0, 63, 64, 65), True), (130, 200, (63, 64, 65, 200), True),
+    (150, 200, (0, 63, 64, 65), False), (601, 601, (0, 1, 333, 601), True)],
+    ids=["causal-tile-borders-padded", "lq-ne-lk", "no-attn-mask-padded", "lk-601"])
+def test_skipping_masked_flash_tiles_keeps_the_forward(Lq, Lk, lens, causal):
+    """K4's skip rule: the online softmax over only the pairs of
+    ``FLASH_TILE`` tiles that ``mha_tiles`` marks, with the extra pass for
+    rows with no allowed key, gives ``flash_mha_plain``'s out (rtol 1e-4,
+    atol 1e-5: float32 sums in another order) and statistics: the max
+    exactly, the sum to the same tolerance. An example whose keys are all
+    masked (length 0) computes no pair, and its rows come out as the mean of
+    their Lk values with statistics (finfo.min, Lk); the query tiles that
+    make the extra pass are those ``mha_tiles`` reports."""
+    rng = np.random.default_rng(Lq + Lk + len(lens) + 1)
+    B, H, Dh = len(lens), 2, 8
+    q = torch.from_numpy(rng.normal(size=(B, H, Lq, Dh)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(B, H, Lk, Dh)).astype(np.float32))
+            for _ in range(2))
+    pad = torch.from_numpy(np.arange(Lk)[None, :] >= np.asarray(lens)[:, None])
+    attn = torch.triu(torch.ones((Lq, Lk), dtype=torch.bool), 1) if causal else None
+    want, want_stats = flash_mha_plain(q, k, v, *additive_masks(pad, attn))
+    out, stats, computed, extra = _tile_skipped_flash_fwd(q, k, v, pad, attn)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=RTOL, atol=ATOL)
+    assert torch.equal(stats[..., 0], want_stats[..., 0])
+    np.testing.assert_allclose(stats[..., 1].numpy(), want_stats[..., 1].numpy(), rtol=RTOL,
+                               atol=ATOL)
+    assert torch.equal(extra, mha_tiles(pad, attn, Lq, Lk, *FLASH_TILE)[1])
+    assert not bool(computed.all())
+    if lens[0] == 0:
+        assert not bool(computed[0].any()) and bool(extra[0].all())
+        assert bool((stats[0, ..., 0] == NEG).all() and (stats[0, ..., 1] == Lk).all())
+        assert float(want[0].abs().max()) > 100 * ATOL
+    else:
+        assert not bool(extra.any())
 
 
 @pytest.mark.parametrize("dropout,training,branch", [

@@ -220,6 +220,44 @@ def test_flash_kernels_match_plain(dev, B, H, Lq, Lk, Dh, causal, all_masked, le
         _assert_grad_close(got, autograd, name)
 
 
+@pytest.mark.parametrize("B,H,Lq,Lk,Dh,causal,padding,lens", [
+    (3, 2, 600, 600, 32, True, True, (0, 300, 600)), (2, 2, 1024, 1024, 64, True, True, None),
+    (3, 1, 1024, 1024, 128, True, True, (0, 500, 1000)),
+    (1, 2, 600, 600, 256, True, True, (555,)), (1, 1, 4200, 4200, 64, True, True, (4150,)),
+    (4, 2, 1024, 1024, 64, True, True, (1, 64, 65, 1024)),
+    (2, 2, 700, 700, 64, True, False, None), (3, 2, 1024, 1024, 64, False, True, (0, 70, 1024)),
+    (2, 2, 600, 600, 40, False, False, None), (2, 1, 520, 700, 36, True, True, (0, 699))],
+    ids=["dh32-masked", "dh64", "dh128-masked", "dh256", "lk-4200", "first-tile-only",
+         "no-padding", "no-attn-mask-masked", "no-masks-dh40", "lq-ne-lk-dh36"])
+def test_flash_forward_matches_plain(dev, B, H, Lq, Lk, Dh, causal, padding, lens):
+    """K4 against flash_mha_plain: out to rtol 1e-4 / atol 2e-5 (averages of
+    v over up to 4200 keys), the row statistics to 1e-4. A fully padded
+    example (length 0) comes out as the mean of its Lk values with
+    statistics exactly (finfo.min, Lk); rows whose keys lie in the first key
+    tile alone (lengths 1, 64) skip every other tile; either mask null, and
+    head widths that are not a multiple of 4 (4-byte copies). Repeats are
+    bitwise."""
+    q, k, v, _, (pad_add, attn_add) = _flash_inputs(dev, B, H, Lq, Lk, Dh, causal, False,
+                                                    Lq + Lk + Dh + 1, lens)
+    if not padding:
+        pad_add = None
+    before = flash_mha_fwd.launches
+    out, stats = flash_mha_fwd(q, k, v, pad_add, attn_add)
+    torch.cuda.synchronize()
+    assert flash_mha_fwd.launches == before + 1
+    want, want_stats = flash_mha_plain(q, k, v, pad_add, attn_add)
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=2e-5)
+    torch.testing.assert_close(stats, want_stats, rtol=1e-4, atol=1e-4)
+    for b, n in enumerate(lens or ()):
+        if n == 0:
+            torch.testing.assert_close(out[b], v[b].mean(dim=1, keepdim=True).expand_as(out[b]),
+                                       rtol=1e-4, atol=2e-5)
+            assert bool((stats[b, ..., 0] == torch.finfo(torch.float32).min).all())
+            assert bool((stats[b, ..., 1] == Lk).all())
+    again, again_stats = flash_mha_fwd(q, k, v, pad_add, attn_add)
+    assert torch.equal(out, again) and torch.equal(stats, again_stats)
+
+
 @pytest.mark.parametrize("all_masked", [False, True], ids=["no-empty-row", "example-0-masked"])
 def test_flash_backward_of_keys_past_every_length(dev, all_masked):
     """K6's key tiles past an example's length hold no allowed pair: with a
@@ -430,6 +468,39 @@ def test_catalog_logsumexp_kernels_match_plain(dev, M, N, D):
     assert torch.equal(dq, catalog_logsumexp_dq(q, items, logz, g))
     assert torch.equal(ditems, catalog_logsumexp_ditems(q, items, logz, g))
     assert bool((dq[g == 0] == 0).all())
+
+
+@pytest.mark.parametrize("M,N,D", [(40, 1000, 8), (300, 777, 33), (63, 3706, 64),
+                                   (129, 500, 128), (70, 130, 256), (512, 20000, 64)])
+def test_catalog_query_gradient_matches_plain(dev, M, N, D):
+    """K8 against its plain version (atol 1e-4 times the gradient's largest
+    magnitude, rtol 1e-3): widths 8 to 256, one not a multiple of 4 (4-byte
+    copies), fewer rows than a tile, item counts that are a multiple of no
+    tile, and a shape whose plan cuts the items into more than one range.
+    K8 repeats bit for bit, and K7's and K9's plans and outputs are those
+    of their fixed rule (``make_plan``), whatever K8's plan is."""
+    from recstudio_torch.ops.softmax_z import DITEMS_PLAN, DQ_PLAN, FWD_PLAN, splits
+    q, items, g = _clse_inputs(M, N, D, dev, M + N + D)
+    logz = catalog_logsumexp_fwd(q, items)
+    ditems = catalog_logsumexp_ditems(q, items, logz, g)
+    dq = catalog_logsumexp_dq(q, items, logz, g)
+    torch.cuda.synchronize()
+    want = catalog_logsumexp_dq_plain(q, items, logz, g)
+    torch.testing.assert_close(dq, want, rtol=1e-3, atol=1e-4 * max(float(want.abs().max()),
+                                                                      1e-6))
+    assert torch.equal(dq, catalog_logsumexp_dq(q, items, logz, g))
+    assert bool((dq[g == 0] == 0).all())
+    assert torch.equal(logz, catalog_logsumexp_fwd(q, items))
+    assert torch.equal(ditems, catalog_logsumexp_ditems(q, items, logz, g))
+
+    def make_plan(outer, inner):
+        s = min(max(-(-4 * 132 // outer), 1), inner)
+        per = -(-inner // s)
+        return -(-inner // per)
+    assert splits(M, N, D, FWD_PLAN) == make_plan(-(-M // 64), -(-N // 64))
+    assert splits(M, N, D, DITEMS_PLAN) == make_plan(-(-N // 64), -(-M // 64))
+    if (M, N) == (512, 20000):
+        assert splits(M, N, D, DQ_PLAN) > 1
 
 
 def test_catalog_logsumexp_autograd_on_the_card(dev):

@@ -7,7 +7,9 @@ the item count below is not a multiple of the block and the last block is
 ragged; it is also held to ``catalog_logsumexp_xla``. Gradients are taken
 through both packages' autograd against the same cotangent ``g``, which is
 zero on some rows (the padded and unmasked positions of a BERT4Rec batch).
-Tolerance: float32 on both sides under ``default_matmul_precision
+The shapes include those of the CUDA tests of K8's register tile (a
+width that is not a multiple of 4, and rows and items that are a multiple
+of no tile). Tolerance: float32 on both sides under ``default_matmul_precision
 ("float32")``, sums over up to 300 items in another order: rtol 1e-5 and
 atol 1e-5 for logZ (values near 6), rtol 1e-4 and atol 1e-5 times the
 gradient's largest magnitude for dq and ditems.
@@ -53,7 +55,8 @@ def _jax_grads(fn, q, items, g):
     return np.asarray(logz), np.asarray(dq), np.asarray(ditems)
 
 
-@pytest.mark.parametrize("M,N,D", [(48, 300, 32), (20, 200, 64), (7, 129, 16)])
+@pytest.mark.parametrize("M,N,D", [(48, 300, 32), (20, 200, 64), (7, 129, 16), (65, 129, 33),
+                                   (30, 70, 8)])
 def test_plain_kernels_match_jax_pallas_and_xla(M, N, D):
     q, items, g = _inputs(M, N, D, M + N)
     pallas = _jax_grads(lambda a, b: jax_clse(a, b, BLOCK_B, BLOCK_N), q, items, g)
