@@ -834,11 +834,18 @@ def k1_train_versus_plain(device, B, L, D, F, H, p=0.5, seed=2026, causal=True):
 
 def k2_versus_plain(device, B, L, D, F, H, p=0.5, seed=2027, causal=True):
     """K2 (dropout on) against autograd through the plain forward with the
-    same masks; the plain time is the autograd backward alone."""
+    same masks; the plain time is the autograd backward alone. Reports the
+    share of its attention steps' tile pairs (``K2_ATTN_TILE``) K2 computes
+    (``mha_tiles``: those holding an allowed pair, and every pair of a query
+    tile that holds a row with no allowed key) and each weight gradient's
+    row ranges (S, rows), sized to the card."""
     import torch
-    from recstudio_torch.ops.transformer_layer import (PARAM_NAMES, fused_transformer_layer_bwd,
+    from recstudio_torch.ops.attention import mha_tiles
+    from recstudio_torch.ops.transformer_layer import (K2_ATTN_TILE, PARAM_NAMES,
+                                                       fused_transformer_layer_bwd,
                                                        training_residuals,
-                                                       transformer_layer_plain)
+                                                       transformer_layer_plain,
+                                                       weight_grad_splits)
     params, x, g, pad, attn = layer_inputs(device, B, L, D, F, B + L + 3, causal)
     _, res = training_residuals(x, params, pad, attn, H, p, "gelu", 1e-12, seed)
     kern = lambda: fused_transformer_layer_bwd(g, x, params, pad, attn, H, p, "gelu", 1e-12,
@@ -863,11 +870,14 @@ def k2_versus_plain(device, B, L, D, F, H, p=0.5, seed=2027, causal=True):
     nbytes = 4 * (M * D + B * L + (L * L if causal else 0) + weights
                   + M * (3 * D + 4 * D + 2 * F + 2) + B * H * L * 2 + M * D + M * D + weights)
     b_ms, by = bound(flops, nbytes)
+    tiles, empty = mha_tiles(pad, attn, L, L, *K2_ATTN_TILE)
     return {"shape": dict(B=B, L=L, D=D, F=F, H=H, dropout=p, causal=causal),
             "max_abs_err": max_abs,
             "tol": TOL_GRAD, "ok": ok and bitwise, "bitwise_repeatable": bitwise, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": by,
-            "gflop": flops / 1e9}
+            "gflop": flops / 1e9, "tile": list(K2_ATTN_TILE),
+            "tiles_computed_share": float((tiles | empty[:, :, None]).float().mean()),
+            "weight_grad_splits": weight_grad_splits(B, L, D, F, device)}
 
 
 def clse_inputs(device, M, N, D, seed):

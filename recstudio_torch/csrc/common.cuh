@@ -69,3 +69,12 @@ cudaError_t rs_launch_mha(const MhaParams& p, cudaStream_t stream);
 // The same kernel in training mode: dropout of the probabilities and the
 // row statistics the backward (transformer_layer_bwd.cu) recomputes P from.
 cudaError_t rs_launch_mha_train(const MhaParams& p, cudaStream_t stream);
+// The attention backward of the fused layer (transformer_layer_bwd.cu,
+// K2's steps 9 and 10) on flash_attention.cu's K5 and K6 kernels: dq and
+// delta = rowsum(dout o out), then dk and dv, with P recomputed from
+// p.stats and dropped as p.drop says. q, k, v and dq, dk, dv at p's q, k, v
+// strides; out (the forward's dropped output) and dout at its o strides;
+// delta [B, H, Lq].
+cudaError_t rs_launch_mha_bwd_train(const MhaParams& p, const float* out, const float* dout,
+                                    float* dq, float* dk, float* dv, float* delta,
+                                    cudaStream_t stream);

@@ -90,6 +90,25 @@
 //
 // Every block owns its outputs: no atomics, and the same inputs give bitwise
 // the same outputs. K5 writes delta for its rows; K6 reads it.
+//
+// The fused layer's backward (K2, transformer_layer_bwd.cu) runs its
+// attention steps on K5's and K6's kernels (rs_launch_mha_bwd_train). Two
+// things differ there, and both are compiled in only where they are used:
+// - Operands are strided views (FlashArgs' strides, MhaParams' layout):
+//   q, k, v and their gradients are column ranges of the packed [B L, 3D]
+//   rows, out (A) and dout (dA) of the [B L, D] rows. The flash entry
+//   points pass contiguous [B, H, L, Dh] strides; K4 keeps its computed
+//   contiguous offsets (strides cost it registers it spills at Dh 64).
+// - Dropout of P (the DROP template flag; off for K4-K6): dv = (P o
+//   keep)^T dO, dS = P o (dP o keep - delta), delta = rowsum(dO o out) as
+//   before since out is the dropped output. The keep bit of pair (i, j) is
+//   dropout.cuh's at site kSiteAttn, index ((b H + h) Lq + i) Lk + j, drawn
+//   only where P is not 0: a skipped tile draws none, and neither does a
+//   masked pair of a computed one.
+// K2's tile plan (kLayerRows x kLayerKeys, ops/transformer_layer.py
+// K2_ATTN_TILE) is its own, chosen at L <= 256 by timing at phase D's and
+// F's shapes (scripts/torch_kernel_sweep.py, PERF.md); at Dh <= 32 it
+// keeps 32 accumulator columns a row (DK 2).
 #include "common.cuh"
 #include "register_tile.cuh"
 
@@ -102,7 +121,16 @@ constexpr int kMaxDh = 256;
 // K4, K5, K6: query rows and keys of a pair of tiles at Dh <= 128, and above.
 constexpr int kFlashRows = 64, kFlashKeys = 64;
 constexpr int kWideRows = 32, kWideKeys = 32;
+// K2's attention steps (L <= 256): query rows and keys of a pair of tiles
+// at Dh <= 128; above, kWideRows x kWideKeys.
+constexpr int kLayerRows = 32, kLayerKeys = 32;
 
+// K5's and K6's operands are strided views (element (b, h, row, d) at
+// p[b sb + h sh + row sl + d], as MhaParams): q and dq share q's strides, k
+// and dk k's, v and dv v's, out and dout the o strides. The flash entry
+// points pass contiguous [B, H, L, Dh] tensors (K4 takes only those); K2
+// the packed rows of the fused layer. The row statistics and delta are
+// contiguous [B, H, Lq(, 2)].
 struct FlashArgs {
   const float* q;
   const float* k;
@@ -120,10 +148,28 @@ struct FlashArgs {
   float* dk;              // K6
   float* dv;              // K6
   int B, H, Lq, Lk, Dh;
+  long long q_sb, q_sh, q_sl;
+  long long k_sb, k_sh, k_sl;
+  long long v_sb, v_sh, v_sl;
+  long long o_sb, o_sh, o_sl;
   float scale;
+  DropParams drop;        // K5, K6 with DROP: dropout of P (site kSiteAttn)
 };
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Head (b, h) of a strided operand.
+template <typename P>
+__device__ __forceinline__ P* head(P* p, long long sb, long long sh, int b, int h) {
+  return p + b * sb + h * sh;
+}
+
+// The dropout factor of P at (row = (b H + h) Lq + qi, key kj): 0 where P
+// is 0 (no bit drawn; dS and P keep are 0 there whatever the bit), else
+// rs_keep's.
+__device__ __forceinline__ float p_keep(const FlashArgs& a, long long row, int kj, float p) {
+  return p != 0.f ? rs_keep(a.drop, kSiteAttn, (unsigned long long)row * a.Lk + kj) : 0.f;
+}
 
 // The key-padding term of key kj < Lk of example b.
 __device__ __forceinline__ float pad_term(const FlashArgs& a, int b, int kj) {
@@ -160,6 +206,9 @@ __device__ __forceinline__ bool no_allowed_key(const FlashArgs& a, long long bh,
 
 // ---------------------------------------------------------------------------
 // K4: grid (query tiles of TQ = 16 RI, H, B); key tiles of TK = 16 CJ.
+// K4 reads contiguous [B, H, L, Dh] operands, its entry point's only layout
+// (FlashArgs' strides serve K5 and K6): computed offsets keep its register
+// budget.
 template <int RI, int CJ, int DK, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
     flash_fwd_kernel(const FlashArgs a, const bool vec) {
@@ -288,7 +337,8 @@ __global__ void __launch_bounds__(kThreads, MINB)
 
 // ---------------------------------------------------------------------------
 // K5: grid (query tiles of TQ = 16 RI, H, B); key tiles of TK = 16 CJ.
-template <int RI, int CJ, int DK, int MINB>
+// DROP: P is dropped (K2's attention): dP = (dO v^T) o keep.
+template <int RI, int CJ, int DK, int MINB, bool DROP>
 __global__ void __launch_bounds__(kThreads, MINB)
     flash_bwd_dq_kernel(const FlashArgs a, const bool vec) {
   constexpr int TQ = 16 * RI, TK = 16 * CJ, W = 16 * DK, LD = W + 4, LDP = TK + 4;
@@ -299,12 +349,13 @@ __global__ void __launch_bounds__(kThreads, MINB)
   float* vs = ks + TK * LD;       // [TK][LD]
   float* dss = vs + TK * LD;      // [TQ][LDP]
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = blockIdx.z, q0 = blockIdx.x * TQ;
-  const long long bh = (long long)b * a.H + blockIdx.y;
-  const float* kb = a.k + bh * a.Lk * a.Dh;
-  const float* vb = a.v + bh * a.Lk * a.Dh;
-  load_tile<TQ, W, LD>(qs, a.q + bh * a.Lq * a.Dh, a.Dh, q0, a.Lq, a.Dh, vec);
-  load_tile<TQ, W, LD>(dos, a.dout + bh * a.Lq * a.Dh, a.Dh, q0, a.Lq, a.Dh, vec);
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TQ;
+  const long long bh = (long long)b * a.H + h;
+  const float* kb = head(a.k, a.k_sb, a.k_sh, b, h);
+  const float* vb = head(a.v, a.v_sb, a.v_sh, b, h);
+  const float* ob = head(a.out, a.o_sb, a.o_sh, b, h);
+  load_tile<TQ, W, LD>(qs, head(a.q, a.q_sb, a.q_sh, b, h), a.q_sl, q0, a.Lq, a.Dh, vec);
+  load_tile<TQ, W, LD>(dos, head(a.dout, a.o_sb, a.o_sh, b, h), a.o_sl, q0, a.Lq, a.Dh, vec);
   cp_async_commit();
 
   // each row's max and 1 / sum; rows past Lq get max = +inf, so P = 0 there
@@ -335,7 +386,7 @@ __global__ void __launch_bounds__(kThreads, MINB)
     for (int k = 0; k < DK; ++k) {
       const int d = tx + 16 * k;
       if (qi < a.Lq && d < a.Dh)
-        part = fmaf(dos[(ty + 16 * i) * LD + d], a.out[row * a.Dh + d], part);
+        part = fmaf(dos[(ty + 16 * i) * LD + d], ob[qi * a.o_sl + d], part);
     }
     dl[i] = row_sum(part);
     if (qi < a.Lq && tx == 0) a.delta_out[row] = dl[i];
@@ -350,8 +401,8 @@ __global__ void __launch_bounds__(kThreads, MINB)
   for (int t = 0; t < nt; ++t) {
     const int k0 = t * TK;
     if (!every && !__syncthreads_or(any_allowed<RI, CJ>(a, b, q0 + ty, k0 + tx))) continue;
-    load_tile<TK, W, LD>(ks, kb, a.Dh, k0, a.Lk, a.Dh, vec);
-    load_tile<TK, W, LD>(vs, vb, a.Dh, k0, a.Lk, a.Dh, vec);
+    load_tile<TK, W, LD>(ks, kb, a.k_sl, k0, a.Lk, a.Dh, vec);
+    load_tile<TK, W, LD>(vs, vb, a.v_sl, k0, a.Lk, a.Dh, vec);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -374,7 +425,9 @@ __global__ void __launch_bounds__(kThreads, MINB)
         if (kj < a.Lk) {
           const float raw = rs_raw_logit(s[i][j], a.scale, attn_term(a, qi, kj), pd[j]);
           const float p = expf(fmaxf(raw, RS_NEG) - m[i]) * il[i];
-          ds = raw >= RS_NEG ? p * (dp[i][j] - dl[i]) : 0.f;
+          float dpk = dp[i][j];
+          if (DROP) dpk *= p_keep(a, bh * a.Lq + qi, kj, p);
+          ds = raw >= RS_NEG ? p * (dpk - dl[i]) : 0.f;
         }
         dss[(ty + 16 * i) * LDP + tx + 16 * j] = ds;
       }
@@ -387,18 +440,20 @@ __global__ void __launch_bounds__(kThreads, MINB)
   for (int i = 0; i < RI; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= a.Lq) continue;
-    const long long row = bh * a.Lq + qi;
+    float* dqrow = head(a.dq, a.q_sb, a.q_sh, b, h) + qi * a.q_sl;
 #pragma unroll
     for (int k = 0; k < DK; ++k) {
       const int d = Cols<DK>::col(k, tx);
-      if (d < a.Dh) a.dq[row * a.Dh + d] = acc[i][k] * a.scale;
+      if (d < a.Dh) dqrow[d] = acc[i][k] * a.scale;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
 // K6: grid (key tiles of TK = 16 RI, H, B); query tiles of TQ = 16 CJ.
-template <int RI, int CJ, int DK, int MINB>
+// DROP: P is dropped (K2's attention): dv = (P o keep)^T dO and dP = (dO
+// v^T) o keep.
+template <int RI, int CJ, int DK, int MINB, bool DROP>
 __global__ void __launch_bounds__(kThreads, MINB)
     flash_bwd_dkv_kernel(const FlashArgs a, const bool vec) {
   constexpr int TK = 16 * RI, TQ = 16 * CJ, W = 16 * DK, LD = W + 4, LDP = TQ + 4;
@@ -413,12 +468,12 @@ __global__ void __launch_bounds__(kThreads, MINB)
   float* ils = ms + TQ;
   float* dls = ils + TQ;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = blockIdx.z, k0 = blockIdx.x * TK;
-  const long long bh = (long long)b * a.H + blockIdx.y;
-  const float* qb = a.q + bh * a.Lq * a.Dh;
-  const float* dob = a.dout + bh * a.Lq * a.Dh;
-  load_tile<TK, W, LD>(ks, a.k + bh * a.Lk * a.Dh, a.Dh, k0, a.Lk, a.Dh, vec);
-  load_tile<TK, W, LD>(vs, a.v + bh * a.Lk * a.Dh, a.Dh, k0, a.Lk, a.Dh, vec);
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * TK;
+  const long long bh = (long long)b * a.H + h;
+  const float* qb = head(a.q, a.q_sb, a.q_sh, b, h);
+  const float* dob = head(a.dout, a.o_sb, a.o_sh, b, h);
+  load_tile<TK, W, LD>(ks, head(a.k, a.k_sb, a.k_sh, b, h), a.k_sl, k0, a.Lk, a.Dh, vec);
+  load_tile<TK, W, LD>(vs, head(a.v, a.v_sb, a.v_sh, b, h), a.v_sl, k0, a.Lk, a.Dh, vec);
   cp_async_commit();
 
   float pd[RI];
@@ -443,8 +498,8 @@ __global__ void __launch_bounds__(kThreads, MINB)
       for (int j = 0; j < CJ; ++j) need |= no_allowed_key(a, bh, q0 + tx + 16 * j);
       if (!__syncthreads_or(need)) continue;
     }
-    load_tile<TQ, W, LD>(qs, qb, a.Dh, q0, a.Lq, a.Dh, vec);
-    load_tile<TQ, W, LD>(dos, dob, a.Dh, q0, a.Lq, a.Dh, vec);
+    load_tile<TQ, W, LD>(qs, qb, a.q_sl, q0, a.Lq, a.Dh, vec);
+    load_tile<TQ, W, LD>(dos, dob, a.o_sl, q0, a.Lq, a.Dh, vec);
     cp_async_commit();
     if (threadIdx.x < TQ) {
       const int qi = q0 + threadIdx.x;
@@ -471,7 +526,13 @@ __global__ void __launch_bounds__(kThreads, MINB)
         if (kj < a.Lk) {
           const float raw = rs_raw_logit(s[i][j], a.scale, attn_term(a, qi, kj), pd[i]);
           p = expf(fmaxf(raw, RS_NEG) - ms[r]) * ils[r];
-          ds = raw >= RS_NEG ? p * (dp[i][j] - dls[r]) : 0.f;
+          float dpk = dp[i][j], keep = 1.f;
+          if (DROP) {
+            keep = p_keep(a, bh * a.Lq + qi, kj, p);
+            dpk *= keep;
+          }
+          ds = raw >= RS_NEG ? p * (dpk - dls[r]) : 0.f;
+          if (DROP) p *= keep;
         }
         ps[(ty + 16 * i) * LDP + r] = p;
         dss[(ty + 16 * i) * LDP + r] = ds;
@@ -487,13 +548,14 @@ __global__ void __launch_bounds__(kThreads, MINB)
   for (int i = 0; i < RI; ++i) {
     const int kj = k0 + ty + 16 * i;
     if (kj >= a.Lk) continue;
-    const long long row = bh * a.Lk + kj;
+    float* dkrow = head(a.dk, a.k_sb, a.k_sh, b, h) + kj * a.k_sl;
+    float* dvrow = head(a.dv, a.v_sb, a.v_sh, b, h) + kj * a.v_sl;
 #pragma unroll
     for (int k = 0; k < DK; ++k) {
       const int d = Cols<DK>::col(k, tx);
       if (d < a.Dh) {
-        a.dk[row * a.Dh + d] = dk[i][k] * a.scale;
-        a.dv[row * a.Dh + d] = dv[i][k];
+        dkrow[d] = dk[i][k] * a.scale;
+        dvrow[d] = dv[i][k];
       }
     }
   }
@@ -522,20 +584,30 @@ cudaError_t launch_fwd(const FlashArgs& a, bool vec, cudaStream_t stream) {
 
 // K5 owns TQ = 16 RI query rows and streams TK = 16 CJ keys; K6 owns TK =
 // 16 RI keys and streams TQ = 16 CJ query rows.
-template <int RI, int CJ, int DK>
+// DROP: dropout of P (K2); CAP: the most blocks an SM is asked to hold.
+template <int RI, int CJ, int DK, bool DROP = false, int CAP = 4>
 cudaError_t launch_dq(const FlashArgs& a, bool vec, cudaStream_t stream) {
   constexpr int TQ = 16 * RI, TK = 16 * CJ, LD = 16 * DK + 4;
   constexpr size_t floats = (size_t)2 * (TQ + TK) * LD + (size_t)TQ * (TK + 4);
-  return launch(flash_bwd_dq_kernel<RI, CJ, DK, blocks_per_sm(floats)>, cdiv(a.Lq, TQ), floats,
-                a.H, a.B, stream, a, vec);
+  return launch(flash_bwd_dq_kernel<RI, CJ, DK, blocks_per_sm(floats, CAP), DROP>,
+                cdiv(a.Lq, TQ), floats, a.H, a.B, stream, a, vec);
 }
 
-template <int RI, int CJ, int DK>
+template <int RI, int CJ, int DK, bool DROP = false, int CAP = 4>
 cudaError_t launch_dkv(const FlashArgs& a, bool vec, cudaStream_t stream) {
   constexpr int TK = 16 * RI, TQ = 16 * CJ, LD = 16 * DK + 4;
   constexpr size_t floats = (size_t)2 * (TK + TQ) * LD + (size_t)2 * TK * (TQ + 4) + 3 * TQ;
-  return launch(flash_bwd_dkv_kernel<RI, CJ, DK, blocks_per_sm(floats)>, cdiv(a.Lk, TK), floats,
-                a.H, a.B, stream, a, vec);
+  return launch(flash_bwd_dkv_kernel<RI, CJ, DK, blocks_per_sm(floats, CAP), DROP>,
+                cdiv(a.Lk, TK), floats, a.H, a.B, stream, a, vec);
+}
+
+// K2's attention steps: K5 then K6 with TQ = 16 RI query rows and TK = 16
+// CJ keys, P dropped when DROP.
+template <int RI, int CJ, int DK, bool DROP, int CAP = 4>
+cudaError_t launch_bwd(const FlashArgs& a, bool vec, cudaStream_t stream) {
+  const cudaError_t err = launch_dq<RI, CJ, DK, DROP, CAP>(a, vec, stream);
+  if (err != cudaSuccess) return err;
+  return launch_dkv<CJ, RI, DK, DROP, CAP>(a, vec, stream);
 }
 
 bool bad_shape(const FlashArgs& a) {
@@ -545,9 +617,13 @@ bool bad_shape(const FlashArgs& a) {
 
 bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
 
-// 16-byte copies of every row of q, k, v and dout: Dh a multiple of 4 and
-// the tensors 16-byte aligned.
+// 16-byte copies of every row of q, k, v and dout: Dh and every stride a
+// multiple of 4 and the tensors 16-byte aligned.
 bool vec_rows(const FlashArgs& a) {
+  const long long strides[] = {a.q_sb, a.q_sh, a.q_sl, a.k_sb, a.k_sh, a.k_sl,
+                               a.v_sb, a.v_sh, a.v_sl, a.o_sb, a.o_sh, a.o_sl};
+  for (long long st : strides)
+    if (st % 4) return false;
   return a.Dh % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
          aligned16(a.dout);
 }
@@ -565,7 +641,41 @@ FlashArgs make_args(const float* q, const float* k, const float* v, const float*
   a.Lq = Lq;
   a.Lk = Lk;
   a.Dh = Dh;
+  a.q_sl = a.k_sl = a.v_sl = a.o_sl = Dh;
+  a.q_sh = a.o_sh = (long long)Lq * Dh;
+  a.k_sh = a.v_sh = (long long)Lk * Dh;
+  a.q_sb = a.o_sb = (long long)H * Lq * Dh;
+  a.k_sb = a.v_sb = (long long)H * Lk * Dh;
   a.scale = scale;
+  return a;
+}
+
+// FlashArgs of K2's attention steps (rs_launch_mha_bwd_train).
+FlashArgs layer_args(const MhaParams& p, const float* out, const float* dout, float* dq,
+                     float* dk, float* dv, float* delta) {
+  FlashArgs a = make_args(p.q, p.k, p.v, p.pad_add, p.attn_add, p.B, p.H, p.Lq, p.Lk, p.Dh,
+                          p.scale);
+  a.q_sb = p.q_sb;
+  a.q_sh = p.q_sh;
+  a.q_sl = p.q_sl;
+  a.k_sb = p.k_sb;
+  a.k_sh = p.k_sh;
+  a.k_sl = p.k_sl;
+  a.v_sb = p.v_sb;
+  a.v_sh = p.v_sh;
+  a.v_sl = p.v_sl;
+  a.o_sb = p.o_sb;
+  a.o_sh = p.o_sh;
+  a.o_sl = p.o_sl;
+  a.out = out;
+  a.dout = dout;
+  a.stats = p.stats;
+  a.delta = delta;
+  a.dq = dq;
+  a.delta_out = delta;
+  a.dk = dk;
+  a.dv = dv;
+  a.drop = p.drop;
   return a;
 }
 
@@ -628,4 +738,28 @@ extern "C" int rs_flash_bwd_dkv(const float* q, const float* k, const float* v,
   if (Dh <= 64) return (int)launch_dkv<RI, CJ, 4>(a, vec, st);
   if (Dh <= 128) return (int)launch_dkv<RI, CJ, 8>(a, vec, st);
   return (int)launch_dkv<kWideKeys / 16, kWideRows / 16, 16>(a, vec, st);
+}
+
+// K2's attention steps (transformer_layer_bwd.cu, steps 9 and 10): K5's
+// kernel writes dq and delta, then K6's dk and dv, on p's strided operands
+// (q, k, v and their gradients at p's q, k, v strides; out, the forward's
+// output, and dout at its o strides), with dropout of P from p.drop.
+cudaError_t rs_launch_mha_bwd_train(const MhaParams& p, const float* out, const float* dout,
+                                    float* dq, float* dk, float* dv, float* delta,
+                                    cudaStream_t stream) {
+  const FlashArgs a = layer_args(p, out, dout, dq, dk, dv, delta);
+  if (bad_shape(a)) return cudaErrorInvalidValue;
+  const bool vec = vec_rows(a);
+  constexpr int RI = kLayerRows / 16, CJ = kLayerKeys / 16;
+  constexpr int WR = kWideRows / 16, WC = kWideKeys / 16;
+  if (p.drop.active) {
+    if (p.Dh <= 32) return launch_bwd<RI, CJ, 2, true>(a, vec, stream);
+    if (p.Dh <= 64) return launch_bwd<RI, CJ, 4, true>(a, vec, stream);
+    if (p.Dh <= 128) return launch_bwd<RI, CJ, 8, true>(a, vec, stream);
+    return launch_bwd<WR, WC, 16, true>(a, vec, stream);
+  }
+  if (p.Dh <= 32) return launch_bwd<RI, CJ, 2, false>(a, vec, stream);
+  if (p.Dh <= 64) return launch_bwd<RI, CJ, 4, false>(a, vec, stream);
+  if (p.Dh <= 128) return launch_bwd<RI, CJ, 8, false>(a, vec, stream);
+  return launch_bwd<WR, WC, 16, false>(a, vec, stream);
 }

@@ -35,8 +35,10 @@ _SIGNATURES = {
     "rs_flash_bwd_dkv": [_P] * 10 + [_I] * 5 + [_F, _P],
     "rs_transformer_layer_fwd": [_P] * 20 + [_I] * 6 + [_F, _F, _P],
     "rs_transformer_layer_fwd_train": [_P] * 26 + [_I] * 6 + [_F, _F] + _DROP + [_P],
-    "rs_transformer_layer_bwd": [_P] * 34 + [_I] * 6 + [_F] + _DROP + [_P],
+    "rs_transformer_layer_bwd": [_P] * 34 + [ctypes.c_longlong] + [_I] * 6 + [_F] + _DROP
+    + [_P],
     "rs_transformer_layer_bwd_workspace": [_I] * 5,
+    "rs_transformer_layer_bwd_splits": [_I] * 3 + [_P],
     "rs_catalog_lse_splits": [_I] * 4,
     "rs_catalog_lse_fwd": [_P] * 4 + [_I] * 3 + [_P],
     "rs_catalog_lse_bwd_dq": [_P] * 6 + [_I] * 3 + [_P],

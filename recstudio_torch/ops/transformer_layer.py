@@ -16,7 +16,12 @@ layer call's seed (``ops/dropout.py``).
   ``fused_transformer_layer.launches``. In training mode it is an autograd
   function whose backward is ``csrc/transformer_layer_bwd.cu`` (K2,
   replacing ``_bwd_kernel``), counted in
-  ``fused_transformer_layer_bwd.launches``.
+  ``fused_transformer_layer_bwd.launches``. K2's products run on
+  ``csrc/sgemm_tile.cuh`` (tiles ``K2_GEMM_TILE``; its weight gradients'
+  row ranges are sized to the card, ``weight_grad_splits``) and its
+  attention steps on the flash backward kernels of
+  ``csrc/flash_attention.cu`` at ``K2_ATTN_TILE``, skipping the tile
+  pairs the masks cover fully (``ops.attention.mha_tiles``).
 - On a CPU tensor it computes the same function with
   ``transformer_layer_plain``, and autograd through it is the plain
   version of K2 (``transformer_layer_bwd_plain``).
@@ -34,6 +39,15 @@ import torch
 from .attention import _check, additive_masks, mha_plain
 from .dropout import (SITE_ATTN, SITE_FFN_HIDDEN, SITE_FFN_OUT, SITE_OUT, drop_args,
                       keep_scale)
+
+# K2's products: output tile rows and columns a block and k-slice at the
+# widest (csrc/sgemm_tile.cuh GemmTile<8, 8>: 16 TM x 16 TN, BK), and its
+# attention steps' (query rows, keys) a pair of tiles at Dh <= 128
+# (csrc/flash_attention.cu kLayerRows, kLayerKeys)
+K2_GEMM_TILE = (128, 128, 16)
+K2_ATTN_TILE = (32, 32)
+# the weight gradients K2 sums over the B L rows, in the order of its chain
+WEIGHT_GRADS = ("linear2_weight", "linear1_weight", "out_proj_weight", "in_proj_weight")
 
 PARAM_NAMES = ("in_proj_weight", "in_proj_bias", "out_proj_weight", "out_proj_bias",
                "norm1_weight", "norm1_bias", "linear1_weight", "linear1_bias",
@@ -229,9 +243,10 @@ def _layer_bwd_cuda(g, x, params, pad_add, attn_add, n_head, activation, eps, dr
     dx = torch.empty_like(x)
     grads = {n: torch.empty_like(params[n]) for n in PARAM_NAMES}
     lib = _native.load()
-    work = torch.empty(int(lib.lib.rs_transformer_layer_bwd_workspace(B, L, D, F, n_head)),
-                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        # the weight gradients' row ranges, and so the scratch, depend on the card
+        work = torch.empty(int(lib.lib.rs_transformer_layer_bwd_workspace(B, L, D, F, n_head)),
+                           dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         lib.call("rs_transformer_layer_bwd", x.data_ptr(), _ptr(pad_add), _ptr(attn_add),
                  *(params[n].data_ptr() for n in ("in_proj_weight", "out_proj_weight",
@@ -240,7 +255,7 @@ def _layer_bwd_cuda(g, x, params, pad_add, attn_add, n_head, activation, eps, dr
                  *(saved[k].data_ptr() for k in ("qkv", "attn", "stats", "x1", "xhat1",
                                                  "rstd1", "hpre", "h", "xhat2", "rstd2")),
                  g.data_ptr(), dx.data_ptr(), *(grads[n].data_ptr() for n in PARAM_NAMES),
-                 work.data_ptr(), B, L, D, F, n_head, _ACT_CODES[activation],
+                 work.data_ptr(), work.numel(), B, L, D, F, n_head, _ACT_CODES[activation],
                  1.0 / math.sqrt(D // n_head), *_drop_call_args(dropout, seed), stream)
     fused_transformer_layer_bwd.launches += 1
     return dx, grads
@@ -325,6 +340,27 @@ def fused_transformer_layer_bwd(g: torch.Tensor, x: torch.Tensor,
         raise ValueError("K2 on a CUDA tensor needs the residuals of the forward call")
     return _layer_bwd_cuda(g, x, params, pad_add, attn_add, n_head, activation, layer_norm_eps,
                            dropout, seed, residuals)
+
+
+def weight_grad_splits(B: int, L: int, D: int, F: int,
+                       device: Optional[torch.device] = None) -> Dict[str, Tuple[int, int]]:
+    """K2's row ranges of each weight gradient on the current (or given)
+    CUDA device: ``{name: (S, rows)}``, S ranges of ``rows`` rows (a
+    multiple of the k-slice ``K2_GEMM_TILE[2]``, the last one possibly
+    shorter) that cover the ``B L`` rows once."""
+    import ctypes
+    from . import _native
+    lib = _native.load()
+    shapes = {"linear2_weight": (D, F), "linear1_weight": (F, D),
+              "out_proj_weight": (D, D), "in_proj_weight": (3 * D, D)}
+    out = {}
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        for name in WEIGHT_GRADS:
+            rows = ctypes.c_int(0)
+            S = int(lib.lib.rs_transformer_layer_bwd_splits(B * L, *shapes[name],
+                                                            ctypes.addressof(rows)))
+            out[name] = (S, rows.value)
+    return out
 
 
 def training_residuals(x: torch.Tensor, params: Dict[str, torch.Tensor],

@@ -1,22 +1,39 @@
 #!/usr/bin/env python3
-"""Time other tile and occupancy plans of the flash forward (K4) and the
-catalog query gradient (K8) on one NVIDIA GPU.
+"""Time other tile and occupancy plans of the flash forward (K4), the
+catalog query gradient (K8) and the fused layer's backward (K2), and K2's
+time by step, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with the card and ``nvcc``::
 
-    python3 scripts/torch_kernel_sweep.py
+    python3 scripts/torch_kernel_sweep.py [k4] [k8] [k2steps] [k2gemm] [k2attn]
 
-It compiles ``recstudio_torch/csrc/flash_attention.cu`` and ``softmax_z.cu``
-once more, each with launchers of other plans of the same kernels
-(``build/recstudio_torch/sweep/``), and a copy of the former whose K4 grid
-runs the last query tiles first (under the causal mask they stream the most
-key tiles). Each plan is timed with CUDA events at the
-shapes ``chip_smoke.py`` uses (K4: phase H's B 256, H 2, L 1024, Dh 64,
-causal, right padding, example 0 fully padded, and the Dh 32 ``odd`` row;
-K8: phase F's M 51,200, N 3,706, D 64, and M 512, N 500,000) and held to the
-shipped kernel's output. Prints the compilers' register report for the
-sweep's kernels, one ``PLAN`` JSON line per plan, and the card's name and
-power limit.
+(all parts when none is named). ``k4``, ``k8``, ``k2gemm`` and ``k2attn``
+compile ``recstudio_torch/csrc/flash_attention.cu``, ``softmax_z.cu`` and
+``transformer_layer_bwd.cu`` once more, each with launchers of other plans
+of the same kernels (``build/recstudio_torch/sweep/``), and a copy of the
+first whose K4 grid runs the last query tiles first (under the causal mask
+they stream the most key tiles). Each plan is timed with CUDA events at the
+shapes ``chip_smoke.py`` uses and held to the shipped kernel's output or to
+``torch.matmul``:
+
+- K4: phase H's B 256, H 2, L 1024, Dh 64, causal, right padding, example
+  0 fully padded, and the Dh 32 ``odd`` row;
+- K8: phase F's M 51,200, N 3,706, D 64, and M 512, N 500,000;
+- K2 (``k2gemm``): each of its eight products at phase D's (B 1024, L 200,
+  d 128, F 128) and F's (B 256, L 200, d 64) shapes on every tile of
+  ``K2_GEMM_PLANS`` (rows and columns a block, k-slice, cp.async stages),
+  the weight gradients with their row ranges sized to the card for each;
+- K2 (``k2attn``): its attention steps (K5's and K6's kernels, dropout on)
+  at those phases' inputs on every plan of ``K2_ATTN_PLANS`` (query rows
+  and keys of a pair of tiles, blocks an SM);
+- ``k2steps``: K2 as the port builds it, at those inputs, its card time by
+  step from ``torch.profiler`` (each launch given its step by its place in
+  the chain; median over 10 calls), beside float32 ``torch.matmul`` (TF32
+  off) of each product step: a yardstick, not used by the port. This part
+  needs only K2's entry point, so it runs on earlier trees too.
+
+Prints the compilers' register report, one ``PLAN`` JSON line per plan or
+step, and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -123,9 +140,112 @@ extern "C" int sweep_k8(int blocks, int splits, const float* q, const float* ite
 '''
 
 
+# K2's product tiles: (output rows / 16, output columns / 16, k-slice, stages)
+K2_GEMM_PLANS = [(8, 8, 16, 2), (8, 8, 8, 3), (8, 8, 8, 2), (8, 8, 8, 4), (8, 4, 16, 2),
+                 (8, 4, 8, 3), (4, 8, 16, 2), (4, 8, 8, 3), (4, 4, 16, 2), (4, 4, 8, 3)]
+# K2's attention steps: (query rows / 16, keys / 16, accumulator columns / 16,
+# most blocks an SM); Dh 64 (phase D) takes DK 4, Dh 32 (phase F) DK 2
+K2_ATTN_PLANS = [(2, 2, 4, 4), (4, 4, 4, 4), (4, 2, 4, 4), (2, 4, 4, 4), (2, 2, 4, 3),
+                 (2, 2, 4, 2), (2, 2, 2, 4), (2, 2, 2, 3), (2, 2, 2, 2), (4, 4, 2, 4),
+                 (4, 4, 2, 3), (4, 2, 2, 4), (2, 4, 2, 4)]
+
+
+def k2_gemm_source(include: str) -> str:
+    tiles = [f"GemmTile<{tm}, {tn}, {bk}, {st}>" for tm, tn, bk, st in K2_GEMM_PLANS]
+    nn = "\n".join(f"    case {i}: return nn<{t}>(A, B, C, aux, M, N, K, st);"
+                    for i, t in enumerate(tiles))
+    tn = "\n".join(f"    case {i}: return tn<{t}>(A, B, dw, db, pw, pb, M, N, K, st, S);"
+                    for i, t in enumerate(tiles))
+    return f'''#include "{include}"
+namespace {{
+template <class T>
+int nn(const float* A, const float* B, float* C, const float* aux, int M, int N, int K,
+       cudaStream_t st) {{
+  const dim3 grid(cdiv(M, T::BM), cdiv(N, T::BN));
+  gemm_nn_kernel<T, kEpiRes><<<grid, kThreads, 0, st>>>(
+      A, B, C, M, N, K, aux, DropParams{{0, 0, 1.f, 0}}, 0, kGelu, N % 4 == 0 && aligned16(B),
+      N % 4 == 0 && aligned16(C));
+  return (int)cudaGetLastError();
+}}
+template <class T>
+int tn(const float* A, const float* B, float* dw, float* db, float* pw, float* pb, int M, int N,
+       int K, cudaStream_t st, int* S) {{
+  const RowPlan plan = row_plan<T>(M, N, K, tn_resident<T>());
+  *S = plan.S;
+  if (!pw) return 0;
+  gemm_tn_partial_kernel<T><<<dim3(cdiv(K, T::BN), cdiv(N, T::BM), plan.S), kThreads, 0, st>>>(
+      A, B, pw, pb, M, N, K, plan.rows, N % 4 == 0 && aligned16(A), K % 4 == 0 && aligned16(B),
+      K % 4 == 0 && aligned16(pw));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)reduce(pw, dw, (long long)N * K, pb, db, N, plan.S, st);
+}}
+}}  // namespace
+extern "C" int sweep_k2_nn(int plan, const float* A, const float* B, float* C, const float* aux,
+                           int M, int N, int K, void* stream) {{
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (plan) {{
+{nn}
+  }}
+  return (int)cudaErrorInvalidValue;
+}}
+// With pw null: only the plan's ranges, in *S.
+extern "C" int sweep_k2_tn(int plan, const float* A, const float* B, float* dw, float* db,
+                           float* pw, float* pb, int M, int N, int K, void* stream, int* S) {{
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (plan) {{
+{tn}
+  }}
+  return (int)cudaErrorInvalidValue;
+}}
+'''
+
+
+def k2_attn_source(include: str) -> str:
+    cases = "\n".join(
+        f"    case {i}: return (int)launch_bwd<{ri}, {cj}, {dk}, true, {cap}>(a, vec, st);"
+        for i, (ri, cj, dk, cap) in enumerate(K2_ATTN_PLANS))
+    return f'''#include "{include}"
+// K2's steps 9 and 10 on its packed rows (as rs_transformer_layer_bwd), dropout on.
+extern "C" int sweep_k2_attn(int plan, const float* qkv, const float* pad_add,
+                             const float* attn_add, const float* stats, const float* attn,
+                             const float* dA, float* dqkv, float* delta, int B, int L, int D,
+                             int H, float scale, unsigned long long seed, unsigned int threshold,
+                             float drop_scale, void* stream) {{
+  MhaParams p = {{}};
+  const int Dh = D / H;
+  p.q = qkv;
+  p.k = qkv + D;
+  p.v = qkv + 2 * D;
+  p.pad_add = pad_add;
+  p.attn_add = attn_add;
+  p.B = B;
+  p.H = H;
+  p.Lq = p.Lk = L;
+  p.Dh = Dh;
+  p.q_sb = p.k_sb = p.v_sb = (long long)L * 3 * D;
+  p.q_sh = p.k_sh = p.v_sh = Dh;
+  p.q_sl = p.k_sl = p.v_sl = 3 * D;
+  p.o_sb = (long long)L * D;
+  p.o_sh = Dh;
+  p.o_sl = D;
+  p.scale = scale;
+  p.stats = const_cast<float*>(stats);
+  p.drop = {{seed, threshold, drop_scale, 1}};
+  const FlashArgs a = layer_args(p, attn, dA, dqkv, dqkv + D, dqkv + 2 * D, delta);
+  const bool vec = vec_rows(a);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (plan) {{
+{cases}
+  }}
+  return (int)cudaErrorInvalidValue;
+}}
+'''
+
+
 def build(out_dir: str):
-    """Compile the three sweep sources in parallel; returns the loaded
-    libraries and the compilers' register report."""
+    """Compile the sweep sources in parallel; returns the loaded libraries
+    and the compilers' register report."""
     from recstudio_torch.ops import _native
     csrc = os.path.join(REPO, "recstudio_torch", "csrc")
     os.makedirs(out_dir, exist_ok=True)
@@ -141,15 +261,19 @@ def build(out_dir: str):
                 + flash[at + len(ORDER_LINE):])
     sources = {"k4": k4_source(os.path.join(csrc, "flash_attention.cu")),
                "k4_last_first": k4_source(last_first),
-               "k8": k8_source(os.path.join(csrc, "softmax_z.cu"))}
+               "k8": k8_source(os.path.join(csrc, "softmax_z.cu")),
+               "k2gemm": k2_gemm_source(os.path.join(csrc, "transformer_layer_bwd.cu")),
+               "k2attn": k2_attn_source(os.path.join(csrc, "flash_attention.cu"))}
+    # the products' source calls K2's attention launcher: link its definition
+    extra = {"k2gemm": [os.path.join(csrc, "flash_attention.cu")]}
     nvcc, procs = _native._nvcc(), {}
     for name, text in sources.items():
         src = os.path.join(out_dir, f"sweep_{name}.cu")
         with open(src, "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
-            [nvcc, *_native.ARCH_FLAGS, *_native.CFLAGS, f"-I{csrc}", "-shared", src, "-o",
-             os.path.join(out_dir, f"libsweep_{name}.so")],
+            [nvcc, *_native.ARCH_FLAGS, *_native.CFLAGS, f"-I{csrc}", "-shared", src,
+             *extra.get(name, []), "-o", os.path.join(out_dir, f"libsweep_{name}.so")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs, report = {}, []
     for name, proc in procs.items():
@@ -166,6 +290,10 @@ def build(out_dir: str):
     libs["k8"].sweep_k8.argtypes = [I, I] + [P] * 6 + [I] * 3 + [P]
     libs["k8"].sweep_k8_splits.argtypes = [I] * 5
     libs["k8"].sweep_k8_resident.argtypes = [I]
+    libs["k2gemm"].sweep_k2_nn.argtypes = [I] + [P] * 4 + [I] * 3 + [P]
+    libs["k2gemm"].sweep_k2_tn.argtypes = [I] + [P] * 6 + [I] * 3 + [P, P]
+    libs["k2attn"].sweep_k2_attn.argtypes = ([I] + [P] * 8 + [I] * 4 + [F, ctypes.c_ulonglong,
+                                             ctypes.c_uint, F, P])
     return libs, report
 
 
@@ -237,23 +365,218 @@ def sweep_k8(libs, device, rows):
                              "grid_blocks": -(-M // 64) * S, "ok": ok, "ms": time_ms(run)})
 
 
+# K2's launches in the order of its chain, by step (transformer_layer_bwd.cu)
+K2_STEPS = [1, 1, 2, 2, 3, 4, 4, 5, 6, 6, 7, 7, 8, 9, 10, 11, 11, 12]
+K2_STEP_NAMES = {1: "LN2 backward", 2: "dW2, db2", 3: "dhpre", 4: "dW1, db1", 5: "dx1",
+                 6: "LN1 backward", 7: "dWo, dbo", 8: "dA", 9: "attention dq",
+                 10: "attention dk, dv", 11: "dWqkv, dbqkv", 12: "dx"}
+# phase D's and F's K2 rows of chip_smoke.py: (B, L, D, F, H, dropout, causal)
+K2_SHAPES = {"D": (1024, 200, 128, 128, 2, 0.5, True), "F": (256, 200, 64, 128, 2, 0.2, False)}
+
+
+def k2_products(M, D, F):
+    """The eight products of K2's chain as (step, (rows, depth, columns),
+    transposed first operand): torch.matmul's yardstick for each."""
+    return [(2, (D, M, F), True), (3, (M, D, F), False), (4, (F, M, D), True),
+            (5, (M, F, D), False), (7, (D, M, D), True), (8, (M, D, D), False),
+            (11, (3 * D, M, D), True), (12, (M, 3 * D, D), False)]
+
+
+def k2_steps(device, rows, calls=10):
+    """K2's time by step at phase D's and F's inputs: the card's kernel
+    times from torch.profiler over ``calls`` calls, each launch given its
+    step by its place in the chain (median over the calls), and beside each
+    product step float32 torch.matmul (TF32 off) of the same product."""
+    import torch
+    from torch.autograd import DeviceType
+    from chip_smoke import layer_inputs, time_ms
+    from recstudio_torch.ops.transformer_layer import (fused_transformer_layer_bwd,
+                                                       training_residuals)
+    for tag, (B, L, D, F, H, p, causal) in K2_SHAPES.items():
+        params, x, g, pad, attn = layer_inputs(device, B, L, D, F, B + L + 3, causal)
+        _, res = training_residuals(x, params, pad, attn, H, p, "gelu", 1e-12, 2027)
+        run = lambda: fused_transformer_layer_bwd(g, x, params, pad, attn, H, p, "gelu",
+                                                  1e-12, 2027, res)
+        call_ms = time_ms(run)
+        n = len(K2_STEPS)
+        for _ in range(3):          # the profiler has been seen to drop launches
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    run()
+                torch.cuda.synchronize()
+            # the card's kernels, less PyTorch's own (the additive masks K2's wrapper makes)
+            kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                           and "at::native" not in e.name and "mem" not in e.name.lower()),
+                          key=lambda e: e.time_range.start)
+            if len(kern) == n * calls:
+                break
+        if len(kern) != n * calls:
+            rows.append({"kernel": "K2", "at": tag, "ok": False, "steps": "profiler saw "
+                         f"{len(kern)} K2 launches, expected {n * calls}"})
+            continue
+        per_launch = [sorted(kern[c * n + i].time_range.elapsed_us() / 1e3
+                             for c in range(calls))[calls // 2] for i in range(n)]
+        names = [kern[i].name for i in range(n)]
+        M = B * L
+        yard = {}
+        for step, (rows_, depth, cols), trans in k2_products(M, D, F):
+            a = torch.randn((depth, rows_) if trans else (rows_, depth), device=device)
+            b = torch.randn((depth, cols), device=device)
+            yard[step] = time_ms(lambda: torch.matmul(a.t() if trans else a, b))
+        total = sum(per_launch)
+        for step, label in K2_STEP_NAMES.items():
+            ms = sum(t for s, t in zip(K2_STEPS, per_launch) if s == step)
+            rows.append({"kernel": "K2", "at": tag, "step": step, "name": label, "ms": ms,
+                         "share": ms / total, "matmul_ms": yard.get(step),
+                         "launches": [nm[:60] for s, nm in zip(K2_STEPS, names) if s == step]})
+        rows.append({"kernel": "K2", "at": tag, "steps_total_ms": total, "call_ms": call_ms})
+
+
+def k2_shipped_gemm(rows, cols):
+    """The product tile K2 ships for an output of ``rows`` x ``cols``
+    (transformer_layer_bwd.cu tile_side): 64 on a side 64 wide or less."""
+    side = lambda n: 4 if n <= 64 else 8
+    return (side(rows), side(cols), 16, 2)
+
+
+def sweep_k2_gemm(libs, device, rows):
+    """Each of K2's product steps at phase D's and F's shapes on every tile
+    plan of ``K2_GEMM_PLANS``, held to float32 torch.matmul (TF32 off):
+    C = A B + aux (the data gradients' residual epilogue) and dW = A^T B
+    with the weight-gradient kernel's row ranges, sized to the card for
+    each plan, and their in-order sum."""
+    import ctypes
+    import torch
+    from chip_smoke import time_ms
+    lib = libs["k2gemm"]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for tag, (B, L, D, F, H, p, causal) in K2_SHAPES.items():
+        M = B * L
+        for step, (r, depth, c), trans in k2_products(M, D, F):
+            S = ctypes.c_int(0)
+            if trans:       # dW [r, c] = A^T B, A [M, r], B [M, c]
+                a, b = torch.randn((M, r), device=device), torch.randn((M, c), device=device)
+                want = torch.matmul(a.t(), b)
+                out, db = torch.empty((r, c), device=device), torch.empty(r, device=device)
+                need = []
+                for i in range(len(K2_GEMM_PLANS)):
+                    call(lib.sweep_k2_tn, i, a.data_ptr(), b.data_ptr(), None, None, None, None,
+                         M, r, c, stream, ctypes.addressof(S))
+                    need.append(S.value)
+                pw = torch.empty(max(need) * r * c, device=device)
+                pb = torch.empty(max(need) * r, device=device)
+            else:           # C [M, c] = A [M, depth] B [depth, c] + aux
+                a, b = (torch.randn((M, depth), device=device),
+                        torch.randn((depth, c), device=device))
+                aux = torch.randn((M, c), device=device)
+                want = torch.addmm(aux, a, b)
+                out = torch.empty((M, c), device=device)
+            for i, plan in enumerate(K2_GEMM_PLANS):
+                if trans:
+                    run = lambda: call(lib.sweep_k2_tn, i, a.data_ptr(), b.data_ptr(),
+                                       out.data_ptr(), db.data_ptr(), pw.data_ptr(),
+                                       pb.data_ptr(), M, r, c, stream, ctypes.addressof(S))
+                else:
+                    run = lambda: call(lib.sweep_k2_nn, i, a.data_ptr(), b.data_ptr(),
+                                       out.data_ptr(), aux.data_ptr(), M, c, depth, stream)
+                out.zero_()
+                run()
+                torch.cuda.synchronize()
+                scale = float(want.abs().max())
+                ok = bool(torch.allclose(out, want, rtol=1e-3, atol=1e-4 * scale))
+                if trans:
+                    ok &= bool(torch.allclose(db, a.sum(0), rtol=1e-3,
+                                              atol=1e-4 * float(a.sum(0).abs().max())))
+                tm, tn, bk, st = plan
+                rows.append({"kernel": "K2", "at": tag, "step": step, "name": K2_STEP_NAMES[step],
+                             "tile": [16 * tm, 16 * tn], "k_slice": bk, "stages": st,
+                             "shipped": plan == (k2_shipped_gemm(r, c) if trans
+                                                 else (8, *k2_shipped_gemm(r, c)[1:])),
+                             "splits": S.value if trans else None, "ok": ok, "ms": time_ms(run)})
+            del a, b, out, want
+
+
+def sweep_k2_attn(libs, device, rows):
+    """K2's attention steps (K5's then K6's kernel, dropout on) at phase D's
+    and F's inputs on every plan of ``K2_ATTN_PLANS`` for their head width,
+    held to the first (the shipped 32 x 32, at most four blocks an SM); with the share of
+    tile pairs each plan computes (``mha_tiles``)."""
+    import torch
+    from chip_smoke import layer_inputs, time_ms
+    from recstudio_torch.ops.attention import additive_masks, mha_tiles
+    from recstudio_torch.ops.dropout import drop_args
+    from recstudio_torch.ops.transformer_layer import training_residuals
+    lib = libs["k2attn"]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for tag, (B, L, D, F, H, p, causal) in K2_SHAPES.items():
+        params, x, _, pad, attn = layer_inputs(device, B, L, D, F, B + L + 3, causal)
+        _, res = training_residuals(x, params, pad, attn, H, p, "gelu", 1e-12, 2027)
+        pad_add, attn_add = additive_masks(pad, attn)
+        M, Dh = B * L, D // H
+        dA = torch.randn((M, D), device=device)
+        dqkv = torch.zeros((M, 3 * D), device=device)
+        delta = torch.empty((B, H, L), device=device)
+        seed, thr, drop_scale = drop_args(p, 2027)
+        ref = None
+        for i, (ri, cj, dk, cap) in enumerate(K2_ATTN_PLANS):
+            if dk != (2 if Dh <= 32 else 4):
+                continue
+            run = lambda: call(lib.sweep_k2_attn, i, res["qkv"].data_ptr(), pad_add.data_ptr(),
+                               None if attn_add is None else attn_add.data_ptr(),
+                               res["stats"].data_ptr(), res["attn"].data_ptr(), dA.data_ptr(),
+                               dqkv.data_ptr(), delta.data_ptr(), B, L, D, H, Dh ** -0.5,
+                               seed, thr, drop_scale, stream)
+            run()
+            torch.cuda.synchronize()
+            got = dqkv.clone()
+            if ref is None:
+                ref = got
+            ok = bool(torch.allclose(got, ref, rtol=1e-3, atol=1e-4 * float(ref.abs().max())))
+            tiles, empty = mha_tiles(pad, attn, L, L, 16 * ri, 16 * cj)
+            rows.append({"kernel": "K2 attention", "at": tag, "tile": [16 * ri, 16 * cj],
+                         "dk": dk, "max_blocks_per_sm": cap,
+                         "tiles_computed_share": float((tiles | empty[:, :, None]).float().mean()),
+                         "ok": ok, "ms": time_ms(run)})
+
+
+PARTS = ("k4", "k8", "k2steps", "k2gemm", "k2attn")
+
+
 def main() -> int:
     import torch
     from chip_smoke import gpu_line
     if not torch.cuda.is_available():
         print("torch_kernel_sweep: no CUDA device", file=sys.stderr)
         return 2
+    parts = sys.argv[1:] or PARTS
+    if any(p not in PARTS for p in parts):
+        print(f"torch_kernel_sweep: parts are {', '.join(PARTS)}", file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
     gpu = gpu_line()
-    t0 = time.perf_counter()
-    libs, report = build(os.path.join(REPO, "build", "recstudio_torch", "sweep"))
-    print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
-    for ln in report:
-        print(f"PTXAS {ln}", flush=True)
     rows = []
-    sweep_k4(libs, device, rows)
-    sweep_k8(libs, device, rows)
+    if "k2steps" in parts:
+        from recstudio_torch.ops import _native
+        for ln in _native.load().ptxas_log.splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+                print(f"PTXAS port: {ln.strip()}", flush=True)
+        k2_steps(device, rows)
+    if any(p in parts for p in ("k4", "k8", "k2gemm", "k2attn")):
+        t0 = time.perf_counter()
+        libs, report = build(os.path.join(REPO, "build", "recstudio_torch", "sweep"))
+        print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
+        for ln in report:
+            print(f"PTXAS {ln}", flush=True)
+        if "k4" in parts:
+            sweep_k4(libs, device, rows)
+        if "k8" in parts:
+            sweep_k8(libs, device, rows)
+        if "k2gemm" in parts:
+            sweep_k2_gemm(libs, device, rows)
+        if "k2attn" in parts:
+            sweep_k2_attn(libs, device, rows)
     for row in rows:
         print(f"PLAN {json.dumps({'gpu': gpu, **row})}", flush=True)
     print(f"GPU {gpu_line()}", flush=True)

@@ -435,6 +435,68 @@ def test_fused_layer_without_attention_mask(dev):
                                    msg=name)
 
 
+@pytest.mark.parametrize("B,L,D,F,H,p,causal,all_masked", [
+    (4, 37, 64, 256, 2, 0.5, True, True), (3, 37, 128, 256, 2, 0.0, True, True),
+    (2, 40, 256, 256, 2, 0.5, True, False), (5, 37, 64, 128, 2, 0.0, False, True),
+    (3, 37, 128, 256, 2, 0.5, False, True), (2, 37, 256, 128, 2, 0.0, False, False),
+    (3, 200, 64, 128, 2, 0.5, True, True), (2, 256, 256, 1024, 2, 0.5, True, True)],
+    ids=["d64-f256-causal-p0.5", "d128-f256-causal-p0", "d256-causal-p0.5",
+         "d64-nomask-p0", "d128-f256-nomask-p0.5", "d256-nomask-p0", "d64-l200-causal-p0.5",
+         "d256-f1024-l256-p0.5"])
+def test_fused_layer_backward_across_widths(dev, B, L, D, F, H, p, causal, all_masked):
+    """K2 against autograd through the plain forward at head widths 32, 64
+    and 128 (d 64, 128, 256 with 2 heads), F unequal to d, B L a multiple of
+    no product tile (L 37), example 0 fully padded, with and without the
+    causal mask, dropout 0 and 0.5. Tolerance TOL_GRAD of chip_smoke.py:
+    atol 1e-4 times each gradient's largest magnitude, rtol 1e-3 (float32
+    sums of up to B L terms in another order). Repeats bit for bit."""
+    rng = np.random.default_rng(B * L + D + F)
+    tree = random_sasrec_params(L + D, 2, D, 1, F, 1)
+    params = {n: t.to(dev) for n, t in
+              layer_params_from_jax(tree["query_encoder"]["transformer"]["layer_0"]).items()}
+    x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    pad, attn = _masks(rng, B, L, dev, all_masked_row=all_masked)
+    attn = attn if causal else None
+    seed = 777
+    _, res = training_residuals(x, params, pad, attn, H, p, "gelu", 1e-12, seed)
+    before = fused_transformer_layer_bwd.launches
+    dx, grads = fused_transformer_layer_bwd(g, x, params, pad, attn, H, p, "gelu", 1e-12, seed,
+                                            res)
+    torch.cuda.synchronize()
+    assert fused_transformer_layer_bwd.launches == before + 1
+    wdx, wgrads = transformer_layer_bwd_plain(g, x, params, pad, attn, H, p, "gelu", 1e-12, seed)
+    for name, got, want in (("x", dx, wdx), *((n, grads[n], wgrads[n]) for n in PARAM_NAMES)):
+        torch.testing.assert_close(got, want, rtol=1e-3,
+                                   atol=1e-4 * max(float(want.abs().max()), 1e-3), msg=name)
+    dx2, grads2 = fused_transformer_layer_bwd(g, x, params, pad, attn, H, p, "gelu", 1e-12,
+                                              seed, res)
+    assert torch.equal(dx, dx2)
+    assert all(torch.equal(grads[n], grads2[n]) for n in PARAM_NAMES)
+
+
+@pytest.mark.parametrize("B,L,D,F", [(1024, 200, 128, 128), (256, 200, 64, 128),
+                                     (4, 37, 64, 256), (2, 256, 256, 1024), (1, 3, 8, 8)])
+def test_weight_gradient_row_ranges_cover_the_rows_once(dev, B, L, D, F):
+    """K2's plan for each weight gradient (sized to this card): S ranges of
+    a multiple of the k-slice rows that cover [0, B L) exactly once, none
+    empty."""
+    from recstudio_torch.ops.transformer_layer import (K2_GEMM_TILE, WEIGHT_GRADS,
+                                                       weight_grad_splits)
+    M = B * L
+    plan = weight_grad_splits(B, L, D, F)
+    assert tuple(plan) == WEIGHT_GRADS
+    for name, (S, rows) in plan.items():
+        assert S >= 1 and rows > 0 and rows % K2_GEMM_TILE[2] == 0, name
+        starts = [s * rows for s in range(S)]
+        ends = [min(M, st + rows) for st in starts]
+        covered = np.zeros(M, dtype=int)
+        for st, en in zip(starts, ends):
+            assert st < en, name                      # no empty range
+            covered[st:en] += 1
+        assert bool((covered == 1).all()), name
+
+
 def _clse_inputs(M, N, D, dev, seed=0):
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.normal(size=(M, D)).astype(np.float32)).to(dev)
