@@ -715,9 +715,11 @@ def causal_mask(L, device, causal=True):
 
 
 def k1_versus_plain(device, B, L, D, F, H, causal=True):
+    """K1 in eval mode against the plain layer, with a bitwise repeat and
+    the output tile of each of its four products (sized to the card)."""
     import numpy as np
     import torch
-    from recstudio_torch.ops.transformer_layer import (fused_transformer_layer,
+    from recstudio_torch.ops.transformer_layer import (forward_tiles, fused_transformer_layer,
                                                        transformer_layer_plain)
     from recstudio_torch.utils.convert import random_sasrec_params
     rng = np.random.default_rng(B + L)
@@ -730,6 +732,7 @@ def k1_versus_plain(device, B, L, D, F, H, causal=True):
     plain = lambda: transformer_layer_plain(x, params, pad, attn, H, "gelu", 1e-12)
     with torch.no_grad():
         got, want = kern(), plain()
+        bitwise = torch.equal(got, kern())
         torch.cuda.synchronize()
         max_abs, max_rel, ok = errors(got, want, TOL_K1)
         ms, plain_ms = time_ms(kern), time_ms(plain)
@@ -738,8 +741,10 @@ def k1_versus_plain(device, B, L, D, F, H, causal=True):
                   + (L * L if causal else 0))
     b_ms, by = bound(flops, nbytes)
     return {"shape": dict(B=B, L=L, D=D, F=F, H=H, causal=causal), "max_abs_err": max_abs,
-            "max_rel_err": max_rel, "tol": TOL_K1, "ok": ok, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
+            "max_rel_err": max_rel, "tol": TOL_K1, "ok": ok and bitwise,
+            "bitwise_repeatable": bitwise, "tiles": forward_tiles(B, L, D, F, False, device),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+            "bound_by": by, "gflop": flops / 1e9}
 
 
 def k3_versus_plain(device, B, H, L, Dh, causal=True):
@@ -806,16 +811,21 @@ def layer_inputs(device, B, L, D, F, seed, causal=True):
 
 def k1_train_versus_plain(device, B, L, D, F, H, p=0.5, seed=2026, causal=True):
     """K1 in training mode (dropout on) against the plain forward with the
-    same masks."""
+    same masks, with a bitwise repeat of the output and of every residual
+    K2 reads."""
     import torch
-    from recstudio_torch.ops.transformer_layer import (training_residuals,
+    from recstudio_torch.ops.transformer_layer import (forward_tiles, training_residuals,
                                                        transformer_layer_plain)
     params, x, _, pad, attn = layer_inputs(device, B, L, D, F, B + L + 2, causal)
-    kern = lambda: training_residuals(x, params, pad, attn, H, p, "gelu", 1e-12, seed)[0]
+    call = lambda: training_residuals(x, params, pad, attn, H, p, "gelu", 1e-12, seed)
+    kern = lambda: call()[0]
     plain = lambda: transformer_layer_plain(x, params, pad, attn, H, "gelu", 1e-12, p, seed,
                                             True)
     with torch.no_grad():
-        got, want = kern(), plain()
+        (got, res), want = call(), plain()
+        got2, res2 = call()
+        bitwise = torch.equal(got, got2) and all(torch.equal(res[k], res2[k]) for k in res)
+        del res, res2, got2
         torch.cuda.synchronize()
         max_abs, max_rel, ok = errors(got, want, TOL_K1)
         ms, plain_ms = time_ms(kern), time_ms(plain, iters=5)
@@ -827,8 +837,9 @@ def k1_train_versus_plain(device, B, L, D, F, H, p=0.5, seed=2026, causal=True):
                   + M * (3 * D + 4 * D + 2 * F + 2) + B * H * L * 2)
     b_ms, by = bound(flops, nbytes)
     return {"shape": dict(B=B, L=L, D=D, F=F, H=H, dropout=p, causal=causal),
-            "max_abs_err": max_abs,
-            "max_rel_err": max_rel, "tol": TOL_K1, "ok": ok, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": TOL_K1,
+            "ok": ok and bitwise, "bitwise_repeatable": bitwise,
+            "tiles": forward_tiles(B, L, D, F, True, device), "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
 
 

@@ -1,6 +1,7 @@
 // Register-tiled float32 block products on the SIMT cores: the matrix
-// products of the fused layer's backward (transformer_layer_bwd.cu, K2),
-// free of any epilogue so that other kernels can take them.
+// products of the fused layer's forward (transformer_layer.cu, K1) and
+// backward (transformer_layer_bwd.cu, K2), free of any epilogue so that
+// each kernel fuses its own.
 //
 // Bound on an H100: a product of M x K by K x N does 2 M N K operations on
 // (M K + K N + M N) 4 bytes; at the layer's widths (K, N >= 64, M = B L in
@@ -11,21 +12,26 @@
 //
 // Design. A block of 256 threads (16 x 16: ty = threadIdx.x >> 4, tx =
 // threadIdx.x & 15) owns a BM x BN tile of the output, BM = 16 TM, BN = 16
-// TN (TM, TN 4 or 8); thread (ty, tx) owns rows tile_row(i, ty) = 64 (i /
-// 4) + 4 ty + i % 4 and columns tile_col(j, tx) = 64 (j / 4) + 4 tx + j % 4,
-// a TM x TN block in registers. Both operands sit in shared memory k-major
-// (as[k][m], bs[k][n]), so for each k a thread reads its TM values of A and
-// its TN values of B as float4s (TM / 4 + TN / 4 reads for TM TN FMAs:
-// 4 for 64 at 8 x 8) and a warp's reads meet no bank conflict (two rows
-// of A, 64 consecutive columns of B). The k axis is walked in slices of BK
-// staged by cp.async in STAGES buffers, so the copies of the next slices
-// overlap the FMAs of this one:
+// TN (TM 4 or 8, TN 4, 8 or 16); thread (ty, tx) owns rows tile_row(i, ty)
+// = 64 (i / 4) + 4 ty + i % 4 and columns tile_col(j, tx) = 64 (j / 4) + 4
+// tx + j % 4, a TM x TN block in registers. Both operands sit in shared
+// memory k-major (as[k][m], bs[k][n]), so for each k a thread reads its TM
+// values of A and its TN values of B as float4s (TM / 4 + TN / 4 reads for
+// TM TN FMAs: 4 for 64 at 8 x 8, 5 at 4 x 16) and a warp's reads meet no
+// bank conflict (two rows of A, 64 consecutive columns of B). The k axis is
+// walked in slices of BK staged by cp.async in STAGES buffers, so the
+// copies of the next slices overlap the FMAs of this one:
 // - rows of an operand whose k index is the row (B of C = A B; A and B of
 //   dW = A^T B) are copied as they lie, 16 bytes at a time where the row
 //   length and the pointer allow, else 4;
-// - A of C = A B ([M, K] row-major) is transposed while it is staged: each
-//   element is its own 4-byte copy to as[k][m]; the row stride BM + 4 puts
-//   the eight k of a warp's four rows on 32 different banks.
+// - an operand whose rows run along k (A of C = A B and of C = A W^T, both
+//   [rows, K] row-major; W of C = A W^T, PyTorch's [out, in] weight) is
+//   transposed while it is staged: each element is its own 4-byte copy to
+//   as[k][m] or bs[k][n]; at the row stride BM + 4 (BN + 4) a warp's 32
+//   copies (two rows, sixteen k) land two to a bank.
+// The 16 threads tx of one row group are the lanes 0-15 or 16-31 of a warp
+// (tid = 16 ty + tx), so an epilogue can reduce a row of the tile with
+// row_sum (register_tile.cuh) and no shared memory.
 // Elements past the operands' edges are copied as zeros, so ragged tiles
 // need no other care; the caller stores only the real outputs.
 #pragma once
@@ -36,9 +42,18 @@
 
 namespace {
 
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+bool aligned16(const void* p) { return ((unsigned long long)p & 15) == 0; }
+
+// Blocks of 256 threads that hold at most 128 registers a thread: two an SM
+// (the __launch_bounds__ of the kernels built on these products).
+constexpr int kGemmBlocksPerSm = 2;
+
 template <int TM_, int TN_, int BK_ = 16, int STAGES_ = 2>
 struct GemmTile {
-  static_assert((TM_ == 4 || TM_ == 8) && (TN_ == 4 || TN_ == 8), "4 or 8 outputs a side");
+  static_assert((TM_ == 4 || TM_ == 8) && (TN_ == 4 || TN_ == 8 || TN_ == 16),
+                "4 or 8 rows, 4, 8 or 16 columns a thread");
   static constexpr int TM = TM_, TN = TN_, BK = BK_, STAGES = STAGES_;
   static constexpr int BM = 16 * TM, BN = 16 * TN;
   static constexpr int LDA = BM + 4, LDB = BN + 4;     // row strides of as[k][m], bs[k][n]
@@ -164,6 +179,22 @@ __device__ __forceinline__ void block_product_nn(float (&acc)[T::TM][T::TN], flo
                 const int k0 = t * T::BK;
                 stage_cols<T::BM, T::BK, T::LDA>(as, A, K, m0, M, k0, K);
                 stage_rows<T::BK, T::BN, T::LDB>(bs, B, N, k0, K, n0, N, vec_b);
+              },
+              NoVisit());
+}
+
+// acc = the block's tile of C = A W^T, rows m0.., columns n0..: A [M, K] and
+// W [N, K] row-major (a weight in PyTorch's [out, in] layout), both read
+// along k and staged transposed. Needs T::SMEM floats of shared memory.
+template <class T>
+__device__ __forceinline__ void block_product_nt(float (&acc)[T::TM][T::TN], float* smem,
+                                                 const float* A, const float* W, int M, int N,
+                                                 int K, int m0, int n0) {
+  pipeline<T>(acc, smem, (K + T::BK - 1) / T::BK,
+              [&](int t, float* as, float* bs) {
+                const int k0 = t * T::BK;
+                stage_cols<T::BM, T::BK, T::LDA>(as, A, K, m0, M, k0, K);
+                stage_cols<T::BN, T::BK, T::LDB>(bs, W, K, n0, N, k0, K);
               },
               NoVisit());
 }

@@ -90,13 +90,6 @@ __device__ __forceinline__ float act_grad(float x, int act) {
   return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * c * (1.f + 3.f * a * x * x);
 }
 
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-bool aligned16(const void* p) { return ((unsigned long long)p & 15) == 0; }
-
-// Blocks of 256 threads that hold at most 128 registers a thread: two an SM.
-constexpr int kGemmBlocksPerSm = 2;
-
 // ---------------------------------------------------------------------------
 // C[M, N] = A[M, K] B[K, N], both row-major, then an epilogue:
 //   kEpiRes:  C += aux (a residual gradient; aux may be null)

@@ -37,6 +37,7 @@ _SIGNATURES = {
     "rs_transformer_layer_fwd_train": [_P] * 26 + [_I] * 6 + [_F, _F] + _DROP + [_P],
     "rs_transformer_layer_bwd": [_P] * 34 + [ctypes.c_longlong] + [_I] * 6 + [_F] + _DROP
     + [_P],
+    "rs_transformer_layer_fwd_tiles": [_I] * 4 + [_P],
     "rs_transformer_layer_bwd_workspace": [_I] * 5,
     "rs_transformer_layer_bwd_splits": [_I] * 3 + [_P],
     "rs_catalog_lse_splits": [_I] * 4,
@@ -44,7 +45,8 @@ _SIGNATURES = {
     "rs_catalog_lse_bwd_dq": [_P] * 6 + [_I] * 3 + [_P],
     "rs_catalog_lse_bwd_ditems": [_P] * 6 + [_I] * 3 + [_P],
 }
-_RESTYPES = {"rs_transformer_layer_bwd_workspace": ctypes.c_longlong}
+_RESTYPES = {"rs_transformer_layer_bwd_workspace": ctypes.c_longlong,
+             "rs_transformer_layer_fwd_tiles": None}
 
 
 class KernelLibrary:

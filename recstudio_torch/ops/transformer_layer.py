@@ -13,7 +13,11 @@ layer call's seed (``ops/dropout.py``).
 - On a CUDA tensor, ``fused_transformer_layer`` launches the hand-written
   kernel chain ``csrc/transformer_layer.cu`` (K1, replacing the Pallas
   ``_fwd_kernel``) or raises; it counts its launches in
-  ``fused_transformer_layer.launches``. In training mode it is an autograd
+  ``fused_transformer_layer.launches``. K1's four products run on
+  ``csrc/sgemm_tile.cuh`` with their bias, activation, dropout and
+  LayerNorm epilogues fused (tiles ``K1_GEMM_TILE`` at the widest, sized
+  to the shapes, the mode and the card: ``forward_tiles``); its attention
+  step is K3. In training mode it is an autograd
   function whose backward is ``csrc/transformer_layer_bwd.cu`` (K2,
   replacing ``_bwd_kernel``), counted in
   ``fused_transformer_layer_bwd.launches``. K2's products run on
@@ -40,6 +44,10 @@ from .attention import _check, additive_masks, mha_plain
 from .dropout import (SITE_ATTN, SITE_FFN_HIDDEN, SITE_FFN_OUT, SITE_OUT, drop_args,
                       keep_scale)
 
+# K1's products: output tile rows and columns a block and k-slice at the
+# widest (csrc/sgemm_tile.cuh GemmTile<8, 8>; its LayerNorm products take
+# 64 x 256 at 128 < d <= 256)
+K1_GEMM_TILE = (128, 128, 16)
 # K2's products: output tile rows and columns a block and k-slice at the
 # widest (csrc/sgemm_tile.cuh GemmTile<8, 8>: 16 TM x 16 TN, BK), and its
 # attention steps' (query rows, keys) a pair of tiles at Dh <= 128
@@ -361,6 +369,21 @@ def weight_grad_splits(B: int, L: int, D: int, F: int,
                                                             ctypes.addressof(rows)))
             out[name] = (S, rows.value)
     return out
+
+
+def forward_tiles(B: int, L: int, D: int, F: int, training: bool = False,
+                  device: Optional[torch.device] = None) -> Dict[str, Tuple[int, int]]:
+    """K1's output tile ``(rows, columns)`` of each product in eval or
+    training mode on the current (or given) CUDA device: ``{"qkv",
+    "out_proj", "linear1", "linear2"}``."""
+    import ctypes
+    from . import _native
+    lib = _native.load()
+    tiles = (ctypes.c_int * 8)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        lib.lib.rs_transformer_layer_fwd_tiles(B * L, D, F, int(training), tiles)
+    return {name: (tiles[2 * i], tiles[2 * i + 1])
+            for i, name in enumerate(("qkv", "out_proj", "linear1", "linear2"))}
 
 
 def training_residuals(x: torch.Tensor, params: Dict[str, torch.Tensor],

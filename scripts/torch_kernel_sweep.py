@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
 """Time other tile and occupancy plans of the flash forward (K4), the
-catalog query gradient (K8) and the fused layer's backward (K2), and K2's
-time by step, on one NVIDIA GPU.
+catalog query gradient (K8) and the fused layer's forward (K1) and
+backward (K2), and K1's and K2's time by step, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with the card and ``nvcc``::
 
-    python3 scripts/torch_kernel_sweep.py [k4] [k8] [k2steps] [k2gemm] [k2attn]
+    python3 scripts/torch_kernel_sweep.py [k4] [k8] [k2steps] [k2gemm] [k2attn] [k1steps] [k1gemm]
 
-(all parts when none is named). ``k4``, ``k8``, ``k2gemm`` and ``k2attn``
-compile ``recstudio_torch/csrc/flash_attention.cu``, ``softmax_z.cu`` and
-``transformer_layer_bwd.cu`` once more, each with launchers of other plans
-of the same kernels (``build/recstudio_torch/sweep/``), and a copy of the
-first whose K4 grid runs the last query tiles first (under the causal mask
-they stream the most key tiles). Each plan is timed with CUDA events at the
-shapes ``chip_smoke.py`` uses and held to the shipped kernel's output or to
-``torch.matmul``:
+(all parts when none is named). ``k4``, ``k8``, ``k2gemm``, ``k2attn`` and
+``k1gemm`` compile ``recstudio_torch/csrc/flash_attention.cu``,
+``softmax_z.cu``, ``transformer_layer_bwd.cu`` and ``transformer_layer.cu``
+once more (only those the named parts need), each with launchers of other
+plans of the same kernels (``build/recstudio_torch/sweep/``), and a copy of
+the first whose K4 grid runs the last query tiles first (under the causal
+mask they stream the most key tiles). Each plan is timed with CUDA events
+at the shapes ``chip_smoke.py`` uses and held to the shipped kernel's
+output or to ``torch.matmul``:
 
 - K4: phase H's B 256, H 2, L 1024, Dh 64, causal, right padding, example
   0 fully padded, and the Dh 32 ``odd`` row;
@@ -26,11 +27,18 @@ shapes ``chip_smoke.py`` uses and held to the shipped kernel's output or to
 - K2 (``k2attn``): its attention steps (K5's and K6's kernels, dropout on)
   at those phases' inputs on every plan of ``K2_ATTN_PLANS`` (query rows
   and keys of a pair of tiles, blocks an SM);
-- ``k2steps``: K2 as the port builds it, at those inputs, its card time by
-  step from ``torch.profiler`` (each launch given its step by its place in
-  the chain; median over 10 calls), beside float32 ``torch.matmul`` (TF32
-  off) of each product step: a yardstick, not used by the port. This part
-  needs only K2's entry point, so it runs on earlier trees too.
+- K1 (``k1gemm``): each of its four products with its epilogue (bias,
+  activation, dropout, residual and LayerNorm) at phase D's shape in
+  training mode and B's (B 256, L 200, d 128) and F's in eval, on every
+  tile of ``K1_GEMM_PLANS`` that covers the step, held to the plan the
+  port ships for it (``forward_tiles``);
+- ``k2steps`` and ``k1steps``: K2 at D's and F's inputs, K1 at D's
+  (training) and B's and F's (eval), as the port builds them: the card's
+  time by step from ``torch.profiler`` (each launch given its step by its
+  place in the chain; median over 10 calls), beside float32
+  ``torch.matmul`` (TF32 off) of each product step: a yardstick, not used
+  by the port. These parts need only the kernels' entry points, so they
+  run on earlier trees too.
 
 Prints the compilers' register report, one ``PLAN`` JSON line per plan or
 step, and the card's name and power limit.
@@ -243,9 +251,9 @@ extern "C" int sweep_k2_attn(int plan, const float* qkv, const float* pad_add,
 '''
 
 
-def build(out_dir: str):
-    """Compile the sweep sources in parallel; returns the loaded libraries
-    and the compilers' register report."""
+def build(out_dir: str, parts):
+    """Compile the sweep sources of ``parts`` in parallel; returns the
+    loaded libraries and the compilers' register report."""
     from recstudio_torch.ops import _native
     csrc = os.path.join(REPO, "recstudio_torch", "csrc")
     os.makedirs(out_dir, exist_ok=True)
@@ -263,9 +271,12 @@ def build(out_dir: str):
                "k4_last_first": k4_source(last_first),
                "k8": k8_source(os.path.join(csrc, "softmax_z.cu")),
                "k2gemm": k2_gemm_source(os.path.join(csrc, "transformer_layer_bwd.cu")),
-               "k2attn": k2_attn_source(os.path.join(csrc, "flash_attention.cu"))}
-    # the products' source calls K2's attention launcher: link its definition
-    extra = {"k2gemm": [os.path.join(csrc, "flash_attention.cu")]}
+               "k2attn": k2_attn_source(os.path.join(csrc, "flash_attention.cu")),
+               "k1gemm": k1_gemm_source(os.path.join(csrc, "transformer_layer.cu"))}
+    sources = {name: text for name, text in sources.items() if name.split("_")[0] in parts}
+    # the products' sources call K2's and K1's attention launchers: link their definitions
+    extra = {"k2gemm": [os.path.join(csrc, "flash_attention.cu")],
+             "k1gemm": [os.path.join(csrc, "attention.cu")]}
     nvcc, procs = _native._nvcc(), {}
     for name, text in sources.items():
         src = os.path.join(out_dir, f"sweep_{name}.cu")
@@ -285,22 +296,28 @@ def build(out_dir: str):
                        if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         libs[name] = ctypes.CDLL(os.path.join(out_dir, f"libsweep_{name}.so"))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name in ("k4", "k4_last_first"):
-        libs[name].sweep_k4.argtypes = [I] + [P] * 7 + [I] * 5 + [F, P]
-    libs["k8"].sweep_k8.argtypes = [I, I] + [P] * 6 + [I] * 3 + [P]
-    libs["k8"].sweep_k8_splits.argtypes = [I] * 5
-    libs["k8"].sweep_k8_resident.argtypes = [I]
-    libs["k2gemm"].sweep_k2_nn.argtypes = [I] + [P] * 4 + [I] * 3 + [P]
-    libs["k2gemm"].sweep_k2_tn.argtypes = [I] + [P] * 6 + [I] * 3 + [P, P]
-    libs["k2attn"].sweep_k2_attn.argtypes = ([I] + [P] * 8 + [I] * 4 + [F, ctypes.c_ulonglong,
-                                             ctypes.c_uint, F, P])
+    U64, U32 = ctypes.c_ulonglong, ctypes.c_uint
+    argtypes = {
+        "k4": {"sweep_k4": [I] + [P] * 7 + [I] * 5 + [F, P]},
+        "k4_last_first": {"sweep_k4": [I] + [P] * 7 + [I] * 5 + [F, P]},
+        "k8": {"sweep_k8": [I, I] + [P] * 6 + [I] * 3 + [P], "sweep_k8_splits": [I] * 5,
+               "sweep_k8_resident": [I]},
+        "k2gemm": {"sweep_k2_nn": [I] + [P] * 4 + [I] * 3 + [P],
+                   "sweep_k2_tn": [I] + [P] * 6 + [I] * 3 + [P, P]},
+        "k2attn": {"sweep_k2_attn": [I] + [P] * 8 + [I] * 4 + [F, U64, U32, F, P]},
+        "k1gemm": {"sweep_k1_bias_act": [I, I] + [P] * 5 + [I] * 4 + [U64, U32, F, P],
+                   "sweep_k1_residual_ln": [I, I] + [P] * 9 + [I] * 3 + [F, U64, U32, F, I, P]},
+    }
+    for name, lib in libs.items():
+        for fn, types in argtypes[name].items():
+            getattr(lib, fn).argtypes = types
     return libs, report
 
 
 def call(fn, *args):
     err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"{fn.__name__} failed with cudaError_t {err}")
+        raise RuntimeError(f"{getattr(fn, '__name__', fn)} failed with cudaError_t {err}")
 
 
 def sweep_k4(libs, device, rows):
@@ -382,13 +399,34 @@ def k2_products(M, D, F):
             (11, (3 * D, M, D), True), (12, (M, 3 * D, D), False)]
 
 
+def profile_steps(run, n, calls=10):
+    """The card's kernel times of ``calls`` calls of ``run``, which launches
+    ``n`` kernels of its own (PyTorch's, such as the additive masks the
+    wrappers make, are left out): the median over the calls of each
+    launch, and the launches' names, or None if the profiler missed some."""
+    import torch
+    from torch.autograd import DeviceType
+    for _ in range(3):          # the profiler has been seen to drop launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                       and "at::native" not in e.name and "mem" not in e.name.lower()),
+                      key=lambda e: e.time_range.start)
+        if len(kern) == n * calls:
+            per_launch = [sorted(kern[c * n + i].time_range.elapsed_us() / 1e3
+                                 for c in range(calls))[calls // 2] for i in range(n)]
+            return per_launch, [kern[i].name for i in range(n)]
+    return None, len(kern)
+
+
 def k2_steps(device, rows, calls=10):
     """K2's time by step at phase D's and F's inputs: the card's kernel
     times from torch.profiler over ``calls`` calls, each launch given its
     step by its place in the chain (median over the calls), and beside each
     product step float32 torch.matmul (TF32 off) of the same product."""
     import torch
-    from torch.autograd import DeviceType
     from chip_smoke import layer_inputs, time_ms
     from recstudio_torch.ops.transformer_layer import (fused_transformer_layer_bwd,
                                                        training_residuals)
@@ -399,25 +437,11 @@ def k2_steps(device, rows, calls=10):
                                                   1e-12, 2027, res)
         call_ms = time_ms(run)
         n = len(K2_STEPS)
-        for _ in range(3):          # the profiler has been seen to drop launches
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    run()
-                torch.cuda.synchronize()
-            # the card's kernels, less PyTorch's own (the additive masks K2's wrapper makes)
-            kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                           and "at::native" not in e.name and "mem" not in e.name.lower()),
-                          key=lambda e: e.time_range.start)
-            if len(kern) == n * calls:
-                break
-        if len(kern) != n * calls:
+        per_launch, names = profile_steps(run, n, calls)
+        if per_launch is None:
             rows.append({"kernel": "K2", "at": tag, "ok": False, "steps": "profiler saw "
-                         f"{len(kern)} K2 launches, expected {n * calls}"})
+                         f"{names} K2 launches, expected {n * calls}"})
             continue
-        per_launch = [sorted(kern[c * n + i].time_range.elapsed_us() / 1e3
-                             for c in range(calls))[calls // 2] for i in range(n)]
-        names = [kern[i].name for i in range(n)]
         M = B * L
         yard = {}
         for step, (rows_, depth, cols), trans in k2_products(M, D, F):
@@ -540,7 +564,184 @@ def sweep_k2_attn(libs, device, rows):
                          "ok": ok, "ms": time_ms(run)})
 
 
-PARTS = ("k4", "k8", "k2steps", "k2gemm", "k2attn")
+# K1's launches in the order of its chain (transformer_layer.cu)
+K1_STEP_NAMES = {1: "qkv = x Wqkv^T + b", 2: "attention (K3)", 3: "x1 = LN1(A Wo^T + bo + x)",
+                 4: "h = act(x1 W1^T + b1)", 5: "out = LN2(h W2^T + b2 + x1)"}
+# phase D's training row and B's and F's eval rows of chip_smoke.py:
+# (B, L, D, F, H, dropout (None: eval), causal)
+K1_SHAPES = {"D": (1024, 200, 128, 128, 2, 0.5, True), "B": (256, 200, 128, 128, 2, None, True),
+             "F": (256, 200, 64, 128, 2, None, False)}
+
+
+def k1_products(M, D, F):
+    """K1's four product steps as (step, (rows, depth, columns), LayerNorm
+    epilogue): qkv, Wo, W1, W2."""
+    return [(1, (M, D, 3 * D), False), (3, (M, D, D), True), (4, (M, D, F), False),
+            (5, (M, F, D), True)]
+
+
+def k1_steps(device, rows):
+    """K1's time by launch at phase D's training inputs and B's and F's eval
+    inputs (``torch.profiler``, median over 10 calls), beside float32
+    torch.matmul (TF32 off) of each product step. Needs only K1's entry
+    points, so it runs on earlier trees too."""
+    import torch
+    from chip_smoke import layer_inputs, time_ms
+    from recstudio_torch.ops.transformer_layer import (fused_transformer_layer,
+                                                       training_residuals)
+    for tag, (B, L, D, F, H, p, causal) in K1_SHAPES.items():
+        params, x, _, pad, attn = layer_inputs(device, B, L, D, F, B + L + 2, causal)
+        if p is None:
+            run = lambda: fused_transformer_layer(x, params, pad, attn, H, 0.0, "gelu", 1e-12,
+                                                  False)
+        else:
+            run = lambda: training_residuals(x, params, pad, attn, H, p, "gelu", 1e-12, 2026)
+        with torch.no_grad():
+            call_ms = time_ms(run)
+            per_launch, names = profile_steps(run, len(K1_STEP_NAMES))
+        if per_launch is None:
+            rows.append({"kernel": "K1", "at": tag, "ok": False, "steps": "profiler saw "
+                         f"{names} launches, expected {len(K1_STEP_NAMES) * 10}"})
+            continue
+        M = B * L
+        yard = {}
+        for step, (r, depth, c), _ in k1_products(M, D, F):
+            a = torch.randn((r, depth), device=device)
+            w = torch.randn((c, depth), device=device)
+            yard[step] = time_ms(lambda: torch.matmul(a, w.t()))
+        total = sum(per_launch)
+        for (step, label), ms, name in zip(K1_STEP_NAMES.items(), per_launch, names):
+            rows.append({"kernel": "K1", "at": tag, "mode": "eval" if p is None else "training",
+                         "step": step, "name": label, "ms": ms, "share": ms / total,
+                         "matmul_ms": yard.get(step), "launch": name[:60]})
+        rows.append({"kernel": "K1", "at": tag, "steps_total_ms": total, "call_ms": call_ms})
+
+
+# K1's product tiles: (output rows / 16, output columns / 16, k-slice, stages)
+# (128 x 128 with k-slices of 16 in three buffers needs 50,688 bytes of
+# static shared memory, over the 48 KB a block may declare)
+K1_GEMM_PLANS = [(8, 8, 16, 2), (8, 8, 8, 3), (8, 8, 8, 2), (8, 8, 8, 4), (8, 4, 16, 2),
+                 (8, 4, 8, 3), (4, 8, 16, 2), (4, 8, 8, 3), (4, 4, 16, 2), (4, 16, 16, 2)]
+
+
+def k1_gemm_source(include: str) -> str:
+    tiles = [f"GemmTile<{tm}, {tn}, {bk}, {st}>" for tm, tn, bk, st in K1_GEMM_PLANS]
+    ba = "\n".join(f"    case {i}: return train ? ba<{t}, true>(A, W, bias, C, Cpre, M, N, K, act, "
+                    f"drop, st) : ba<{t}, false>(A, W, bias, C, Cpre, M, N, K, act, drop, st);"
+                    for i, t in enumerate(tiles) if not t.startswith("GemmTile<4, 16"))
+    ln = "\n".join(f"    case {i}: return train ? ln<{t}, true>(A, W, bias, res, gamma, beta, out, "
+                    f"xhat, rstd, M, D, K, eps, drop, site, st) : ln<{t}, false>(A, W, bias, res, "
+                    f"gamma, beta, out, xhat, rstd, M, D, K, eps, drop, site, st);"
+                    for i, t in enumerate(tiles))
+    return f'''#include "{include}"
+namespace {{
+template <class T, bool TRAIN>
+int ba(const float* A, const float* W, const float* bias, float* C, float* Cpre, int M, int N,
+       int K, int act, DropParams drop, cudaStream_t st) {{
+  const bool vec = N % 4 == 0 && aligned16(bias) && aligned16(C) && aligned16(Cpre);
+  bias_act_kernel<T, TRAIN><<<dim3(cdiv(M, T::BM), cdiv(N, T::BN)), kThreads, 0, st>>>(
+      A, W, bias, C, M, N, K, act, Cpre, drop, kSiteFfnHidden, vec);
+  return (int)cudaGetLastError();
+}}
+template <class T, bool TRAIN>
+int ln(const float* A, const float* W, const float* bias, const float* res, const float* gamma,
+       const float* beta, float* out, float* xhat, float* rstd, int M, int D, int K, float eps,
+       DropParams drop, int site, cudaStream_t st) {{
+  if (D > T::BN) return (int)cudaErrorInvalidValue;
+  const bool vec = D % 4 == 0 && aligned16(bias) && aligned16(res) && aligned16(gamma) &&
+                   aligned16(beta) && aligned16(out) && aligned16(xhat);
+  residual_ln_kernel<T, TRAIN><<<cdiv(M, T::BM), kThreads, 0, st>>>(
+      A, W, bias, res, gamma, beta, out, M, D, K, eps, xhat, rstd, drop, site, vec);
+  return (int)cudaGetLastError();
+}}
+}}  // namespace
+// Steps 1 and 4 (train: the pre-activation and dropout of the FFN hidden site).
+extern "C" int sweep_k1_bias_act(int plan, int train, const float* A, const float* W,
+                                 const float* bias, float* C, float* Cpre, int M, int N, int K,
+                                 int act, unsigned long long seed, unsigned int threshold,
+                                 float scale, void* stream) {{
+  const DropParams drop = {{seed, threshold, scale, train}};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (plan) {{
+{ba}
+  }}
+  return (int)cudaErrorInvalidValue;
+}}
+// Steps 3 and 5 (train: dropout of `site`, xhat and rstd).
+extern "C" int sweep_k1_residual_ln(int plan, int train, const float* A, const float* W,
+                                    const float* bias, const float* res, const float* gamma,
+                                    const float* beta, float* out, float* xhat, float* rstd,
+                                    int M, int D, int K, float eps, unsigned long long seed,
+                                    unsigned int threshold, float scale, int site,
+                                    void* stream) {{
+  const DropParams drop = {{seed, threshold, scale, train}};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (plan) {{
+{ln}
+  }}
+  return (int)cudaErrorInvalidValue;
+}}
+'''
+
+
+def sweep_k1_gemm(libs, device, rows):
+    """K1's four product steps, epilogues included, at phase D's (training,
+    dropout 0.5), B's and F's (eval) shapes on every tile plan of
+    ``K1_GEMM_PLANS`` that covers the step (a LayerNorm tile spans D), each
+    held to the plan the port ships for it (``forward_tiles``)."""
+    import ctypes
+    import torch
+    from chip_smoke import time_ms
+    from recstudio_torch.ops.dropout import SITE_OUT, drop_args
+    from recstudio_torch.ops.transformer_layer import forward_tiles
+    lib = libs["k1gemm"]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for tag, (B, L, D, F, H, p, causal) in K1_SHAPES.items():
+        M, train = B * L, int(p is not None)
+        seed, thr, scale = drop_args(p or 0.0, 2026)
+        shipped = forward_tiles(B, L, D, F, bool(train), device)
+        for (step, (r, depth, c), is_ln), ship in zip(k1_products(M, D, F), shipped.values()):
+            a = torch.randn((r, depth), device=device)
+            w = torch.randn((c, depth), device=device) * depth ** -0.5
+            bias = torch.randn(c, device=device)
+            out = torch.empty((r, c), device=device)
+            if is_ln:
+                res = torch.randn((r, c), device=device)
+                gamma, beta = torch.randn(c, device=device), torch.randn(c, device=device)
+                xhat = torch.empty((r, c), device=device)
+                rstd = torch.empty(r, device=device)
+                fn = lambda i: lib.sweep_k1_residual_ln(
+                    i, train, a.data_ptr(), w.data_ptr(), bias.data_ptr(), res.data_ptr(),
+                    gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), xhat.data_ptr(),
+                    rstd.data_ptr(), r, c, depth, 1e-12, seed, thr, scale, SITE_OUT, stream)
+            else:
+                pre = torch.empty((r, c), device=device)
+                act = 2 if step == 4 else 0
+                fn = lambda i: lib.sweep_k1_bias_act(
+                    i, int(bool(train and act)), a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                    out.data_ptr(), pre.data_ptr(), r, c, depth, act, seed, thr, scale, stream)
+            plans = [(i, plan) for i, plan in enumerate(K1_GEMM_PLANS)
+                     if (16 * plan[1] >= c if is_ln else plan[1] <= 8)]
+            ref = None
+            ship_i = next(i for i, plan in plans
+                          if (16 * plan[0], 16 * plan[1]) == tuple(ship) and plan[2:] == (16, 2))
+            for i, plan in [(ship_i, K1_GEMM_PLANS[ship_i])] + [x for x in plans if x[0] != ship_i]:
+                run = lambda: call(fn, i)
+                run()
+                torch.cuda.synchronize()
+                got = out.clone()
+                if ref is None:
+                    ref = got
+                ok = bool(torch.allclose(got, ref, rtol=1e-4, atol=1e-4))
+                tm, tn, bk, st = plan
+                rows.append({"kernel": "K1", "at": tag, "mode": "training" if train else "eval",
+                             "step": step, "name": K1_STEP_NAMES[step],
+                             "tile": [16 * tm, 16 * tn], "k_slice": bk, "stages": st,
+                             "shipped": i == ship_i, "ok": ok, "ms": time_ms(run)})
+            del a, w, out, ref
+
+
+PARTS = ("k4", "k8", "k2steps", "k2gemm", "k2attn", "k1steps", "k1gemm")
 
 
 def main() -> int:
@@ -557,15 +758,21 @@ def main() -> int:
     device = torch.device("cuda", 0)
     gpu = gpu_line()
     rows = []
-    if "k2steps" in parts:
+    if "k2steps" in parts or "k1steps" in parts:
         from recstudio_torch.ops import _native
         for ln in _native.load().ptxas_log.splitlines():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 print(f"PTXAS port: {ln.strip()}", flush=True)
-        k2_steps(device, rows)
-    if any(p in parts for p in ("k4", "k8", "k2gemm", "k2attn")):
+        if "k2steps" in parts:
+            k2_steps(device, rows)
+    if "k1steps" in parts:
+        k1_steps(device, rows)
+    for row in rows:        # before the sweeps' build, which may fail
+        print(f"PLAN {json.dumps({'gpu': gpu, **row})}", flush=True)
+    ok, rows = all(r.get("ok", True) for r in rows), []
+    if any(p in parts for p in ("k4", "k8", "k2gemm", "k2attn", "k1gemm")):
         t0 = time.perf_counter()
-        libs, report = build(os.path.join(REPO, "build", "recstudio_torch", "sweep"))
+        libs, report = build(os.path.join(REPO, "build", "recstudio_torch", "sweep"), parts)
         print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
         for ln in report:
             print(f"PTXAS {ln}", flush=True)
@@ -577,10 +784,12 @@ def main() -> int:
             sweep_k2_gemm(libs, device, rows)
         if "k2attn" in parts:
             sweep_k2_attn(libs, device, rows)
+        if "k1gemm" in parts:
+            sweep_k1_gemm(libs, device, rows)
     for row in rows:
         print(f"PLAN {json.dumps({'gpu': gpu, **row})}", flush=True)
     print(f"GPU {gpu_line()}", flush=True)
-    return 0 if all(r.get("ok", True) for r in rows) else 1
+    return 0 if ok and all(r.get("ok", True) for r in rows) else 1
 
 
 if __name__ == "__main__":

@@ -330,8 +330,17 @@ def test_long_sequence_layer_trains_through_the_flash_kernels(dev):
 
 @pytest.mark.parametrize("B,L,D,F,H,act,eps", [
     (5, 20, 64, 128, 2, "gelu", 1e-12), (3, 200, 128, 128, 2, "gelu", 1e-12),
-    (4, 37, 96, 160, 3, "relu", 1e-6), (2, 256, 256, 1024, 4, "gelu", 1e-5)])
+    (4, 37, 96, 160, 3, "relu", 1e-6), (2, 256, 256, 1024, 4, "gelu", 1e-5),
+    (3, 37, 128, 128, 2, "gelu", 1e-12), (3, 37, 36, 72, 3, "gelu", 1e-12),
+    (2, 21, 30, 70, 3, "relu", 1e-6), (3, 41, 192, 256, 4, "gelu", 1e-12),
+    (64, 40, 64, 128, 2, "gelu", 1e-12)])
 def test_fused_transformer_layer_matches_plain(dev, B, L, D, F, H, act, eps):
+    """K1 against the plain layer (TOL_K1: rtol 1e-4, atol 1e-4) at the
+    edges of its tile plan: B L not a multiple of 128 (111 rows), d 96 and
+    d 192 on zero-padded LayerNorm tiles (128 and 256 wide), row lengths
+    that are not a multiple of 4 (d 30, F 70: 4-byte stores), F 1024 with d
+    256 (the 64 x 256 LayerNorm tile), and 2,560 rows (64-row tiles where
+    128-row tiles would not fill the card)."""
     rng = np.random.default_rng(B * L)
     tree = random_sasrec_params(L, 2, D, 1, F, 1)
     params = {n: t.to(dev) for n, t in
@@ -349,7 +358,9 @@ def test_fused_transformer_layer_matches_plain(dev, B, L, D, F, H, act, eps):
 @pytest.mark.parametrize("B,L,D,F,H,act,p,all_masked", [
     (5, 20, 64, 128, 2, "gelu", 0.5, False), (3, 200, 128, 128, 2, "gelu", 0.5, False),
     (4, 37, 96, 160, 3, "relu", 0.2, False), (2, 24, 64, 128, 2, "gelu", 0.0, False),
-    (3, 200, 128, 128, 2, "gelu", 0.5, True)])
+    (3, 200, 128, 128, 2, "gelu", 0.5, True), (3, 37, 128, 128, 2, "gelu", 0.5, False),
+    (3, 37, 36, 72, 3, "gelu", 0.5, False), (2, 21, 30, 70, 3, "relu", 0.5, False),
+    (2, 64, 256, 1024, 4, "gelu", 0.5, False)])
 def test_fused_layer_training_matches_plain(dev, B, L, D, F, H, act, p, all_masked):
     """K1 (training) and K2 against the plain forward and autograd through
     it, with dropout on: the kernels regenerate the plain version's masks
@@ -384,6 +395,25 @@ def test_fused_layer_training_matches_plain(dev, B, L, D, F, H, act, p, all_mask
                                               seed, res)
     assert torch.equal(dx, dx2)                   # no atomics: bitwise repeatable
     assert all(torch.equal(grads[n], grads2[n]) for n in PARAM_NAMES)
+
+
+@pytest.mark.parametrize("B,L,D,F,H,p", [(3, 200, 128, 128, 2, 0.5), (3, 37, 96, 160, 3, 0.2)])
+def test_fused_layer_training_forward_repeats_bitwise(dev, B, L, D, F, H, p):
+    """Every output of K1 in training mode belongs to one block and no
+    atomics are used: two calls give bitwise the same output and
+    residuals (hpre, xhat1/2, rstd1/2 and the rest)."""
+    rng = np.random.default_rng(B + L + D)
+    tree = random_sasrec_params(D, 2, D, 1, F, 1)
+    params = {n: t.to(dev) for n, t in
+              layer_params_from_jax(tree["query_encoder"]["transformer"]["layer_0"]).items()}
+    x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    pad, causal = _masks(rng, B, L, dev)
+    out, res = training_residuals(x, params, pad, causal, H, p, "gelu", 1e-12, 77)
+    out2, res2 = training_residuals(x, params, pad, causal, H, p, "gelu", 1e-12, 77)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+    for name in res:
+        assert torch.equal(res[name], res2[name]), name
 
 
 def test_fused_layer_autograd_and_eval_path(dev):
