@@ -907,19 +907,21 @@ def clse_inputs(device, M, N, D, seed):
 
 def clse_versus_plain(device, M, N, D, seed=2028):
     """K7, K8 and K9 against their plain versions at one shape: rows for
-    each, K8 and K9 also repeated bit for bit, K8's with the item ranges of
-    its plan and its grid's blocks. The plain versions are
+    each, repeated bit for bit, with the ranges of each kernel's plan, the
+    blocks of its grid and the card's resident blocks the plan was cut
+    for. The plain versions are
     cuBLAS float32 (TF32 off) and ``torch.logsumexp``. K8's library time is
     float32 ``scaled_dot_product_attention`` of the query rows over the
     catalog as keys and values, ``softmax(q items^T) items``: all of K8's
     arithmetic but the scale by g. No single PyTorch call computes logZ
     alone (K7) or ``P^T (g o q)`` alone (K9)."""
     import torch
-    from recstudio_torch.ops.softmax_z import (DQ_PLAN, catalog_logsumexp_ditems,
+    from recstudio_torch.ops.softmax_z import (DITEMS_PLAN, DQ_PLAN, FWD_PLAN,
+                                               catalog_logsumexp_ditems,
                                                catalog_logsumexp_ditems_plain,
                                                catalog_logsumexp_dq, catalog_logsumexp_dq_plain,
                                                catalog_logsumexp_fwd, catalog_logsumexp_plain,
-                                               splits)
+                                               resident, splits)
     q, items, g = clse_inputs(device, M, N, D, seed)
     shape = dict(M=M, N=N, D=D)
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -927,13 +929,16 @@ def clse_versus_plain(device, M, N, D, seed=2028):
     libraries = {"K8": sdpa, "K9": None}
     rows = {}
     with torch.no_grad():
-        logz = catalog_logsumexp_fwd(q, items)
+        logz, again = catalog_logsumexp_fwd(q, items), catalog_logsumexp_fwd(q, items)
         want = catalog_logsumexp_plain(q, items)
         torch.cuda.synchronize()
         max_abs, max_rel, ok = errors(logz, want, TOL_LOGZ)
+        bitwise = torch.equal(logz, again)
         b_ms, by = bound(2 * M * N * D, 4 * (M * D + N * D + M))
         rows["K7"] = {"shape": shape, "max_abs_err": max_abs, "max_rel_err": max_rel,
-                      "tol": TOL_LOGZ, "ok": ok and bool(torch.isfinite(logz).all()),
+                      "tol": TOL_LOGZ,
+                      "ok": ok and bitwise and bool(torch.isfinite(logz).all()),
+                      "bitwise_repeatable": bitwise,
                       "ms": time_ms(lambda: catalog_logsumexp_fwd(q, items)),
                       "plain_ms": time_ms(lambda: catalog_logsumexp_plain(q, items)),
                       "library_ms": None, "bound_ms": b_ms, "bound_by": by,
@@ -956,9 +961,12 @@ def clse_versus_plain(device, M, N, D, seed=2028):
                          "library_ms": time_ms(libraries[tag]) if libraries[tag] else None,
                          "bound_ms": b_ms, "bound_by": by,
                          "gflop": 4 * M * N * D / 1e9}
-    # K8's grid: row tiles of 64 times the item ranges of its plan (sized to the card)
-    rows["K8"]["splits"] = splits(M, N, D, DQ_PLAN)
-    rows["K8"]["grid_blocks"] = -(-M // 64) * rows["K8"]["splits"]
+    # each grid: tiles of 64 of the axis a block owns (K9: items, else query
+    # rows) times the ranges of its plan (sized to the card)
+    for tag, kind, outer in (("K7", FWD_PLAN, M), ("K8", DQ_PLAN, M), ("K9", DITEMS_PLAN, N)):
+        rows[tag]["splits"] = splits(M, N, D, kind)
+        rows[tag]["grid_blocks"] = -(-outer // 64) * rows[tag]["splits"]
+        rows[tag]["resident_blocks"] = resident(D, kind)
     return rows
 
 

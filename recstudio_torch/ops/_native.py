@@ -41,6 +41,7 @@ _SIGNATURES = {
     "rs_transformer_layer_bwd_workspace": [_I] * 5,
     "rs_transformer_layer_bwd_splits": [_I] * 3 + [_P],
     "rs_catalog_lse_splits": [_I] * 4,
+    "rs_catalog_lse_resident": [_I] * 2,
     "rs_catalog_lse_fwd": [_P] * 4 + [_I] * 3 + [_P],
     "rs_catalog_lse_bwd_dq": [_P] * 6 + [_I] * 3 + [_P],
     "rs_catalog_lse_bwd_ditems": [_P] * 6 + [_I] * 3 + [_P],

@@ -30,8 +30,8 @@ import torch
 from .attention import _check
 
 MAX_DIM = 256   # widest accumulator tile of csrc/softmax_z.cu
-# the kinds of ``rs_catalog_lse_splits``: K7's plan (items cut into ranges),
-# K9's (query rows cut), K8's (items cut, sized to the card)
+# the kinds of ``rs_catalog_lse_splits``, each plan sized to the card: K7's
+# (items cut into ranges), K9's (query rows cut), K8's (items cut)
 FWD_PLAN, DITEMS_PLAN, DQ_PLAN = 0, 1, 2
 
 
@@ -80,13 +80,21 @@ def _check_inputs(query, items, *rows) -> Tuple[int, int, int]:
 
 def splits(M: int, N: int, D: int, kind: int) -> int:
     """The ranges a kernel cuts its long axis into (``kind``: ``FWD_PLAN``,
-    ``DITEMS_PLAN`` or ``DQ_PLAN``); K8's depend on the current CUDA device."""
+    ``DITEMS_PLAN`` or ``DQ_PLAN``) on the current CUDA device."""
     from . import _native
     return int(_native.load().lib.rs_catalog_lse_splits(M, N, D, kind))
 
 
+def resident(D: int, kind: int) -> int:
+    """The blocks of a kind's kernel at width ``D`` that the current CUDA
+    device holds at once, from which its plan is cut."""
+    from . import _native
+    return int(_native.load().lib.rs_catalog_lse_resident(D, kind))
+
+
 def _workspace(M: int, N: int, D: int, kind: int, per_split: int, dev) -> torch.Tensor:
-    """The partial sums of the kernel's fixed ranges (empty with one range)."""
+    """The partial sums of the kernel's ranges on the current device (empty
+    with one range)."""
     s = splits(M, N, D, kind)
     return torch.empty((s * per_split if s > 1 else 0,), dtype=torch.float32, device=dev)
 

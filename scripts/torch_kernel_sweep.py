@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Time other tile and occupancy plans of the flash forward (K4), the
-catalog query gradient (K8) and the fused layer's forward (K1) and
-backward (K2), and K1's and K2's time by step, on one NVIDIA GPU.
+catalog log-partition kernels (K7, K8, K9) and the fused layer's forward
+(K1) and backward (K2), and K1's and K2's time by step, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with the card and ``nvcc``::
 
-    python3 scripts/torch_kernel_sweep.py [k4] [k8] [k2steps] [k2gemm] [k2attn] [k1steps] [k1gemm]
+    python3 scripts/torch_kernel_sweep.py [k4] [k7] [k8] [k9] [k2steps] [k2gemm] [k2attn]
+        [k1steps] [k1gemm]
 
-(all parts when none is named). ``k4``, ``k8``, ``k2gemm``, ``k2attn`` and
-``k1gemm`` compile ``recstudio_torch/csrc/flash_attention.cu``,
+(all parts when none is named). ``k4``, ``k7``, ``k8``, ``k9``, ``k2gemm``,
+``k2attn`` and ``k1gemm`` compile ``recstudio_torch/csrc/flash_attention.cu``,
 ``softmax_z.cu``, ``transformer_layer_bwd.cu`` and ``transformer_layer.cu``
 once more (only those the named parts need), each with launchers of other
 plans of the same kernels (``build/recstudio_torch/sweep/``), and a copy of
@@ -19,7 +20,9 @@ output or to ``torch.matmul``:
 
 - K4: phase H's B 256, H 2, L 1024, Dh 64, causal, right padding, example
   0 fully padded, and the Dh 32 ``odd`` row;
-- K8: phase F's M 51,200, N 3,706, D 64, and M 512, N 500,000;
+- K7, K8, K9 (blocks an SM asked of ptxas, and ranges: the plan's rule
+  for that residency, or forced): phase F's M 51,200, N 3,706, D 64, and M
+  512, N 500,000; K7 and K9 also phase G's M 10,240, N 1,574;
 - K2 (``k2gemm``): each of its eight products at phase D's (B 1024, L 200,
   d 128, F 128) and F's (B 256, L 200, d 64) shapes on every tile of
   ``K2_GEMM_PLANS`` (rows and columns a block, k-slice, cp.async stages),
@@ -58,8 +61,17 @@ sys.path.insert(0, REPO)
 # K4 plans: (query rows / 16, keys / 16, accumulator columns / 16, blocks an SM)
 K4_PLANS = [(4, 4, 4, 3), (4, 4, 4, 2), (4, 4, 4, 1), (4, 2, 4, 4), (4, 2, 4, 3), (2, 4, 4, 4),
             (2, 2, 4, 4), (4, 4, 2, 4), (4, 4, 2, 3), (4, 4, 2, 2)]
-K8_BLOCKS = [2, 3, 4]          # K8 at D <= 64: blocks an SM asked of ptxas
-K8_SPLITS = {"F": [0, 1, 2, 4, 8, 16], "cat500k": [0, 16, 33, 66, 132]}   # 0: dq_plan's
+CLSE_BLOCKS = [2, 3, 4]        # K7, K8, K9 at D <= 64: blocks an SM asked of ptxas
+# phase F's (BERT4Rec at batch 256, L 200 on the ml-1m shape), a 500,000-item
+# catalog, and phase G's (batch 512, L 20 on ml-100k): (M, N, D)
+CLSE_SHAPES = {"F": (256 * 200, 3706, 64), "cat500k": (512, 500_000, 64),
+               "G": (512 * 20, 1574, 64)}
+# ranges forced at each shape (0: the rule's for the residency)
+CLSE_SPLITS = {"k7": {"F": [0, 1, 2, 4, 6, 10, 20, 58], "cat500k": [0, 33, 49, 66, 99, 132, 264],
+                      "G": [0, 1, 2, 3, 7, 13, 25]},
+               "k8": {"F": [0, 1, 2, 4, 8, 16], "cat500k": [0, 16, 33, 66, 132]},
+               "k9": {"F": [0, 1, 4, 9, 20, 40, 100], "cat500k": [0, 1, 2, 4, 8],
+                      "G": [0, 1, 5, 10, 15, 20, 40]}}
 
 ORDER_LINE = "q0 = blockIdx.x * TQ"     # K4's, the first in the source
 
@@ -94,8 +106,21 @@ extern "C" int sweep_k4(int plan, const float* q, const float* k, const float* v
 '''
 
 
-def k8_source(include: str) -> str:
-    cases = "\n".join(f"    case {b}: return f(lse_bwd_dq_kernel<4, {b}>);" for b in K8_BLOCKS)
+# the catalog kernels' sweeps: (kernel, shared memory, plan, launcher), and
+# the axis their plan cuts
+CLSE_KERNELS = {"k7": ("lse_fwd_kernel", "fwd_floats", "fwd_plan", "launch_fwd", "N"),
+                "k8": ("lse_bwd_dq_kernel", "bwd_floats", "dq_plan", "launch_dq", "N"),
+                "k9": ("lse_bwd_ditems_kernel", "bwd_floats", "ditems_plan", "launch_ditems",
+                       "M")}
+
+
+def clse_source(include: str, part: str) -> str:
+    """K7, K8 or K9 at D <= 64 with ``CLSE_BLOCKS`` blocks an SM asked of
+    ptxas, launched on the plan of its rule for that residency or on a
+    forced number of ranges."""
+    kernel, floats, plan, launch, axis = CLSE_KERNELS[part]
+    cases = "\n".join(f"    case {b}: return f(&{kernel}<4, {b}>);" for b in CLSE_BLOCKS)
+    grads = "" if part == "k7" else "logz, g, "
     return f'''#include "{include}"
 namespace {{
 template <typename F>
@@ -107,42 +132,24 @@ int with_kernel(int blocks, F f) {{
 }}
 }}  // namespace
 // Blocks of the plan the card holds at once (occupancy times SMs).
-extern "C" int sweep_k8_resident(int blocks) {{
-  const size_t smem = dq_floats<4>() * sizeof(float);
-  return with_kernel(blocks, [&](auto kernel) {{
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-    return per_sm * sms;
-  }});
+extern "C" int sweep_{part}_resident(int blocks) {{
+  return with_kernel(blocks, [](auto kernel) {{ return occupancy(kernel, {floats}<4>()); }});
 }}
-// Ranges of the plan: `splits` forced, or dq_plan's for this residency (0).
-extern "C" int sweep_k8_splits(int blocks, int splits, int M, int N, int D) {{
-  const int T = cdiv(N, kT);
+// Ranges of the plan: `splits` forced, or the rule's for this residency (0).
+extern "C" int sweep_{part}_splits(int blocks, int splits, int M, int N, int D) {{
+  const int T = cdiv({axis}, kT);
   if (splits > 0) return cdiv(T, cdiv(T, splits));
-  return dq_plan(M, N, D, sweep_k8_resident(blocks)).splits;
+  return {plan}(M, N, D, sweep_{part}_resident(blocks)).splits;
 }}
-extern "C" int sweep_k8(int blocks, int splits, const float* q, const float* items,
-                        const float* logz, const float* g, float* part, float* dq, int M, int N,
-                        int D, void* stream) {{
-  const int T = cdiv(N, kT), S = sweep_k8_splits(blocks, splits, M, N, D);
+extern "C" int sweep_{part}(int blocks, int splits, const float* q, const float* items,
+                          const float* logz, const float* g, float* part, float* out, int M,
+                          int N, int D, void* stream) {{
+  const int T = cdiv({axis}, kT), S = sweep_{part}_splits(blocks, splits, M, N, D);
   const Plan plan = {{S, cdiv(T, S)}};
-  const size_t smem = dq_floats<4>() * sizeof(float);
   const bool vec = D % 4 == 0;
-  cudaStream_t st = (cudaStream_t)stream;
   return with_kernel(blocks, [&](auto kernel) {{
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3(cdiv(M, kT), plan.splits), kThreads, smem, st>>>(
-        q, items, logz, g, part, dq, M, N, D, plan.per, plan.splits, vec);
-    err = cudaGetLastError();
-    if (err != cudaSuccess || plan.splits == 1) return (int)err;
-    sum_parts_kernel<<<cdiv((long long)M * D, kThreads), kThreads, 0, st>>>(part, g, dq, M, D,
-                                                                         plan.splits);
-    return (int)cudaGetLastError();
+    return (int){launch}(kernel, {floats}<4>(), q, items, {grads}part, out, M, N, D, vec, plan,
+                         (cudaStream_t)stream);
   }});
 }}
 '''
@@ -269,7 +276,7 @@ def build(out_dir: str, parts):
                 + flash[at + len(ORDER_LINE):])
     sources = {"k4": k4_source(os.path.join(csrc, "flash_attention.cu")),
                "k4_last_first": k4_source(last_first),
-               "k8": k8_source(os.path.join(csrc, "softmax_z.cu")),
+               **{p: clse_source(os.path.join(csrc, "softmax_z.cu"), p) for p in CLSE_KERNELS},
                "k2gemm": k2_gemm_source(os.path.join(csrc, "transformer_layer_bwd.cu")),
                "k2attn": k2_attn_source(os.path.join(csrc, "flash_attention.cu")),
                "k1gemm": k1_gemm_source(os.path.join(csrc, "transformer_layer.cu"))}
@@ -300,8 +307,8 @@ def build(out_dir: str, parts):
     argtypes = {
         "k4": {"sweep_k4": [I] + [P] * 7 + [I] * 5 + [F, P]},
         "k4_last_first": {"sweep_k4": [I] + [P] * 7 + [I] * 5 + [F, P]},
-        "k8": {"sweep_k8": [I, I] + [P] * 6 + [I] * 3 + [P], "sweep_k8_splits": [I] * 5,
-               "sweep_k8_resident": [I]},
+        **{p: {f"sweep_{p}": [I, I] + [P] * 6 + [I] * 3 + [P], f"sweep_{p}_splits": [I] * 5,
+               f"sweep_{p}_resident": [I]} for p in CLSE_KERNELS},
         "k2gemm": {"sweep_k2_nn": [I] + [P] * 4 + [I] * 3 + [P],
                    "sweep_k2_tn": [I] + [P] * 6 + [I] * 3 + [P, P]},
         "k2attn": {"sweep_k2_attn": [I] + [P] * 8 + [I] * 4 + [F, U64, U32, F, P]},
@@ -350,36 +357,52 @@ def sweep_k4(libs, device, rows):
                              "ok": ok, "ms": time_ms(run)})
 
 
-def sweep_k8(libs, device, rows):
+def sweep_clse(libs, device, rows, part):
+    """K7, K8 or K9 on every residency and forced plan at its shapes, held
+    to the shipped kernel's output (K7: rtol 1e-5, atol 1e-4; K8, K9: rtol
+    1e-3, atol 1e-4 times the largest magnitude: sums in another order)."""
     import torch
     from chip_smoke import clse_inputs, time_ms
-    from recstudio_torch.ops.softmax_z import (DQ_PLAN, catalog_logsumexp_dq,
+    from recstudio_torch.ops.softmax_z import (DITEMS_PLAN, DQ_PLAN, FWD_PLAN,
+                                               catalog_logsumexp_ditems, catalog_logsumexp_dq,
                                                catalog_logsumexp_fwd, splits)
-    lib = libs["k8"]
+    lib = libs[part]
+    kernel = part.upper()
+    kind, shipped = {"k7": (FWD_PLAN, lambda q, items, logz, g: catalog_logsumexp_fwd(q, items)),
+                     "k8": (DQ_PLAN, catalog_logsumexp_dq),
+                     "k9": (DITEMS_PLAN, catalog_logsumexp_ditems)}[part]
     stream = torch.cuda.current_stream(device).cuda_stream
-    for tag, (M, N, D) in (("F", (256 * 200, 3706, 64)), ("cat500k", (512, 500_000, 64))):
+    for tag, forced_splits in CLSE_SPLITS[part].items():
+        M, N, D = CLSE_SHAPES[tag]
         q, items, g = clse_inputs(device, M, N, D, 2028)
         logz = catalog_logsumexp_fwd(q, items)
-        want = catalog_logsumexp_dq(q, items, logz, g)
-        rows.append({"kernel": "K8", "at": tag, "plan": "shipped",
-                     "splits": splits(M, N, D, DQ_PLAN),
-                     "ms": time_ms(lambda: catalog_logsumexp_dq(q, items, logz, g))})
-        dq = torch.empty_like(q)
-        for blocks in K8_BLOCKS:
-            for forced in K8_SPLITS[tag]:
-                S = lib.sweep_k8_splits(blocks, forced, M, N, D)
-                part = torch.empty((S * M * D if S > 1 else 1,), device=device)
-                run = lambda: call(lib.sweep_k8, blocks, forced, q.data_ptr(),
-                                   items.data_ptr(), logz.data_ptr(), g.data_ptr(),
-                                   part.data_ptr(), dq.data_ptr(), M, N, D, stream)
+        want = shipped(q, items, logz, g)
+        rows.append({"kernel": kernel, "at": tag, "plan": "shipped",
+                     "splits": splits(M, N, D, kind),
+                     "ms": time_ms(lambda: shipped(q, items, logz, g))})
+        out = torch.empty_like(want)
+        per_split = {"k7": 2 * M, "k8": M * D, "k9": N * D}[part]
+        for blocks in CLSE_BLOCKS:
+            for forced in forced_splits:
+                S = getattr(lib, f"sweep_{part}_splits")(blocks, forced, M, N, D)
+                ws = torch.empty((S * per_split if S > 1 else 1,), device=device)
+                fn = getattr(lib, f"sweep_{part}")
+                run = lambda: call(fn, blocks, forced, q.data_ptr(), items.data_ptr(),
+                                   logz.data_ptr(), g.data_ptr(), ws.data_ptr(),
+                                   out.data_ptr(), M, N, D, stream)
                 run()
                 torch.cuda.synchronize()
-                scale = float(want.abs().max())
-                ok = bool(torch.allclose(dq, want, rtol=1e-3, atol=1e-4 * scale))
-                rows.append({"kernel": "K8", "at": tag, "blocks_per_sm": blocks,
-                             "resident": lib.sweep_k8_resident(blocks),
-                             "splits": S, "plan": "dq_plan" if forced == 0 else "forced",
-                             "grid_blocks": -(-M // 64) * S, "ok": ok, "ms": time_ms(run)})
+                if part == "k7":
+                    ok = bool(torch.allclose(out, want, rtol=1e-5, atol=1e-4))
+                else:
+                    scale = float(want.abs().max())
+                    ok = bool(torch.allclose(out, want, rtol=1e-3, atol=1e-4 * scale))
+                outer = N if part == "k9" else M
+                rows.append({"kernel": kernel, "at": tag, "blocks_per_sm": blocks,
+                             "resident": getattr(lib, f"sweep_{part}_resident")(blocks),
+                             "splits": S, "plan": "rule" if forced == 0 else "forced",
+                             "grid_blocks": -(-outer // 64) * S, "ok": ok, "ms": time_ms(run)})
+                del ws
 
 
 # K2's launches in the order of its chain, by step (transformer_layer_bwd.cu)
@@ -741,7 +764,7 @@ def sweep_k1_gemm(libs, device, rows):
             del a, w, out, ref
 
 
-PARTS = ("k4", "k8", "k2steps", "k2gemm", "k2attn", "k1steps", "k1gemm")
+PARTS = ("k4", "k7", "k8", "k9", "k2steps", "k2gemm", "k2attn", "k1steps", "k1gemm")
 
 
 def main() -> int:
@@ -770,7 +793,7 @@ def main() -> int:
     for row in rows:        # before the sweeps' build, which may fail
         print(f"PLAN {json.dumps({'gpu': gpu, **row})}", flush=True)
     ok, rows = all(r.get("ok", True) for r in rows), []
-    if any(p in parts for p in ("k4", "k8", "k2gemm", "k2attn", "k1gemm")):
+    if any(p in parts for p in ("k4", *CLSE_KERNELS, "k2gemm", "k2attn", "k1gemm")):
         t0 = time.perf_counter()
         libs, report = build(os.path.join(REPO, "build", "recstudio_torch", "sweep"), parts)
         print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
@@ -778,8 +801,9 @@ def main() -> int:
             print(f"PTXAS {ln}", flush=True)
         if "k4" in parts:
             sweep_k4(libs, device, rows)
-        if "k8" in parts:
-            sweep_k8(libs, device, rows)
+        for part in CLSE_KERNELS:
+            if part in parts:
+                sweep_clse(libs, device, rows, part)
         if "k2gemm" in parts:
             sweep_k2_gemm(libs, device, rows)
         if "k2attn" in parts:

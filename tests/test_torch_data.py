@@ -14,6 +14,15 @@ from recstudio_torch.data.synthetic import generate, write_inter
 SEQ_BUILD = dict(split_ratio=2, test_rep=True, train_rep=True)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_csv(tmp_path_factory):
+    """The JAX datasets of this file go through the JAX package's native CSV
+    path, whose token order the port follows."""
+    from test_torch_jax_csv import jax_native_csv, worker_lib_dir
+    with jax_native_csv(worker_lib_dir(tmp_path_factory)):
+        yield
+
+
 @pytest.fixture(scope="module")
 def seq_pair():
     ours = SeqDataset("ml-100k")

@@ -41,6 +41,15 @@ GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-5
 NEG = float(np.finfo(np.float32).min)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_csv(tmp_path_factory):
+    """The JAX datasets of this file go through the JAX package's native CSV
+    path, whose token order the port follows."""
+    from test_torch_jax_csv import jax_native_csv, worker_lib_dir
+    with jax_native_csv(worker_lib_dir(tmp_path_factory)):
+        yield
+
+
 def _inputs(seed, B, H, Lq, Lk, Dh, causal, all_masked=False):
     """q, g [B, H, Lq, Dh], k, v [B, H, Lk, Dh], right padding with every
     length >= 1 (example 0 fully masked if asked), the causal mask or None."""

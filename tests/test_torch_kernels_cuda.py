@@ -569,9 +569,11 @@ def test_catalog_query_gradient_matches_plain(dev, M, N, D):
     magnitude, rtol 1e-3): widths 8 to 256, one not a multiple of 4 (4-byte
     copies), fewer rows than a tile, item counts that are a multiple of no
     tile, and a shape whose plan cuts the items into more than one range.
-    K8 repeats bit for bit, and K7's and K9's plans and outputs are those
-    of their fixed rule (``make_plan``), whatever K8's plan is."""
-    from recstudio_torch.ops.softmax_z import DITEMS_PLAN, DQ_PLAN, FWD_PLAN, splits
+    K8 repeats bit for bit, and K7's and K9's plans are those of their rule
+    (``plan`` of ``test_torch_clse_plan``) at the card's resident blocks,
+    whatever K8's plan is."""
+    from recstudio_torch.ops.softmax_z import DITEMS_PLAN, DQ_PLAN, FWD_PLAN, resident, splits
+    from test_torch_clse_plan import plan
     q, items, g = _clse_inputs(M, N, D, dev, M + N + D)
     logz = catalog_logsumexp_fwd(q, items)
     ditems = catalog_logsumexp_ditems(q, items, logz, g)
@@ -584,15 +586,70 @@ def test_catalog_query_gradient_matches_plain(dev, M, N, D):
     assert bool((dq[g == 0] == 0).all())
     assert torch.equal(logz, catalog_logsumexp_fwd(q, items))
     assert torch.equal(ditems, catalog_logsumexp_ditems(q, items, logz, g))
-
-    def make_plan(outer, inner):
-        s = min(max(-(-4 * 132 // outer), 1), inner)
-        per = -(-inner // s)
-        return -(-inner // per)
-    assert splits(M, N, D, FWD_PLAN) == make_plan(-(-M // 64), -(-N // 64))
-    assert splits(M, N, D, DITEMS_PLAN) == make_plan(-(-N // 64), -(-M // 64))
+    for kind in (FWD_PLAN, DITEMS_PLAN):
+        assert splits(M, N, D, kind) == plan(kind, M, N, D, resident(D, kind))[0]
     if (M, N) == (512, 20000):
         assert splits(M, N, D, DQ_PLAN) > 1
+
+
+# ranges: (K7's, K9's) plan, 1 or "S>1" where the shape fixes it on any card
+@pytest.mark.parametrize("M,N,D,misaligned,ranges", [
+    (40, 20000, 8, False, ("S>1", 1)), (20000, 100, 33, False, (None, "S>1")),
+    (300, 50, 64, True, (1, "S>1")), (50, 777, 128, False, ("S>1", 1)),
+    (129, 3706, 256, False, ("S>1", None)), (6000, 3706, 64, False, (None, None)),
+    (1000, 129, 16, True, (None, None))],
+    ids=["M40-d8", "N100-d33", "N50-misaligned", "M50-d128", "d256", "F-items",
+         "d16-misaligned"])
+def test_catalog_logsumexp_k7_k9_match_plain(dev, M, N, D, misaligned, ranges):
+    """K7 and K9 on the register tile against their plain versions: widths
+    8 to 256, fewer rows than a tile, rows and items that are a multiple of
+    no tile, 16-byte copies and 4-byte ones (a width not a multiple of 4, or
+    operands that start 4 bytes past a 16-byte boundary), one range (the
+    long axis one tile) and several (a block's axis one or two tiles against
+    a long one), rows with g = 0. Both repeat bit for bit. Tolerance: logZ
+    rtol 1e-5, atol 1e-4 (sums of up to 20,000 terms in another order);
+    ditems atol 1e-4 times its largest magnitude, rtol 1e-3 (sums over up
+    to 20,000 rows)."""
+    from recstudio_torch.ops.softmax_z import DITEMS_PLAN, FWD_PLAN, splits
+    q, items, g = _clse_inputs(M, N, D, dev, M + N + D)
+    if misaligned:            # 4-byte copies at any width: rows start off 16 bytes
+        q = torch.cat([torch.zeros(1, device=dev), q.flatten()])[1:].view(M, D)
+        items = torch.cat([torch.zeros(1, device=dev), items.flatten()])[1:].view(N, D)
+        assert q.data_ptr() % 16 and items.data_ptr() % 16
+    for kind, want in zip((FWD_PLAN, DITEMS_PLAN), ranges):
+        if want is not None:
+            assert (splits(M, N, D, kind) == 1) == (want == 1), (kind, want)
+    logz = catalog_logsumexp_fwd(q, items)
+    ditems = catalog_logsumexp_ditems(q, items, logz, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(logz, catalog_logsumexp_plain(q, items), rtol=1e-5, atol=1e-4)
+    want = catalog_logsumexp_ditems_plain(q, items, logz, g)
+    torch.testing.assert_close(ditems, want, rtol=1e-3,
+                               atol=1e-4 * max(float(want.abs().max()), 1e-6))
+    assert torch.equal(logz, catalog_logsumexp_fwd(q, items))
+    assert torch.equal(ditems, catalog_logsumexp_ditems(q, items, logz, g))
+
+
+@pytest.mark.parametrize("M,D", [(300, 64), (20000, 33), (70, 256)])
+def test_catalog_kernels_share_one_score_at_one_item(dev, M, D):
+    """With one item logZ is the score itself, so P = exp(s - logZ) = 1
+    exactly where K8 and K9 recompute K7's score bit for bit: K8's dq is g
+    item bit for bit, and K9's ditems is sum_m g_m q_m (rtol 1e-5, atol 1e-5
+    times its largest magnitude: the same sum in another order), bit for bit
+    g_m q_m when only row m has a gradient (the other rows add exact
+    zeros)."""
+    q, items, g = _clse_inputs(M, 1, D, dev, M + D)
+    logz = catalog_logsumexp_fwd(q, items)
+    torch.testing.assert_close(logz, (q @ items.t())[:, 0], rtol=1e-5, atol=1e-5)
+    assert torch.equal(catalog_logsumexp_dq(q, items, logz, g), g[:, None] * items)
+    ditems = catalog_logsumexp_ditems(q, items, logz, g)
+    want = (g[:, None].double() * q.double()).sum(0, keepdim=True).float()
+    torch.testing.assert_close(ditems, want, rtol=1e-5,
+                               atol=1e-5 * max(float(want.abs().max()), 1e-6))
+    one = torch.zeros_like(g)
+    one[M // 2] = g[g != 0][0]
+    assert torch.equal(catalog_logsumexp_ditems(q, items, logz, one),
+                       one[M // 2] * q[M // 2:M // 2 + 1])
 
 
 def test_catalog_logsumexp_autograd_on_the_card(dev):

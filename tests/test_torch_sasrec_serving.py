@@ -31,6 +31,15 @@ from recstudio_torch.utils.parity import topk_mismatches
 REFERENCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "recstudio_torch", "assets", "sasrec_ml100k_reference.json")
 SEED = 2022
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_csv(tmp_path_factory):
+    """The JAX datasets of this file go through the JAX package's native CSV
+    path, whose token order the port follows."""
+    from test_torch_jax_csv import jax_native_csv, worker_lib_dir
+    with jax_native_csv(worker_lib_dir(tmp_path_factory)):
+        yield
 N_REF, K = 64, 20
 RTOL, ATOL, TIE_TOL = 1e-4, 1e-5, 1e-5
 
@@ -259,8 +268,10 @@ def test_predict_matches_predictor(pair):
 
 
 if __name__ == "__main__":
+    import tempfile
+    from test_torch_jax_csv import jax_native_csv
     os.makedirs(os.path.dirname(REFERENCE), exist_ok=True)
-    with open(REFERENCE, "w") as f:
+    with jax_native_csv(tempfile.mkdtemp()), open(REFERENCE, "w") as f:
         json.dump(jax_reference(), f)
         f.write("\n")
     print(f"wrote {REFERENCE}")

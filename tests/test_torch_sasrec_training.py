@@ -38,6 +38,15 @@ REF_SEEDS = (2022, 2023, 2024)
 NEG_SEED = 17
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_csv(tmp_path_factory):
+    """The JAX datasets of this file go through the JAX package's native CSV
+    path, whose token order the port follows."""
+    from test_torch_jax_csv import jax_native_csv, worker_lib_dir
+    with jax_native_csv(worker_lib_dir(tmp_path_factory)):
+        yield
+
+
 def jax_training_run(seed: int, epochs: int = EPOCHS):
     """One JAX fit(train, val) + evaluate(test) at the repo's SASRec config."""
     from recstudio_tpu.utils import get_model as jax_get_model
@@ -272,7 +281,9 @@ def test_training_reference_file():
 if __name__ == "__main__":
     sys.path.insert(0, REPO)
     if len(sys.argv) > 1:      # one seed: print its run as JSON
-        print(json.dumps(jax_training_run(int(sys.argv[1]))))
+        from test_torch_jax_csv import jax_native_csv
+        with jax_native_csv(tempfile.mkdtemp()):
+            print(json.dumps(jax_training_run(int(sys.argv[1]))))
         sys.exit(0)
     import subprocess
     procs = [subprocess.Popen([sys.executable, __file__, str(s)], stdout=subprocess.PIPE,
