@@ -51,6 +51,24 @@ then:
   path (dense ``mha_plain``), then every user served through
   ``Predictor(max_batch=256, k=20)`` (K4 alone) with the first two
   requests held to the plain path;
+- phase I: BPR on ml-100k the way users start it,
+  ``quickstart.run("BPR", "ml-100k")`` at the repo's config (d 64, ratio
+  split, batch 512, adam, early stopping) with the epoch cap of
+  ``recstudio_torch/assets/bpr_ml100k_train_reference.json``: test NDCG@5
+  held to the JAX seeds' band there; one training step held to the same
+  model copied to the CPU (same batch, same negatives); the 8 requests of
+  every test user served through ``Predictor``, whose lists must give
+  ``evaluate``'s NDCG@5; epoch time, steps per epoch, examples/s, and the
+  card's busy share of one profiled epoch (BPR runs no kernel of its own:
+  its steps are small PyTorch launches, bound by the host);
+- phase J: BPR at the JAX package's scale shape (``scripts/
+  scale_bench.py``: the synthetic ml-1m shape, ratio split, batch 8192):
+  one warm epoch, then timed epochs under adam, lazy Adam on the dense
+  path (``train.sparse_rows: false``) and lazy Adam's row-sparse step;
+  one row-sparse step held to one dense lazy-Adam step from the same
+  state and negatives, and to a bitwise repeat of itself; a full-catalog
+  evaluation of every test user; ``Predictor(max_batch=256, k=20)`` over
+  all 6040 users, two requests held to the CPU copy's lists;
 - each kernel against its plain PyTorch version on the phases' shapes,
   with its time, the plain version's, PyTorch's own call where one exists,
   and the card's bound for the same work.
@@ -74,6 +92,8 @@ TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
                                "sasrec_ml100k_train_reference.json")
 BERT4REC_TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
                                         "bert4rec_ml100k_train_reference.json")
+BPR_TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
+                                   "bpr_ml100k_train_reference.json")
 SAVE_DIR = os.path.join(REPO, "build", "recstudio_torch", "saved")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor
@@ -93,6 +113,10 @@ TOL_SCORES = 1e-4          # served scores: dot products of O(1) vectors, d <= 1
 TOL_GRAD = (1e-4, 1e-3)    # (atol as a share of max |g|, rtol)
 TOL_LOSS = 1e-5            # phase D loss, relative
 TOL_METRIC = 1e-6          # phase E: served NDCG@10 against evaluate()'s
+# phase J: one row-sparse lazy-Adam step against the dense step, per
+# tensor, relative to its largest magnitude: the two sum a row's duplicate
+# lookups in other orders, float32
+TOL_LAZY = (1e-6, 1e-5)    # (atol as a share of max |x|, rtol)
 # logZ (K7): logsumexp of up to 500,000 float32 terms, each thread summing
 # its share in order; values near 10
 TOL_LOGZ = (1e-4, 1e-5)
@@ -707,6 +731,291 @@ def phase_h(device):
     return out
 
 
+def busy_share(fn):
+    """Run ``fn`` under ``torch.profiler``: (host ms, the card's busy ms,
+    the union of its kernel and copy intervals). Busy ms is None when the
+    profiler records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    return host_ms, (busy / 1e3 if spans else None)
+
+
+def multi_target_ndcg(ids, targets, k):
+    """NDCG@k of served lists against multi-target rows ``[n, T]`` (0 = pad)."""
+    import torch
+    from recstudio_torch import eval as ev
+    tgt = torch.as_tensor(targets)
+    return float(ev.ndcg(ev.hit_matrix(torch.as_tensor(ids), tgt), (tgt > 0).float(), k).mean())
+
+
+def cpu_copy(model, train_split):
+    """The same model on the CPU, holding the card's weights."""
+    cpu = type(model)(model.config, device="cpu")
+    cpu._init_model(train_split)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.net.state_dict().items()})
+    return cpu
+
+
+def step_on(model, batch, neg):
+    """One training step's loss and gradients with the negatives ``neg``."""
+    from recstudio_torch.models.init import zero_pad_rows_in_grads
+    import torch
+    zeros = torch.zeros(neg.shape, device=neg.device)
+    model.sampling = lambda *a, **k: (None, neg, zeros)
+    try:
+        model.net.train()
+        model.net.zero_grad(set_to_none=True)
+        loss = model.training_step(batch)
+        loss.backward()
+        zero_pad_rows_in_grads(model.net)
+    finally:
+        del model.sampling
+        model.net.eval()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                                  for n, p in model.net.named_parameters()}
+
+
+def phase_i(device):
+    """BPR: quickstart.run on ml-100k at the repo's config, test NDCG@5 held
+    to the JAX band, one step held to the CPU copy, 8 requests served."""
+    import numpy as np
+    import torch
+    from recstudio_torch.quickstart import run
+    from recstudio_torch.serving import Predictor
+    with open(BPR_TRAIN_REFERENCE) as f:
+        ref = json.load(f)
+    overrides = {"train": {"epochs": ref["epochs"]}, "eval": {"save_path": SAVE_DIR}}
+
+    def drive():
+        t0 = time.perf_counter()
+        model, splits, result = run("BPR", "ml-100k", model_config=overrides, verbose=False,
+                                    device=device)
+        run_s = time.perf_counter() - t0
+        pred = Predictor(model, max_batch=128, k=20, train_data=splits[2]).warm()
+        return model, splits, result, run_s, pred, serve_split(pred, model, splits[2], 128)
+
+    (model, (trn, val, tst), result, run_s, pred, (scores, ids, targets)), counts = \
+        counted(drive)
+    tc, mc = model.config["train"], model.config["model"]
+    shape = dict(embed_dim=model.embed_dim, batch=tc["batch_size"], learner=tc["learner"],
+                 negatives=tc["negative_count"], split=model.config["data"]["split_ratio"],
+                 eval_batch=model.config["eval"]["batch_size"], epochs=tc["epochs"],
+                 users=trn.num_users - 1, items=trn.num_items - 1)
+    check(shape == dict(embed_dim=64, batch=512, learner="adam", negatives=1,
+                        split=[0.8, 0.1, 0.1], eval_batch=20, epochs=ref["epochs"],
+                        users=943, items=1574), f"phase I config {shape}")
+    steps = -(-len(trn.data_index) // tc["batch_size"])
+    train_s = sorted(e["train_s"] for e in model.epoch_log)
+    epoch_s = train_s[len(train_s) // 2]
+    # the card's busy share of one more epoch, profiled
+    host_ms, busy_ms = busy_share(lambda: model.training_epoch(0))
+
+    # one step on the card held to the same model on the CPU
+    batch = next(model._epoch_batches())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    neg = torch.randint(1, trn.num_items, (tc["batch_size"], 1), generator=gen, device=device)
+    loss_k, grads_k = step_on(model, batch, neg)
+    cpu = cpu_copy(model, trn)
+    loss_c, grads_c = step_on(cpu, {k: v.cpu() for k, v in batch.items()}, neg.cpu())
+    max_abs, ok = grad_errors({k: v.cpu() for k, v in grads_k.items()}, grads_c)
+
+    served = multi_target_ndcg(ids, targets, 5)
+    lo, hi = ref["ndcg@5_band"]
+    out = {"phase": "I", "model": "BPR", "dataset": "ml-100k", "entry": "quickstart.run",
+           "config": shape, "launches": counts, "run_s": run_s,
+           "epochs_run": len(model.epoch_log), "best_epoch": model.callback.best_epoch,
+           "steps_per_epoch": steps, "epoch_s_p50": epoch_s,
+           "step_ms_p50": epoch_s / steps * 1e3,
+           "examples_per_s": steps * tc["batch_size"] / epoch_s,
+           "fit_s": sum(e["train_s"] + e["eval_s"] for e in model.epoch_log),
+           "profiled_epoch_host_ms": host_ms, "profiled_epoch_busy_ms": busy_ms,
+           "busy_share_of_epoch": None if busy_ms is None else busy_ms / (epoch_s * 1e3),
+           "test_ndcg@5": result["ndcg@5"], "test_recall@5": result["recall@5"],
+           "test_ndcg@20": result["ndcg@20"], "jax_band_ndcg@5": [lo, hi],
+           "jax_runs": ref["runs"], "cpu_loss": loss_c, "card_loss": loss_k,
+           "grad_max_abs_err": max_abs, "grad_tol": TOL_GRAD, "loss_tol": TOL_LOSS,
+           "requests": pred.stats()["requests"], "served_ndcg@5": served,
+           **{"serve_" + k: v for k, v in pred.stats().items()}}
+    emit("PHASE", out)
+    check(all(np.isfinite(e["train_loss"]) for e in model.epoch_log), "phase I loss")
+    check(lo <= result["ndcg@5"] <= hi,
+          f"phase I test NDCG@5 {result['ndcg@5']} outside the JAX band [{lo}, {hi}]")
+    check(abs(loss_k - loss_c) <= TOL_LOSS * abs(loss_c), f"phase I loss {loss_k} vs {loss_c}")
+    check(ok, f"phase I gradients disagree with the CPU copy's: {max_abs}")
+    check(pred.stats()["requests"] == 8, "phase I served other than 8 requests")
+    check(np.isfinite(scores).all() and scores.shape == (len(tst.data_index), 20),
+          "phase I scores")
+    check(abs(served - result["ndcg@5"]) <= TOL_METRIC,
+          "phase I: served lists do not come from the evaluated (trained) weights")
+    return out
+
+
+def lazy_state(model):
+    """Parameters, lazy-Adam moments and step count, cloned."""
+    opt = model.optimizer
+    out = {}
+    for n, p in model.net.named_parameters():
+        mu, nu = opt.moments(p)
+        out[n], out[n + ".mu"], out[n + ".nu"] = p.detach().clone(), mu.clone(), nu.clone()
+    return out, opt.param_groups[0]["count"]
+
+
+def set_lazy_state(model, state):
+    import torch
+    tensors, count = state
+    with torch.no_grad():
+        for n, p in model.net.named_parameters():
+            mu, nu = model.optimizer.moments(p)
+            p.copy_(tensors[n])
+            mu.copy_(tensors[n + ".mu"])
+            nu.copy_(tensors[n + ".nu"])
+    for group in model.optimizer.param_groups:
+        group["count"] = count
+
+
+def phase_j(device):
+    """BPR at the scale shape: timed epochs under adam, dense lazy Adam and
+    the row-sparse step; one row-sparse step held to the dense step and to
+    itself; full-catalog evaluation; every user served."""
+    import numpy as np
+    import torch
+    from recstudio_torch.data.synthetic import SHAPES, generate
+    from recstudio_torch.serving import Predictor
+    from recstudio_torch.utils import get_model, seed_everything
+    from recstudio_torch.utils.parity import topk_mismatches
+    t0 = time.perf_counter()
+    name, config = generate("ml-1m-shape", *SHAPES["ml-1m-shape"], seed=7)
+    cls, conf = get_model("BPR")
+    seed_everything(2022)
+    ds = cls._get_dataset_class()(name, config=config)
+    trn, val, tst = ds.build(**conf["data"])
+    etl_s = time.perf_counter() - t0
+    conf["train"].update(batch_size=8192)
+    conf["eval"].update(batch_size=512, cutoff=[20], test_metrics=["ndcg", "recall"],
+                        topk=100, save_path=SAVE_DIR)
+    n = len(trn.data_index)
+    steps = -(-n // 8192)
+    check((ds.num_users - 1, ds.num_items - 1, ds.num_inters) == (6040, 3706, 1_000_209),
+          f"phase J dataset {ds.num_users - 1} x {ds.num_items - 1} x {ds.num_inters}")
+
+    def build(learner, sparse_rows):
+        c = json.loads(json.dumps(conf))
+        c["train"].update(learner=learner, sparse_rows=sparse_rows)
+        m = cls(c, device=device)
+        m._init_model(trn)
+        m._init_parameter(trn)
+        m.optimizer = m._get_optimizer()
+        m._setup_scan_epoch(trn)
+        return m
+
+    modes, models, counts = {}, {}, None
+    for mode, learner, sparse_rows in (("adam", "adam", "auto"),
+                                       ("lazy_dense", "sparse_adam", "false"),
+                                       ("lazy_rows", "sparse_adam", "auto")):
+        model = build(learner, sparse_rows)
+        check(model._sparse_rows_enabled() == (mode == "lazy_rows"),
+              f"phase J {mode}: row-sparse gate")
+
+        def epochs(model=model):
+            model.training_epoch(0)                         # warm
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses = [model.training_epoch(e) for e in range(3)]
+            return (time.perf_counter() - t) / 3, losses
+
+        (epoch_s, losses), c = counted(epochs)
+        counts = c if counts is None else {k: counts[k] + c[k] for k in counts}
+        host_ms, busy_ms = busy_share(lambda: model.training_epoch(0))
+        modes[mode] = {"epoch_s": epoch_s, "examples_per_s": n / epoch_s,
+                       "step_ms": epoch_s / steps * 1e3, "losses": losses,
+                       "profiled_epoch_host_ms": host_ms, "profiled_epoch_busy_ms": busy_ms,
+                       "busy_share_of_epoch": None if busy_ms is None
+                       else busy_ms / (epoch_s * 1e3)}
+        check(all(np.isfinite(losses)), f"phase J {mode} loss not finite")
+        models[mode] = model
+
+    # one row-sparse step against one dense lazy-Adam step from the same
+    # parameters, moments, count and generator states (so the same negatives)
+    model = models["lazy_rows"]
+    batch = next(model._epoch_batches())
+    state = lazy_state(model)
+    gens = model.device_generator.get_state()
+    after = {}
+    for tag, flag in (("rows", True), ("dense", False), ("rows_again", True)):
+        set_lazy_state(model, state)
+        model.device_generator.set_state(gens)
+        model._sparse_rows_flag = flag
+        model._grad_step(batch)
+        after[tag] = lazy_state(model)[0]
+    model._sparse_rows_flag = True
+    max_abs, ok = 0.0, True
+    for key, want in after["dense"].items():
+        diff = (after["rows"][key] - want).abs()
+        max_abs = max(max_abs, float(diff.max()))
+        ok &= bool((diff <= TOL_LAZY[0] * float(want.abs().max())
+                    + TOL_LAZY[1] * want.abs()).all())
+    bitwise = all(torch.equal(after["rows"][k], after["rows_again"][k]) for k in after["rows"])
+    touched = int((after["rows"]["item_encoder.weight"] != state[0]["item_encoder.weight"])
+                  .any(-1).sum())
+
+    # full-catalog evaluation of every test user (adam's weights)
+    model = models["adam"]
+    model._eval_epoch(tst, ["ndcg", "recall"], [20])       # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ev = model._eval_epoch(tst, ["ndcg", "recall"], [20])
+    eval_s = time.perf_counter() - t
+
+    pred = Predictor(model, max_batch=256, k=20, train_data=tst).warm()
+    users = np.arange(1, ds.num_users, dtype=np.int32)
+    served = [pred({"user_id": users[i:i + 256]}) for i in range(0, len(users), 256)]
+    stats = pred.stats()
+    cpu = cpu_copy(model, trn)
+    cpu_pred = Predictor(cpu, max_batch=256, k=20, train_data=tst)
+    bad = n_cmp = 0
+    max_diff = 0.0
+    for i, (s_k, i_k) in enumerate(served[:2]):
+        s_c, i_c = cpu_pred({"user_id": users[i * 256:(i + 1) * 256]})
+        bad += topk_mismatches(i_k, s_k, i_c, s_c, TOL_SCORES)
+        max_diff = max(max_diff, float(np.abs(s_k - s_c).max()))
+        n_cmp += len(i_k)
+    scores = np.concatenate([s for s, _ in served])
+    out = {"phase": "J", "model": "BPR", "dataset": name, "users": ds.num_users - 1,
+           "items": ds.num_items - 1, "inters": int(ds.num_inters), "train_rows": n,
+           "batch": 8192, "steps_per_epoch": steps, "etl_s": etl_s, "launches": counts,
+           "modes": modes, "lazy_step_max_abs_err": max_abs, "lazy_tol": TOL_LAZY,
+           "lazy_step_bitwise_repeat": bitwise, "lazy_step_item_rows_touched": touched,
+           "eval_users": len(tst.data_index), "eval_s": eval_s,
+           "eval_queries_per_s": len(tst.data_index) / eval_s, **ev,
+           "served_users": len(scores), **{"serve_" + k: v for k, v in stats.items()},
+           "serve_max_ms": max(pred._lat_ms), "cpu_rows": n_cmp, "cpu_rows_disagreeing": bad,
+           "cpu_max_score_diff": max_diff, "tol": TOL_SCORES}
+    emit("PHASE", out)
+    check(ok, f"phase J: the row-sparse step disagrees with the dense lazy step: {max_abs}")
+    check(bitwise, "phase J: the row-sparse step does not repeat bit for bit")
+    check(touched > 0, "phase J: the row-sparse step moved no item row")
+    check(np.isfinite(ev["ndcg@20"]) and np.isfinite(ev["recall@20"]), "phase J eval")
+    check(np.isfinite(scores).all() and scores.shape == (len(users), 20), "phase J scores")
+    check(bad == 0, f"phase J: {bad} of {n_cmp} lists differ from the CPU copy's")
+    return out
+
+
 # ---------------------------------------------------------------------------
 def causal_mask(L, device, causal=True):
     """The causal attention mask (True = disallow), or None (bidirectional)."""
@@ -1137,7 +1446,8 @@ def main() -> int:
         print(f"PTXAS {ln}", flush=True)
 
     phases = [phase_a(device), phase_b(device), phase_c(device), phase_d(device),
-              phase_e(device), phase_f(device), phase_g(device), phase_h(device)]
+              phase_e(device), phase_f(device), phase_g(device), phase_h(device),
+              phase_i(device), phase_j(device)]
 
     k1_a = k1_versus_plain(device, 128, 20, 64, 128, 2)
     k1_b = k1_versus_plain(device, 256, 200, 128, 128, 2)

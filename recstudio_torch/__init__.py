@@ -5,9 +5,11 @@ The module layout mirrors the JAX package so each file has a counterpart
 there. This package imports ``torch`` and ``numpy`` only; its CUDA kernels
 (``csrc/``) are compiled with ``nvcc`` at first use (``ops/_native.py``).
 
-Implemented so far: SASRec top-k serving (``models/seq/sasrec.py``,
-``serving.py``) with the fused transformer-layer and masked-attention
-forward kernels.
+Implemented so far: SASRec and BERT4Rec training and serving
+(``models/seq/``) on the CUDA kernels of ``csrc/``; BPR (``models/mf/``)
+with lazy Adam, dense and row-sparse (``models/optim.py``); top-k serving
+(``serving.py``); and ``quickstart.run`` with its command line
+(``python -m recstudio_torch.quickstart -m BPR -d ml-100k``).
 """
 from .utils import get_model, get_dataset_default_config, seed_everything
 

@@ -12,15 +12,18 @@ ml-100k needs, in numpy and plain Python (no pandas):
   columns in file order (inter, user, item), with ``[PAD]`` = 0
   (``dataset.py:388-508``);
 - rows are sorted by (user, time) with a stable sort (``dataset.py:601``)
-  and split leave-one-out (``split_ratio`` an int);
+  and split by ratio (``split_ratio`` a list of floats), by count (a list
+  of ints) or leave-one-out (an int), per user (``user_entry``), over all
+  rows (``entry``) or by whole users (``user``), shuffled from numpy's
+  global stream as the JAX package shuffles;
 - split views expose ``data_index``, ``user_hist``, a ``train_loader``
   and an ``eval_loader`` of fixed-shape batches that carry ``_size``;
 - ``SeqDataset.device_epoch_arrays`` stages a split's raw columns for a
   device-resident epoch, with a ``batch_fn`` that gathers the history
   windows of a batch on the device.
 
-Ratio and count splits, k-core filtering, sequence and network features
-and dataset-side negatives are not ported yet.
+K-core filtering, sequence and network features and dataset-side
+negatives are not ported yet.
 """
 from __future__ import annotations
 
@@ -301,50 +304,71 @@ class TripletDataset:
     # ------------------------------------------------------------------
     # build / split
     # ------------------------------------------------------------------
-    def build(self, split_ratio=2, shuffle: bool = True, split_mode: str = "user_entry",
+    def build(self, split_ratio=None, shuffle: bool = True, split_mode: str = "user_entry",
               fmeval: bool = False, binarized_rating_thres=None, **kwargs):
+        """Split into train/val/test views (``dataset.py:562-570``):
+        ``split_ratio`` a list of floats (ratio split), a list of ints (count
+        split) or an int (leave-one-out); ``split_mode`` ``user_entry``
+        (per user), ``entry`` (over all rows) or ``user`` (whole users)."""
+        if split_ratio is None:
+            split_ratio = [0.8, 0.1, 0.1]
         self.fmeval = fmeval
         return self._build(split_ratio, shuffle, split_mode, False, binarized_rating_thres)
 
     def _build(self, ratio_or_num, shuffle: bool, split_mode: str, rep: bool,
                binarized_rating_thres=None):
+        """``dataset.py:586-656``. Every draw comes from numpy's global
+        stream, in the JAX package's order, so one seed gives the same rows."""
         if binarized_rating_thres is not None:
             raise NotImplementedError("rating binarization is not ported yet")
-        if split_mode != "user_entry" or not isinstance(ratio_or_num, int):
-            raise NotImplementedError(
-                "only leave-one-out splits (split_ratio an int) in user_entry mode are ported")
         if self.fmeval:
             raise NotImplementedError("fmeval splits are not ported yet")
-        feat = self.inter_feat
         if not hasattr(self, "first_item_idx"):
             self.first_item_idx = self._first_pair()
         if self.drop_dup and not rep:
             keep = self.first_item_idx
             self._keep_inter_rows(keep)
-            feat = self.inter_feat
             self.first_item_idx = self.first_item_idx[keep]
 
-        # stable sort by (user, time): the order of pandas' mergesort
-        keys = [feat[self.fuid]]
-        if self.ftime and self.ftime in feat:
-            keys.insert(0, feat[self.ftime])
-        order = np.lexsort(keys)
-        self._keep_inter_rows(order)
-        self.first_item_idx = self.first_item_idx[order]
-        uids = self.inter_feat[self.fuid]
-        # users in order of first appearance (ascending after the sort)
-        bounds = np.flatnonzero(np.r_[True, uids[1:] != uids[:-1]])
-        counts = np.diff(np.r_[bounds, len(uids)])
-        user_ids = uids[bounds]
-        if shuffle:
-            idx = np.concatenate([np.random.permutation(c) + s
-                                  for s, c in zip(bounds, counts)])
-            self._keep_inter_rows(idx)
-            self.first_item_idx = self.first_item_idx[idx]
+        if split_mode in ("user_entry", "user"):
+            if self.fuid is None:
+                raise ValueError("split_mode user/user_entry requires a user id field")
+            # stable sort by (user, time): the order of pandas' mergesort
+            keys = [self.inter_feat[self.fuid]]
+            if self.ftime and self.ftime in self.inter_feat:
+                keys.insert(0, self.inter_feat[self.ftime])
+            self._take_rows(np.lexsort(keys))
 
-        splits = self._split_by_leave_one_out(ratio_or_num, counts, user_ids, rep)
+        count_split = isinstance(ratio_or_num, list) and len(ratio_or_num) \
+            and isinstance(ratio_or_num[0], int)
+        if split_mode in ("user_entry", "user"):
+            # users in order of first appearance (ascending after the sort)
+            counts, user_ids = self._user_counts()
+            if split_mode == "user_entry" and shuffle:
+                starts = np.r_[0, counts.cumsum()[:-1]]
+                self._take_rows(np.concatenate([np.random.permutation(c) + s
+                                                for s, c in zip(starts, counts)]))
+        elif split_mode == "entry":
+            if count_split and self.fuid is not None:
+                user_ids, counts = np.unique(self.inter_feat[self.fuid], return_counts=True)
+            else:
+                if shuffle:         # DataFrame.sample(frac=1) draws this permutation
+                    self._take_rows(np.random.permutation(self.num_inters))
+                counts, user_ids = np.array([self.num_inters]), None
+        else:
+            raise ValueError(f"unknown split_mode {split_mode}")
+        if user_ids is not None and len(counts) < 2:
+            user_ids = None
+
+        if isinstance(ratio_or_num, int):
+            splits = self._split_by_leave_one_out(ratio_or_num, counts, rep)
+        elif isinstance(ratio_or_num, list) and len(ratio_or_num) \
+                and isinstance(ratio_or_num[0], float):
+            splits = self._split_by_ratio(ratio_or_num, counts, split_mode == "user")
+        else:
+            splits = self._split_by_num(ratio_or_num, counts)
         self.inter_feat = Frame.from_columns(self.inter_feat, self.field2type)
-        datasets = [self._copy(idx) for idx in self._get_data_idx(splits)]
+        datasets = [self._copy(idx) for idx in self._get_data_idx((splits, user_ids))]
         # user history: train hist for train/val; train+val hist for test
         user_hist, user_count = datasets[0].get_hist(True)
         for d in datasets[:2]:
@@ -361,8 +385,49 @@ class TripletDataset:
             datasets[-1].user_count = user_count + uc
         return datasets
 
+    def _take_rows(self, order: np.ndarray) -> None:
+        self._keep_inter_rows(order)
+        self.first_item_idx = self.first_item_idx[order]
+
+    def _user_counts(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(rows per user, user ids) over consecutive runs of the user column
+        (``groupby(sort=False).count()`` on rows sorted by user)."""
+        uids = self.inter_feat[self.fuid]
+        bounds = np.flatnonzero(np.r_[True, uids[1:] != uids[:-1]])
+        return np.diff(np.r_[bounds, len(uids)]), uids[bounds]
+
+    def _split_by_ratio(self, ratio: List[float], counts: np.ndarray,
+                        user_mode: bool) -> np.ndarray:
+        """``dataset.py:658-679``: per user (or, in ``user`` mode, whole users
+        drawn by one permutation) the rows cut by ``ratio``; rows
+        ``[start, train_end, val_end, end]``."""
+        m = len(counts)
+        if not user_mode:
+            splits = np.outer(counts, ratio).astype(np.int32)
+            splits[:, 0] = counts - splits[:, 1:].sum(axis=1)
+            for i in range(1, len(ratio)):
+                idx = (splits[:, -i] == 0) & (splits[:, 0] > 1)
+                splits[idx, -i] += 1
+                splits[idx, 0] -= 1
+        else:
+            idx = np.random.permutation(m)
+            sp_ = (m * np.asarray(ratio)).astype(np.int32)
+            sp_[0] = m - sp_[1:].sum()
+            splits = np.zeros((m, len(ratio)), dtype=np.int32)
+            for part_i, p in enumerate(np.split(idx, sp_.cumsum()[:-1])):
+                splits[p, part_i] = counts[p]
+        splits = np.hstack([np.zeros((m, 1), dtype=np.int64), np.cumsum(splits, axis=1)])
+        return np.r_[0, counts.cumsum()[:-1]].reshape(-1, 1) + splits
+
+    def _split_by_num(self, nums: List[int], counts: np.ndarray) -> np.ndarray:
+        """``dataset.py:681-686``: one row of cumulative counts over all rows."""
+        splits = np.hstack([0, nums]).cumsum().reshape(1, -1)
+        if splits[0][-1] != counts.sum():
+            raise ValueError(f"split nums {nums} must sum to {counts.sum()}")
+        return splits
+
     def _split_by_leave_one_out(self, leave_one_num: int, counts: np.ndarray,
-                                user_ids: np.ndarray, rep: bool = True):
+                                rep: bool = True) -> np.ndarray:
         """``dataset.py:688-713``: per-user [start, train_end, val_end, end]."""
         m = len(counts)
         cum = counts.cumsum()[:-1]
@@ -385,19 +450,28 @@ class TripletDataset:
                 else:
                     rows.append([0, len(seg), len(seg), len(seg)])
             splits = np.asarray(rows, dtype=np.int64)
-        cum0 = np.hstack([[0], cum])
-        return cum0.reshape(-1, 1) + splits, (user_ids if m > 1 else None)
+        return np.hstack([[0], cum]).reshape(-1, 1) + splits
 
     def _get_data_idx(self, splits):
-        """Train view -> flat interaction indices; eval views -> (uid, start, end) rows."""
+        """``dataset.py:715-740``: train view -> flat interaction indices;
+        eval views -> ``(uid, start, end)`` rows, one per user with rows in
+        the split, or, with no per-user split, one per run of a user's rows."""
         splits, uids = splits
-        if uids is None:
-            raise NotImplementedError("a single-user split is not ported yet")
-        out = [np.concatenate([np.arange(s, e) for s, e in zip(splits[:, 0], splits[:, 1])])]
+        out = [np.concatenate([np.arange(s, e) for s, e in zip(splits[:, 0], splits[:, 1])]
+                              + [np.zeros(0, np.int64)]).astype(np.int64)]
         for i in range(2, splits.shape[1]):
-            s, e = splits[:, i - 1], splits[:, i]
-            keep = e > s
-            out.append(np.stack([uids[keep], s[keep], e[keep]], axis=1).astype(np.int64))
+            if uids is not None:
+                k = min(len(uids), len(splits))      # zip(uids, pairs)
+                s, e = splits[:k, i - 1], splits[:k, i]
+                keep = e > s
+                out.append(np.stack([uids[:k][keep], s[keep], e[keep]], axis=1)
+                           .astype(np.int64).reshape(-1, 3))
+                continue
+            s, e = splits[0, i - 1], splits[0, i]
+            seg = self.inter_feat.get_col(self.fuid)[s:e]
+            bounds = np.r_[0, np.flatnonzero(seg[1:] != seg[:-1]) + 1]
+            ends = np.r_[bounds[1:], len(seg)]
+            out.append(np.stack([seg[bounds], bounds + s, ends + s], axis=1).astype(np.int64))
         return out
 
     def _copy(self, idx: np.ndarray):
@@ -454,14 +528,20 @@ class TripletDataset:
             if f != self.fuid:
                 batch[f] = self.user_feat.get_col(f)[rows[:, 0]]
         starts, ends = rows[:, 1], rows[:, 2]
-        width = int((self.data_index[:, 2] - self.data_index[:, 1]).max())
-        gather = starts[:, None] + np.arange(width)[None, :]
+        gather = starts[:, None] + np.arange(self._eval_target_width())[None, :]
         valid = gather < ends[:, None]
         gather = np.where(valid, gather, 0)
         batch[self.fiid] = np.where(valid, self.inter_feat.get_col(self.fiid)[gather], 0).astype(np.int32)
         rcol = self.inter_feat.get_col(self.frating)
         batch[self.frating] = np.where(valid, rcol[gather], 0).astype(np.float32)
         return batch
+
+    def _eval_target_width(self) -> int:
+        """Targets per row of an eval batch, ``[B, T]`` (``dataset.py:895``):
+        the split's most rows for one user."""
+        if not hasattr(self, "_target_width"):
+            self._target_width = int((self.data_index[:, 2] - self.data_index[:, 1]).max())
+        return self._target_width
 
     def train_loader(self, batch_size: int, shuffle: bool = True,
                      rng: Optional[np.random.Generator] = None) -> "_BatchIterator":

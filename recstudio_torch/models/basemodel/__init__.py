@@ -1,4 +1,4 @@
-from .baseretriever import BaseRetriever, SharedItemTowerNet
+from .baseretriever import BaseRetriever, SharedItemTowerNet, TwoTowerNet
 from .recommender import Recommender, batch_to_device
 
-__all__ = ["BaseRetriever", "SharedItemTowerNet", "Recommender", "batch_to_device"]
+__all__ = ["BaseRetriever", "SharedItemTowerNet", "TwoTowerNet", "Recommender", "batch_to_device"]

@@ -1,7 +1,9 @@
 """BaseRetriever: the two-tower retrieval abstraction.
 
 Counterpart of ``recstudio_tpu/models/basemodel/baseretriever.py``: the
-shared-item-tower net of sequence models; training (``forward``: positive
+two-tower net (``TwoTowerNet``, a query tower and an item tower of their
+own, as BPR's two embedding tables) and the shared-item-tower net of
+sequence models; training (``forward``: positive
 and sampled negative scores, ``sampling`` with method ``none``, or with
 no sampler the positive scores and, for a full-score loss, the
 differentiable scores on the whole catalog; ``training_step``: the loss,
@@ -12,8 +14,12 @@ weights change (``fit``, ``load_state_dict``); full-catalog top-k with the
 user's history masked inside the score matrix (``baseretriever.py:
 493-543``), which is exactly the reference's ``topk(k + len(hist))``-then-
 filter; and evaluation of the rank metrics over served top-k lists
-(``_make_eval_step``, ``baseretriever.py:726-752``). The other mining
-methods, approximate and sharded retrieval are not ported yet.
+(``_make_eval_step``, ``baseretriever.py:726-752``); and the row-sparse
+step of pure-embedding two-tower models under ``learner: sparse_adam``
+(``_sparse_rows_enabled``, ``_sparse_grad_step``), which differentiates
+with respect to the gathered rows and updates only those rows
+(``optim.row_lazy_adam``). The other mining methods, approximate and
+sharded retrieval are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,10 +33,28 @@ from ... import eval as eval_mod
 from ...ann.sampler import MaskedUniformSampler, UniformSampler
 from ...ops.topk import topk as topk_op
 from ...ops.softmax_z import catalog_logsumexp
-from ..loss_func import FullScoreLoss, SoftmaxLoss, softmax_loss_from_logz
+from ..loss_func import FullScoreLoss, PairwiseLoss, SoftmaxLoss, softmax_loss_from_logz
 from ..module import Embedding
+from ..optim import row_lazy_adam
 from ..scorer import InnerProductScorer
 from .recommender import Recommender, batch_to_device
+
+
+class TwoTowerNet(nn.Module):
+    """The query tower, the item tower and the score function as one
+    module (``baseretriever.py:38-57``); its parameters are the towers'."""
+
+    def __init__(self, item_encoder: nn.Module, query_encoder: nn.Module, score_func):
+        super().__init__()
+        self.item_encoder = item_encoder
+        self.query_encoder = query_encoder
+        self.score_func = score_func
+
+    def encode_query(self, query_feat, rng: Optional[torch.Generator] = None):
+        return self.query_encoder(query_feat, rng)
+
+    def encode_item(self, item_feat):
+        return self.item_encoder(item_feat)
 
 
 class SharedItemTowerNet(nn.Module):
@@ -56,6 +80,7 @@ class BaseRetriever(Recommender):
         super().__init__(config, device)
         self.query_fields = None
         self.sampler = None
+        self._sparse_rows_flag: Optional[bool] = None
         for key in ("ann", "mesh"):
             if self.config["train"].get(key):
                 raise NotImplementedError(f"train.{key} is not ported yet")
@@ -80,13 +105,17 @@ class BaseRetriever(Recommender):
 
     def _init_model(self, train_data):
         super()._init_model(train_data)
+        self._sparse_rows_flag = None                  # gate again on a new fit
         self.num_items = train_data.num_items
         self.num_users = train_data.num_users
         self.item_encoder = self._get_item_encoder(train_data)
         self.query_encoder = self._get_query_encoder(train_data)  # shares item_encoder
         self.score_func = self._get_score_func()
         self.sampler = self._get_sampler(train_data)
-        self.net = SharedItemTowerNet(self.query_encoder, self.score_func)
+        if getattr(self.query_encoder, "item_encoder", None) is self.item_encoder:
+            self.net = SharedItemTowerNet(self.query_encoder, self.score_func)
+        else:
+            self.net = TwoTowerNet(self.item_encoder, self.query_encoder, self.score_func)
         # query-side fields: user feats + in_-prefixed item fields (+ seqlen)
         from ...data.dataset import SeqDataset
         self.query_fields = set(train_data.user_feat.fields).intersection(self.fields)
@@ -94,7 +123,11 @@ class BaseRetriever(Recommender):
             self.query_fields |= {"in_" + f for f in self.item_fields}
             self.query_fields.add("seqlen")
 
-    def _get_query_feat(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def _get_query_feat(self, batch: Dict[str, torch.Tensor]):
+        """The query tower's input (``baseretriever.py:186-193``): the one
+        query field's tensor itself (BPR's user ids), else a dict of them."""
+        if len(self.query_fields) == 1:
+            return batch[next(iter(self.query_fields))]
         return {f: v for f, v in batch.items() if f in self.query_fields}
 
     # ------------------------------------------------------------------
@@ -170,6 +203,77 @@ class BaseRetriever(Recommender):
             return False
         return (type(self.loss_fn) is SoftmaxLoss and self.sampler is None
                 and type(self.score_func) is InnerProductScorer)
+
+    # ------------------------------------------------------------------
+    # the row-sparse step of pure-embedding two-tower models
+    # ------------------------------------------------------------------
+    def _sparse_rows_enabled(self) -> bool:
+        """The row-sparse step's gate (``baseretriever.py:599-636``): lazy
+        Adam with nothing that touches every row (weight decay, clipping, a
+        schedule), a pairwise loss on uniform negatives, inner products of
+        two plain embedding towers keyed by the user id and the item id, and
+        ``train.sparse_rows`` not ``false``. It only changes how the update
+        is executed: the trajectory is dense lazy Adam's."""
+        if self._sparse_rows_flag is not None:
+            return self._sparse_rows_flag
+        tc = self.config["train"]
+        ok = (str(tc.get("sparse_rows", "auto")).lower() != "false"
+              and str(tc.get("learner", "adam")).lower() == "sparse_adam"
+              and not tc.get("weight_decay")
+              and not tc.get("grad_clip_norm")
+              and not tc.get("scheduler")
+              and str(tc.get("sampling_method", "none")) == "none"
+              and isinstance(self.loss_fn, PairwiseLoss)
+              and isinstance(self.sampler, (UniformSampler, MaskedUniformSampler))
+              and type(self.net) is TwoTowerNet
+              and type(self.item_encoder) is Embedding
+              and type(self.query_encoder) is Embedding
+              and not isinstance(self.score_func, nn.Module)
+              and len(self.item_fields) == 1
+              and self.query_fields == {self.fuid})
+        if ok:
+            ok = {n for n, _ in self.net.named_parameters()} == \
+                {"item_encoder.weight", "query_encoder.weight"}
+        self._sparse_rows_flag = bool(ok)
+        return self._sparse_rows_flag
+
+    def _grad_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if self._sparse_rows_enabled() and batch[self.fiid].dim() == 1:
+            return self._sparse_grad_step(batch)
+        return super()._grad_step(batch)
+
+    def _sparse_grad_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One lazy-Adam step through the gathered rows
+        (``baseretriever.py:644-689``): the loss is differentiated with
+        respect to the user rows and the positive and negative item rows,
+        and ``row_lazy_adam`` updates those rows alone. The negatives come
+        from ``sampling`` on the same generator as ``forward``'s, so a step
+        from the same state draws the same ones on either path."""
+        opt = self.optimizer
+        tc = self.config["train"]
+        Wq, Wi = self.query_encoder.weight, self.item_encoder.weight
+        uid, iid = batch[self.fuid].long(), batch[self.fiid].long()
+        q_rows = Wq.detach()[uid].requires_grad_()
+        log_pos_prob, neg_ids, log_neg_prob = self.sampling(
+            batch, self.neg_count, q_rows.detach(), method="none",
+            excluding_hist=tc.get("excluding_hist", False))
+        pos_rows = Wi.detach()[iid].requires_grad_()
+        neg_rows = Wi.detach()[neg_ids].requires_grad_()
+        loss = self.loss_fn(label=batch[self.frating],
+                            pos_score=self.score_func(q_rows, pos_rows),
+                            log_pos_prob=log_pos_prob,
+                            neg_score=self.score_func(q_rows, neg_rows),
+                            log_neg_prob=log_neg_prob)
+        dq, dpos, dneg = torch.autograd.grad(loss, (q_rows, pos_rows, neg_rows))
+        count = opt.advance()
+        group = opt.param_groups[0]
+        hyper = dict(lr=group["lr"], b1=group["betas"][0], b2=group["betas"][1],
+                     eps=group["eps"])
+        row_lazy_adam(Wq.data, *opt.moments(Wq), uid, dq, count, **hyper)
+        item_ids = torch.cat([iid, neg_ids.reshape(-1)])
+        item_g = torch.cat([dpos, dneg.reshape(-1, dneg.shape[-1])])
+        row_lazy_adam(Wi.data, *opt.moments(Wi), item_ids, item_g, count, **hyper)
+        return loss.detach()
 
     def training_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The loss of one batch (``baseretriever.py:691-698``)."""

@@ -17,8 +17,8 @@ through ``topk`` and averages the rank metrics over its true rows.
 
 Not ported yet: the host-loader epoch (``train.epoch_scan: false``), the
 TPU dispatch strategies (``_setup_chunked_epoch``, ``_fit_loop_blocks``),
-config overrides passed to ``fit``, ``lazy_adam``/``sparse_adam``, adagrad and
-rmsprop, learning-rate schedules, orbax checkpoints and
+config overrides passed to ``fit``, adagrad and rmsprop, learning-rate
+schedules, orbax checkpoints and
 ``load_for_serving`` from a JAX checkpoint.
 """
 from __future__ import annotations
@@ -34,6 +34,7 @@ import torch
 from ...utils import get_base_model_config, make_generator, resolve_device, seed_everything
 from ...utils.callbacks import EarlyStopping, SaveLastCallback
 from ..init import init_parameters, zero_pad_rows_in_grads
+from ..optim import LazyAdam
 
 logger = logging.getLogger("recstudio_torch")
 
@@ -138,7 +139,8 @@ class Recommender:
     def _make_optimizer(self, name: str, lr: float, weight_decay: float = 0.0):
         """``_make_optax`` (``recommender.py:187-225``) in ``torch.optim``,
         with optax's hyperparameters: Adam's eps 1e-8, weight decay
-        decoupled (optax.adamw), plain SGD."""
+        decoupled (optax.adamw), plain SGD; ``sparse_adam`` is lazy Adam
+        (``models/optim.py``), which takes no weight decay there either."""
         params = list(self.net.parameters())
         name = (name or "adam").lower()
         if name == "adam" and not weight_decay:
@@ -149,7 +151,9 @@ class Recommender:
                                      weight_decay=wd)
         if name == "sgd":
             return torch.optim.SGD(params, lr=lr)
-        if name in ("adagrad", "rmsprop", "sparse_adam"):
+        if name == "sparse_adam":
+            return LazyAdam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        if name in ("adagrad", "rmsprop"):
             raise NotImplementedError(f"learner {name!r} is not ported yet")
         raise ValueError(f"unknown learner {name}")
 

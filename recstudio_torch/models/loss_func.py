@@ -5,8 +5,8 @@ Counterpart of ``recstudio_tpu/models/loss_func.py``: a pairwise loss takes
 probabilities being the sampler's proposal, and padding positions carry
 ``pos_score == -inf`` and drop out of every reduction; a full-score loss
 takes ``(label, pos_score, all_score)``, the scores on the whole catalog.
-Ported so far: the binary cross-entropy of SASRec and the softmax of
-BERT4Rec; the other losses come with their models.
+Ported so far: the binary cross-entropy of SASRec, the softmax of
+BERT4Rec and the BPR loss of BPR; the other losses come with their models.
 """
 from __future__ import annotations
 
@@ -56,6 +56,23 @@ def softmax_loss_from_logz(logz: torch.Tensor, pos_score: torch.Tensor) -> torch
 class PairwiseLoss:
     def __call__(self, label, pos_score, log_pos_prob, neg_score, log_neg_prob):
         raise NotImplementedError
+
+
+class BPRLoss(PairwiseLoss):
+    """``loss_func.py:57-66``: ``-mean log sigmoid(pos - neg)``, averaged
+    over the negatives of each positive, then over the positives; with
+    ``dns``, against each row's hardest negative only. Like the JAX loss it
+    masks no position: a ``pos_score`` of ``-inf`` (a padded target) gives
+    an infinite loss on both sides, and the flat batches BPR trains on have
+    none."""
+
+    def __init__(self, dns: bool = False):
+        self.dns = dns
+
+    def __call__(self, label, pos_score, log_pos_prob, neg_score, log_neg_prob):
+        if not self.dns:
+            return -F.logsigmoid(pos_score[..., None] - neg_score).mean(-1).mean()
+        return -F.logsigmoid(pos_score - neg_score.amax(-1)).mean()
 
 
 class BinaryCrossEntropyLoss(PairwiseLoss):

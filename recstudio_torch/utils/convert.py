@@ -1,9 +1,12 @@
 """Parameter conversion between the JAX package and the port.
 
-``params_from_jax`` turns a JAX SASRec or BERT4Rec parameter tree (the
-nested dict of arrays that ``model.params`` holds; BERT4Rec's item table
-has one more row, the ``[MASK]`` token) into the port's ``state_dict``;
-``params_to_jax`` is the reverse. Flax kernels are ``[in, out]`` and the
+``params_from_jax`` turns a JAX SASRec, BERT4Rec or BPR parameter tree
+(the nested dict of arrays that ``model.params`` holds; BERT4Rec's item
+table has one more row, the ``[MASK]`` token; BPR's tree is its two
+tables, ``query_encoder/embedding`` and ``item_encoder/embedding``) into
+the port's ``state_dict``; ``params_to_jax`` is the reverse.
+``lazy_adam_state_from_jax`` loads the JAX lazy-Adam state (``count``,
+``mu``, ``nu``) into the port's ``LazyAdam``. Flax kernels are ``[in, out]`` and the
 port's weights ``[out, in]``, so kernels are transposed. The fused
 ``qkv_kernel [D, 3D]`` is q|k|v blocks with the heads contiguous inside
 each block (``transformer_layer.py:244-246``), which is exactly the row
@@ -58,9 +61,16 @@ def layer_params_to_jax(layer: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]
     return out
 
 
+# two-tower nets of embedding tables (BPR): JAX path <-> port parameter name
+_TWO_TOWER = {("item_encoder", "embedding"): "item_encoder.weight",
+              ("query_encoder", "embedding"): "query_encoder.weight"}
+
+
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX SASRec or BERT4Rec params -> the port's ``state_dict`` (float32
-    CPU tensors)."""
+    """JAX SASRec, BERT4Rec or BPR params -> the port's ``state_dict``
+    (float32 CPU tensors)."""
+    if "item_encoder" in tree:
+        return {name: _tensor(tree[a][b]) for (a, b), name in _TWO_TOWER.items()}
     qe = tree["query_encoder"]
     sd = {"query_encoder.item_encoder.weight": _tensor(qe["item_encoder"]["embedding"]),
           "query_encoder.pos_emb_table": _tensor(qe["pos_emb_table"])}
@@ -72,9 +82,14 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """The port's SASRec or BERT4Rec ``state_dict`` (or its gradients by the
-    same names) -> a JAX-layout tree of numpy arrays."""
+    """The port's SASRec, BERT4Rec or BPR ``state_dict`` (or its gradients
+    by the same names) -> a JAX-layout tree of numpy arrays."""
     a = lambda name: state_dict[name].detach().cpu().numpy().astype(np.float32)
+    if "item_encoder.weight" in state_dict:
+        out: Dict[str, Any] = {}
+        for (top, leaf), name in _TWO_TOWER.items():
+            out.setdefault(top, {})[leaf] = a(name)
+        return out
     layers: Dict[str, Dict[str, torch.Tensor]] = {}
     prefix = "query_encoder.transformer.layers."
     for key in state_dict:
@@ -86,6 +101,29 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         "pos_emb_table": a("query_encoder.pos_emb_table"),
         "transformer": {f"layer_{i}": layer_params_to_jax(layers[f"layer_{i}"])
                         for i in range(len(layers))}}}
+
+
+def lazy_adam_state_from_jax(net: torch.nn.Module, optimizer, state) -> None:
+    """Load a JAX lazy-Adam state into the port's ``LazyAdam`` over
+    ``net``'s parameters: ``state`` is the optimizer state of a
+    ``sparse_adam`` model (a one-element tuple, optax's chain) or its
+    ``LazyAdamState``, with ``count``, and ``mu`` and ``nu`` trees in the
+    parameters' layout."""
+    if isinstance(state, (tuple, list)) and not hasattr(state, "mu"):
+        (state,) = state
+    params = dict(net.named_parameters())
+    for tree, key in ((state.mu, "mu"), (state.nu, "nu")):
+        for name, value in params_from_jax(_as_numpy(tree)).items():
+            optimizer.moments(params[name])
+            optimizer.state[params[name]][key] = value.to(params[name].device)
+    for group in optimizer.param_groups:
+        group["count"] = int(np.asarray(state.count))
+
+
+def _as_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _as_numpy(v) for k, v in tree.items()}
+    return np.asarray(tree)
 
 
 def random_sasrec_params(seed: int, num_items: int, embed_dim: int, max_seq_len: int,

@@ -1,7 +1,8 @@
 """Model registry: name -> (model class, layered default config).
 
 The subset of ``recstudio_tpu/utils/registry.py`` this port implements:
-SASRec and BERT4Rec, and the dataset configs they run on.
+SASRec and BERT4Rec (``seq``), BPR (``mf``), and the dataset configs they
+run on.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ from .config import CONFIG_DIR, deep_update, get_base_model_config, load_json
 
 # model name (lower case) -> (family, class name, config files layered over basemodel)
 _MODELS = {"sasrec": ("seq", "SASRec", ("seq_all", "sasrec")),
-           "bert4rec": ("seq", "BERT4Rec", ("seq_all", "bert4rec"))}
+           "bert4rec": ("seq", "BERT4Rec", ("seq_all", "bert4rec")),
+           "bpr": ("mf", "BPR", ("mf_all", "bpr"))}
 
 
 def list_models() -> Dict[str, str]:

@@ -32,7 +32,7 @@ def test_unknown_dataset_falls_back_to_defaults():
 
 
 def test_registry_lists_what_is_ported():
-    assert list_models() == {"sasrec": "seq", "bert4rec": "seq"}
+    assert list_models() == {"sasrec": "seq", "bert4rec": "seq", "bpr": "mf"}
 
 
 @pytest.mark.parametrize("key,value", [
