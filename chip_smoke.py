@@ -69,6 +69,27 @@ then:
   state and negatives, and to a bitwise repeat of itself; a full-catalog
   evaluation of every test user; ``Predictor(max_batch=256, k=20)`` over
   all 6040 users, two requests held to the CPU copy's lists;
+- phase K: NARM training and serving on the synthetic ml-1m shape (L 200,
+  d 64, GRU hidden 128, one layer, dropout [0.25, 0.5], batch 512, Adam
+  1e-3): 20 timed optimizer steps (the GRU through cuDNN in float32, the
+  catalog log-partition kernels K7, K8, K9 at 512 query rows), one step's
+  loss and gradients held to the plain path (the GRU's time loop,
+  materialized scores) from the same generator states, the GRU's forward
+  and backward through cuDNN held to its time loop and timed against it,
+  then every user served through ``Predictor(max_batch=256, k=20)`` with
+  the first two requests held to the plain path;
+- phase L: STAMP at the same shape and batch (no dropout, no GRU): the
+  same, its plain path the materialized scores, its first two requests
+  held to the model copied to the CPU;
+- phase M: GRU4Rec at the same shape (dropout 0.3, one uniform negative,
+  ``BPRLoss``): 20 timed steps, which launch none of the kernels, and one
+  step held to the model copied to the CPU with the same batch, negatives
+  and dropout seeds;
+- phase N: ``quickstart.run("NARM", "ml-100k")`` and ``("STAMP", ...)`` at
+  the repo's config for the epochs of their JAX training references,
+  test NDCG@10 held to the JAX seeds' bands (``recstudio_torch/assets/
+  narm_ml100k_train_reference.json``, ``stamp_...``), 8 requests served
+  whose lists must give ``evaluate``'s NDCG@10;
 - each kernel against its plain PyTorch version on the phases' shapes,
   with its time, the plain version's, PyTorch's own call where one exists,
   and the card's bound for the same work.
@@ -94,6 +115,10 @@ BERT4REC_TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
                                         "bert4rec_ml100k_train_reference.json")
 BPR_TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
                                    "bpr_ml100k_train_reference.json")
+NARM_TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
+                                    "narm_ml100k_train_reference.json")
+STAMP_TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
+                                     "stamp_ml100k_train_reference.json")
 SAVE_DIR = os.path.join(REPO, "build", "recstudio_torch", "saved")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor
@@ -120,6 +145,11 @@ TOL_LAZY = (1e-6, 1e-5)    # (atol as a share of max |x|, rtol)
 # logZ (K7): logsumexp of up to 500,000 float32 terms, each thread summing
 # its share in order; values near 10
 TOL_LOGZ = (1e-4, 1e-5)
+# the GRU layer's outputs through cuDNN against its time loop (phase K):
+# float32 sums in another order over 200 steps of |h| < 1; TF32 products
+# (10-bit mantissas) miss it by orders of magnitude
+TOL_GRU = (2e-5, 1e-4)     # (atol, rtol)
+CLSE_KERNELS = ("catalog_logsumexp_fwd", "catalog_logsumexp_dq", "catalog_logsumexp_ditems")
 
 
 class SmokeFailure(Exception):
@@ -284,13 +314,17 @@ def plain_serving_diffs(pred, model, split, layers, n_requests=2, batch_size=256
 
 
 def counted(fn):
-    """Run ``fn`` with every launch count zeroed first; return (result, counts)."""
+    """Run ``fn`` with every launch count zeroed first; return (result,
+    counts): the kernels', and ``gru_layer_cudnn``, the GRU layers that went
+    through cuDNN."""
     import torch
     from recstudio_torch import ops
+    from recstudio_torch.models.module.layers import gru_layer
     ops.reset_launch_counts()
+    gru_layer.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, ops.launch_counts()
+    return out, {**ops.launch_counts(), "gru_layer_cudnn": gru_layer.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -546,42 +580,57 @@ def phase_d(device):
     return out
 
 
-def fit_phase(device, tag, model_name, reference, dropout_key, expected, kernels):
+TRANSFORMER_KEYS = {"hidden": "hidden_size", "heads": "head_num", "layers": "layer_num"}
+
+
+def fit_phase(device, tag, model_name, reference, model_keys, expected, kernels,
+              quickstart=False):
     """fit + evaluate on ml-100k at the repo's config for the reference's
-    epochs, test NDCG@10 held to the JAX seeds' band, then 8 requests served
-    from the trained weights."""
+    epochs (through ``quickstart.run`` with ``quickstart``), test NDCG@10
+    held to the JAX seeds' band, then 8 requests served from the trained
+    weights. ``model_keys`` names the ``model`` config keys checked against
+    ``expected`` besides the width, L, batch and epochs."""
     import numpy as np
+    from recstudio_torch.quickstart import run
     from recstudio_torch.serving import Predictor
     from recstudio_torch.utils import get_model
     with open(reference) as f:
         ref = json.load(f)
-    cls, conf = get_model(model_name)
-    conf["train"]["epochs"] = ref["epochs"]
-    conf["eval"]["save_path"] = SAVE_DIR
-    ds = cls._get_dataset_class()("ml-100k")
-    trn, val, tst = ds.build(**conf["data"])
-    model = cls(conf, device=device)
-    mc, tc = conf["model"], conf["train"]
-    shape = dict(embed_dim=model.embed_dim, hidden=mc["hidden_size"], heads=mc["head_num"],
-                 layers=mc["layer_num"], dropout=mc[dropout_key],
-                 L=ds.max_seq_len, batch=tc["batch_size"], epochs=tc["epochs"])
-    shape.update({k: tc[k] for k in ("mask_ratio", "weight_decay") if k in expected})
-    check(shape == dict(expected, epochs=ref["epochs"]), f"phase {tag} config {shape}")
+
+    def serve(model, tst):
+        pred = Predictor(model, max_batch=128, k=20, train_data=tst).warm()
+        return pred, serve_split(pred, model, tst, 128)
 
     def drive():
         t0 = time.perf_counter()
-        model.fit(trn, val)
-        fit_s = time.perf_counter() - t0
-        result = model.evaluate(tst, verbose=False)
-        pred = Predictor(model, max_batch=128, k=20, train_data=tst).warm()
-        served = serve_split(pred, model, tst, 128)
-        return fit_s, result, pred, served
+        if quickstart:
+            model, (_, _, tst), result = run(
+                model_name, "ml-100k", verbose=False, device=device,
+                model_config={"train": {"epochs": ref["epochs"]}, "eval": {"save_path": SAVE_DIR}})
+        else:
+            cls, conf = get_model(model_name)
+            conf["train"]["epochs"] = ref["epochs"]
+            conf["eval"]["save_path"] = SAVE_DIR
+            trn, val, tst = cls._get_dataset_class()("ml-100k").build(**conf["data"])
+            model = cls(conf, device=device)
+            model.fit(trn, val)
+            result = model.evaluate(tst, verbose=False)
+        run_s = time.perf_counter() - t0
+        return (model, result, run_s) + serve(model, tst)
 
-    (fit_s, result, pred, (scores, ids, targets)), counts = counted(drive)
+    (model, result, run_s, pred, (scores, ids, targets)), counts = counted(drive)
+    mc, tc = model.config["model"], model.config["train"]
+    shape = dict(embed_dim=model.embed_dim, **{k: mc[v] for k, v in model_keys.items()},
+                 L=model.max_seq_len, batch=tc["batch_size"], epochs=tc["epochs"])
+    shape.update({k: tc[k] for k in ("mask_ratio", "weight_decay") if k in expected})
+    check(shape == dict(expected, epochs=ref["epochs"]), f"phase {tag} config {shape}")
     served = rank_metrics(ids, targets)
     lo, hi = ref["ndcg@10_band"]
-    out = {"phase": tag, "model": model_name, "dataset": "ml-100k", "config": shape,
-           "launches": counts, "fit_s": fit_s,
+    out = {"phase": tag, "model": model_name, "dataset": "ml-100k",
+           "entry": "quickstart.run" if quickstart else "fit", "config": shape,
+           "launches": counts, "run_s": run_s,
+           "fit_s": sum(e["train_s"] + e["eval_s"] for e in model.epoch_log),
+           "best_epoch": model.callback.best_epoch,
            "epochs": [{k: (round(v, 6) if isinstance(v, float) else v)
                        for k, v in e.items()} for e in model.epoch_log],
            "test_ndcg@10": result["ndcg@10"], "test_recall@10": result["recall@10"],
@@ -591,6 +640,14 @@ def fit_phase(device, tag, model_name, reference, dropout_key, expected, kernels
                                                        pred.stats().items()}}
     if "untrained_ndcg@10" in ref:
         out["jax_untrained_ndcg@10"] = ref["untrained_ndcg@10"]
+    if quickstart:              # the card's busy share of one more epoch, profiled
+        train_s = sorted(e["train_s"] for e in model.epoch_log)
+        epoch_s = train_s[len(train_s) // 2]
+        host_ms, busy_ms = busy_share(lambda: model.training_epoch(0))
+        steps = -(-model._epoch_rows // tc["batch_size"])
+        out.update(epoch_s_p50=epoch_s, steps_per_epoch=steps, step_ms_p50=epoch_s / steps * 1e3,
+                   profiled_epoch_host_ms=host_ms, profiled_epoch_busy_ms=busy_ms,
+                   busy_share_of_epoch=None if busy_ms is None else busy_ms / (epoch_s * 1e3))
     emit("PHASE", out)
     for name in kernels:
         check(counts[name] > 0, f"phase {tag} launched no {name}")
@@ -606,7 +663,8 @@ def fit_phase(device, tag, model_name, reference, dropout_key, expected, kernels
 
 def phase_e(device):
     """SASRec: fit + evaluate on ml-100k at the repo's config, then serve."""
-    return fit_phase(device, "E", "SASRec", TRAIN_REFERENCE, "dropout_rate",
+    return fit_phase(device, "E", "SASRec", TRAIN_REFERENCE,
+                     dict(TRANSFORMER_KEYS, dropout="dropout_rate"),
                      dict(embed_dim=64, hidden=128, heads=2, layers=2, dropout=0.5, L=20,
                           batch=512), ["fused_transformer_layer_bwd"])
 
@@ -670,7 +728,8 @@ def phase_f(device):
 
 def phase_g(device):
     """BERT4Rec: fit + evaluate on ml-100k at the repo's config, then serve."""
-    return fit_phase(device, "G", "BERT4Rec", BERT4REC_TRAIN_REFERENCE, "dropout",
+    return fit_phase(device, "G", "BERT4Rec", BERT4REC_TRAIN_REFERENCE,
+                     dict(TRANSFORMER_KEYS, dropout="dropout"),
                      dict(embed_dim=64, hidden=128, heads=2, layers=2, dropout=0.2, L=20,
                           batch=512, mask_ratio=0.2, weight_decay=1e-5),
                      ["fused_transformer_layer", "fused_transformer_layer_bwd",
@@ -1016,6 +1075,205 @@ def phase_j(device):
     return out
 
 
+def gru_versus_plain(device, gru, B, L, D, seed=2032):
+    """The first layer of ``gru`` (a ``GRULayer``) forward and backward
+    through cuDNN (``gru_layer``) against its time loop (``gru_layer_plain``)
+    at ``[B, L, D]``: the output's and every gradient's largest error, both
+    times, and, for contrast, the largest output error of cuDNN with TF32
+    allowed (the ``nn.GRU``'s own forward under PyTorch's default cuDNN
+    setting)."""
+    import numpy as np
+    import torch
+    from recstudio_torch.models.module.layers import gru_layer, gru_layer_plain
+    rnn = gru.layers[0]
+    w = list(rnn.all_weights[0])
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(device)
+    x.requires_grad_()
+    cot = torch.from_numpy(rng.normal(size=(B, L, rnn.hidden_size)).astype(np.float32)).to(device)
+
+    def run(fn):
+        out = fn(x, *w)
+        return [out, *torch.autograd.grad(out, [x, *w], cot)]
+
+    got, want = run(gru_layer), run(gru_layer_plain)
+    torch.cuda.synchronize()
+    max_abs, max_rel, ok = errors(got[0].detach(), want[0].detach(), TOL_GRU)
+    grad_abs, grad_ok = grad_errors(dict(enumerate(got[1:])), dict(enumerate(want[1:])))
+    c = torch.backends.cudnn
+    with torch.no_grad(), c.flags(enabled=True, benchmark=c.benchmark,
+                                  deterministic=c.deterministic, allow_tf32=True):
+        tf32 = rnn(x)[0]
+    return {"shape": dict(B=B, L=L, D=D, H=rnn.hidden_size), "max_abs_err": max_abs,
+            "max_rel_err": max_rel, "grad_max_abs_err": grad_abs, "tol": TOL_GRU,
+            "grad_tol": TOL_GRAD, "ok": ok and grad_ok,
+            "tf32_allowed_max_abs_err": float((tf32 - want[0]).abs().max()),
+            "fwd_bwd_ms": time_ms(lambda: run(gru_layer), iters=10),
+            "plain_fwd_bwd_ms": time_ms(lambda: run(gru_layer_plain), iters=3, warmup=1),
+            "fwd_ms": time_ms(lambda: gru_layer(x.detach(), *w), iters=10),
+            "plain_fwd_ms": time_ms(lambda: gru_layer_plain(x.detach(), *w), iters=3,
+                                    warmup=1)}
+
+
+def served_diffs(pred_a, pred_b, split, fields, n_requests=2, batch_size=256):
+    """The first ``n_requests`` requests of ``split`` through two predictors:
+    (rows whose lists disagree, rows compared, largest score difference)."""
+    import numpy as np
+    from recstudio_torch.utils.parity import topk_mismatches
+    bad = n_cmp = 0
+    max_diff = 0.0
+    for batch in itertools.islice(split.eval_loader(batch_size), n_requests):
+        req = {f: batch[f] for f in fields}
+        (s_a, i_a), (s_b, i_b) = pred_a(req), pred_b(req)
+        bad += topk_mismatches(i_a, s_a, i_b, s_b, TOL_SCORES)
+        max_diff = max(max_diff, float(np.abs(s_a - s_b).max()))
+        n_cmp += len(i_a)
+    return bad, n_cmp, max_diff
+
+
+def catalog_softmax_phase(device, tag, model_name, expected):
+    """NARM or STAMP training and serving at full width on the synthetic
+    ml-1m shape: 20 timed steps through ``_fused_softmax_step`` (K7, K8, K9
+    at one query row a sequence), one step held to the plain path (the
+    GRU's time loop where there is a GRU, materialized scores), every user
+    served, the first two requests held to the plain path (NARM) or to the
+    model copied to the CPU (STAMP, whose serving runs no kernel and no
+    GRU)."""
+    import numpy as np
+    import torch
+    from recstudio_torch.serving import Predictor
+    model, conf, ds, tst, name, etl_s = training_model(device, model_name, 512)
+    mc = conf["model"]
+    shape = dict(B=conf["train"]["batch_size"], L=ds.max_seq_len, D=model.embed_dim,
+                 items=ds.num_items - 1, lr=conf["train"]["learning_rate"],
+                 learner=conf["train"]["learner"],
+                 **{k: mc[k] for k in ("hidden_size", "layer_num", "dropout_rate") if k in mc})
+    check(shape == expected, f"phase {tag} config {shape}")
+    check(model._use_fused_softmax(), f"phase {tag} does not take the fused softmax step")
+    gru = getattr(model.query_encoder, "gru", None)
+
+    def set_path(plain, fused="auto"):
+        if gru is not None:
+            gru.plain = plain
+        model.config["train"]["fused_softmax"] = fused
+
+    metrics, losses, train_counts, ((loss_p, max_abs, ok),) = \
+        steps_and_comparison(model, set_path, (True, "false"))
+    loss_k = metrics["kernel_loss"]
+
+    pred = Predictor(model, max_batch=256, k=20, train_data=tst).warm()
+    (scores, ids, targets), serve_counts = counted(lambda: serve_split(pred, model, tst, 256))
+    stats = pred.stats()
+    fields = sorted(model.query_fields)
+    if gru is not None:
+        bad, n_cmp, max_diff = plain_serving_diffs(pred, model, tst, [gru])
+        held_to = "plain path (the GRU's time loop)"
+    else:
+        cpu_pred = Predictor(cpu_copy(model, tst), max_batch=256, k=20, train_data=tst)
+        bad, n_cmp, max_diff = served_diffs(pred, cpu_pred, tst, fields)
+        held_to = "the model copied to the CPU"
+    counts = {k: train_counts[k] + serve_counts[k] for k in train_counts}
+    out = {"phase": tag, "model": model_name, "dataset": name, "shape": shape, "etl_s": etl_s,
+           "launches": counts, "train_launches": train_counts, "serve_launches": serve_counts,
+           **metrics, "plain_loss": loss_p, "grad_max_abs_err": max_abs,
+           "served": len(ids), **{"serve_" + k: v for k, v in stats.items()},
+           **rank_metrics(ids, targets), "served_held_to": held_to, "held_rows": n_cmp,
+           "held_rows_disagreeing": bad, "held_max_score_diff": max_diff, "tol": TOL_SCORES}
+    if gru is not None:
+        out["gru"] = gru_versus_plain(device, gru, shape["B"], shape["L"], shape["D"])
+        out["input_dropout_mask_ms"] = input_mask_ms(device, shape["B"], shape["L"], shape["D"],
+                                                     mc["dropout_rate"][0])
+    emit("PHASE", out)
+    for kernel in CLSE_KERNELS:
+        check(train_counts[kernel] > 0, f"phase {tag} training launched no {kernel}")
+    if gru is not None:
+        check(train_counts["gru_layer_cudnn"] > 0, f"phase {tag} ran no GRU through cuDNN")
+        check(serve_counts["gru_layer_cudnn"] > 0, f"phase {tag} served no GRU through cuDNN")
+        check(out["gru"]["ok"], f"phase {tag}: the cuDNN GRU disagrees with its time loop: "
+                                f"{out['gru']['max_abs_err']}, {out['gru']['grad_max_abs_err']}")
+    check(bool(torch.isfinite(losses).all()), f"phase {tag} loss not finite")
+    check(abs(loss_k - loss_p) <= TOL_LOSS * abs(loss_p),
+          f"phase {tag} loss {loss_k} vs {loss_p}")
+    check(ok, f"phase {tag} gradients disagree with the plain path: {max_abs}")
+    check(np.isfinite(scores).all() and scores.shape == (len(tst.data_index), 20),
+          f"phase {tag} scores")
+    check(bad == 0, f"phase {tag}: {bad} of {n_cmp} lists differ from the {held_to}'s")
+    return out
+
+
+def phase_k(device):
+    """NARM at full width: the GRU through cuDNN, K7-K9 at 512 rows."""
+    return catalog_softmax_phase(device, "K", "NARM", dict(
+        B=512, L=200, D=64, items=3706, lr=1e-3, learner="adam", hidden_size=128, layer_num=1,
+        dropout_rate=[0.25, 0.5]))
+
+
+def phase_l(device):
+    """STAMP at full width: K7-K9 at 512 rows."""
+    return catalog_softmax_phase(device, "L", "STAMP", dict(
+        B=512, L=200, D=64, items=3706, lr=1e-3, learner="adam"))
+
+
+def phase_m(device):
+    """GRU4Rec at full width: timed steps (the GRU through cuDNN, no kernel
+    of the port), one step held to the model copied to the CPU."""
+    import torch
+    model, conf, ds, tst, name, etl_s = training_model(device, "GRU4Rec", 512)
+    mc, tc = conf["model"], conf["train"]
+    shape = dict(B=tc["batch_size"], L=ds.max_seq_len, D=model.embed_dim,
+                 hidden_size=mc["hidden_size"], layer_num=mc["layer_num"],
+                 dropout_rate=mc["dropout_rate"], negatives=tc["negative_count"],
+                 items=ds.num_items - 1)
+    check(shape == dict(B=512, L=200, D=64, hidden_size=128, layer_num=1, dropout_rate=0.3,
+                        negatives=1, items=3706), f"phase M config {shape}")
+    check(not model._use_fused_softmax(), "phase M takes the softmax step")
+    torch.cuda.reset_peak_memory_stats()
+    steps, times, losses, counts = timed_steps(model, model._epoch_batches())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # one step on the card held to the same model on the CPU: same batch,
+    # negatives and dropout seeds (the masks are a function of the seed)
+    batch = steps[-1]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    neg = torch.randint(1, ds.num_items, (tc["batch_size"], 1), generator=gen, device=device)
+    state = model.generator.get_state()
+    loss_k, grads_k = step_on(model, batch, neg)
+    cpu = cpu_copy(model, tst)
+    cpu.generator.set_state(state)
+    loss_c, grads_c = step_on(cpu, {k: v.cpu() for k, v in batch.items()}, neg.cpu())
+    max_abs, ok = grad_errors({k: v.cpu() for k, v in grads_k.items()}, grads_c)
+    p50 = times[len(times) // 2]
+    out = {"phase": "M", "model": "GRU4Rec", "dataset": name, "shape": shape, "etl_s": etl_s,
+           "launches": counts, "steps": len(times), "step_ms_p50": p50,
+           "step_ms_max": times[-1], "examples_per_s": tc["batch_size"] / (p50 / 1e3),
+           "input_dropout_mask_ms": input_mask_ms(device, shape["B"], shape["L"], shape["D"],
+                                                  shape["dropout_rate"]),
+           "loss_first": float(losses[0]), "loss_last": float(losses[-1]), "peak_mem_gb": peak,
+           "card_loss": loss_k, "cpu_loss": loss_c, "grad_max_abs_err": max_abs,
+           "grad_tol": TOL_GRAD, "loss_tol": TOL_LOSS}
+    emit("PHASE", out)
+    check(counts["gru_layer_cudnn"] > 0, "phase M ran no GRU through cuDNN")
+    check(all(v == 0 for k, v in counts.items() if k != "gru_layer_cudnn"),
+          f"phase M launched a kernel: {counts}")
+    check(bool(torch.isfinite(losses).all()), "phase M loss not finite")
+    check(abs(loss_k - loss_c) <= TOL_LOSS * abs(loss_c), f"phase M loss {loss_k} vs {loss_c}")
+    check(ok, f"phase M gradients disagree with the CPU copy's: {max_abs}")
+    return out
+
+
+def phase_n(device):
+    """NARM and STAMP the way users start them, ``quickstart.run`` on
+    ml-100k, held to their JAX bands."""
+    return [fit_phase(device, "N", "NARM", NARM_TRAIN_REFERENCE,
+                      {"hidden": "hidden_size", "layers": "layer_num",
+                       "dropout": "dropout_rate"},
+                      dict(embed_dim=64, hidden=128, layers=1, dropout=[0.25, 0.5], L=20,
+                           batch=512), CLSE_KERNELS + ("gru_layer_cudnn",), quickstart=True),
+            fit_phase(device, "N", "STAMP", STAMP_TRAIN_REFERENCE, {},
+                      dict(embed_dim=64, L=20, batch=512), CLSE_KERNELS, quickstart=True)]
+
+
 # ---------------------------------------------------------------------------
 def causal_mask(L, device, causal=True):
     """The causal attention mask (True = disallow), or None (bidirectional)."""
@@ -1200,21 +1458,22 @@ def k2_versus_plain(device, B, L, D, F, H, p=0.5, seed=2027, causal=True):
             "weight_grad_splits": weight_grad_splits(B, L, D, F, device)}
 
 
-def clse_inputs(device, M, N, D, seed):
+def clse_inputs(device, M, N, D, seed, g_share=0.2):
     """Query rows and a catalog at the scale of a trained model's, and the
-    cotangent of a BERT4Rec batch: nonzero (1 / count) on a fifth of the
-    rows, zero on the rest."""
+    cotangent of a batch: nonzero (1 / count) on a share ``g_share`` of the
+    rows (a fifth: BERT4Rec's masked positions; 1: NARM's and STAMP's one
+    row a sequence), zero on the rest."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(M, D)).astype(np.float32)
     items = rng.normal(0.0, 0.3, size=(N, D)).astype(np.float32)
-    keep = rng.random(M) < 0.2
+    keep = rng.random(M) < g_share
     g = np.where(keep, 1.0 / max(int(keep.sum()), 1), 0.0).astype(np.float32)
     return tuple(torch.from_numpy(a).to(device) for a in (q, items, g))
 
 
-def clse_versus_plain(device, M, N, D, seed=2028):
+def clse_versus_plain(device, M, N, D, seed=2028, g_share=0.2):
     """K7, K8 and K9 against their plain versions at one shape: rows for
     each, repeated bit for bit, with the ranges of each kernel's plan, the
     blocks of its grid and the card's resident blocks the plan was cut
@@ -1231,8 +1490,8 @@ def clse_versus_plain(device, M, N, D, seed=2028):
                                                catalog_logsumexp_dq, catalog_logsumexp_dq_plain,
                                                catalog_logsumexp_fwd, catalog_logsumexp_plain,
                                                resident, splits)
-    q, items, g = clse_inputs(device, M, N, D, seed)
-    shape = dict(M=M, N=N, D=D)
+    q, items, g = clse_inputs(device, M, N, D, seed, g_share)
+    shape = dict(M=M, N=N, D=D, g_share=g_share)
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
         q[None, None], items[None, None], items[None, None], scale=1.0)
     libraries = {"K8": sdpa, "K9": None}
@@ -1447,7 +1706,8 @@ def main() -> int:
 
     phases = [phase_a(device), phase_b(device), phase_c(device), phase_d(device),
               phase_e(device), phase_f(device), phase_g(device), phase_h(device),
-              phase_i(device), phase_j(device)]
+              phase_i(device), phase_j(device), phase_k(device), phase_l(device),
+              phase_m(device), *phase_n(device)]
 
     k1_a = k1_versus_plain(device, 128, 20, 64, 128, 2)
     k1_b = k1_versus_plain(device, 256, 200, 128, 128, 2)
@@ -1465,12 +1725,16 @@ def main() -> int:
     k2_f = k2_versus_plain(device, 256, 200, 64, 128, 2, p=0.2, causal=False)
     clse_f = clse_versus_plain(device, 256 * 200, 3706, 64)
     clse_cat = clse_versus_plain(device, 512, 500_000, 64)
+    # phases K and L: one query row a sequence, 512 rows by 3,706 items, every
+    # row with a gradient
+    clse_k = clse_versus_plain(device, 512, 3706, 64, seed=2033, g_share=1.0)
     rows = [("K1@A", k1_a), ("K1@B", k1_b), ("K3@B", k3_b), ("K3@C", k3_c),
             ("K3@F", k3_f),
             ("K1train@D", k1_d), ("K2@D", k2_d), ("K1@F", k1_f), ("K1train@F", k1t_f),
             ("K2@F", k2_f)]
     rows += [(f"{k}@F", clse_f[k]) for k in ("K7", "K8", "K9")]
     rows += [(f"{k}@cat500k", clse_cat[k]) for k in ("K7", "K8", "K9")]
+    rows += [(f"{k}@K", clse_k[k]) for k in ("K7", "K8", "K9")]
     # phase H's attention (B 256, L 1024, Dh 64, causal, example 0 fully
     # masked in K4's row), BERT4Rec's route at L 2048 (no attention mask),
     # and an Lk that is a multiple of no tile

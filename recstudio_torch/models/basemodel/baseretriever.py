@@ -122,6 +122,7 @@ class BaseRetriever(Recommender):
         if isinstance(train_data, SeqDataset):
             self.query_fields |= {"in_" + f for f in self.item_fields}
             self.query_fields.add("seqlen")
+            self.max_seq_len = train_data.max_seq_len
 
     def _get_query_feat(self, batch: Dict[str, torch.Tensor]):
         """The query tower's input (``baseretriever.py:186-193``): the one

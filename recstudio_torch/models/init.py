@@ -29,9 +29,11 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
                     method: str = "xavier_normal", init_range: float = 0.02) -> None:
     """Re-initialise ``module``'s parameters in place, by role:
 
-    - ``*norm*_weight``: 1; ``*bias``: 0;
-    - 2-D ``*weight`` (embedding tables and projections): ``method``, with
-      row 0 of embedding tables set to 0;
+    - ``*norm*_weight``: 1; ``*bias`` and ``bias_*`` (a GRU's): 0;
+    - 2-D ``*weight`` and ``weight_*`` (embedding tables, projections, a
+      GRU's ``weight_ih_l0 [3H, in]`` and ``weight_hh_l0 [3H, H]``, whose
+      fans are the JAX ``[in, 3H]`` kernel's): ``method``, with row 0 of
+      embedding tables set to 0;
     - any other 2-D parameter (learned position tables): N(0, 0.02), the
       initializer the JAX modules declare for them.
     """
@@ -40,9 +42,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
         leaf = name.rsplit(".", 1)[-1]
         if "norm" in leaf and leaf.endswith("weight"):
             p.fill_(1.0)
-        elif leaf.endswith("bias"):
+        elif leaf.endswith("bias") or leaf.startswith("bias_"):
             p.zero_()
-        elif leaf.endswith("weight") and p.dim() == 2:
+        elif (leaf.endswith("weight") or leaf.startswith("weight_")) and p.dim() == 2:
             p.copy_(_draw(tuple(p.shape), method, init_range, generator))
             if id(p) in embeddings:
                 p[0].zero_()

@@ -3,7 +3,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .layers import SeqPoolingLayer, TransformerEncoder, TransformerLayer
+from .layers import (AttentionLayer, GRULayer, MLPModule, SeqPoolingLayer, TransformerEncoder,
+                     TransformerLayer, get_act)
 
 
 class Embedding(nn.Embedding):
@@ -22,4 +23,5 @@ class Embedding(nn.Embedding):
         return super().forward(ids)
 
 
-__all__ = ["Embedding", "SeqPoolingLayer", "TransformerEncoder", "TransformerLayer"]
+__all__ = ["AttentionLayer", "Embedding", "GRULayer", "MLPModule", "SeqPoolingLayer",
+           "TransformerEncoder", "TransformerLayer", "get_act"]

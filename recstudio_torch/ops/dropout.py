@@ -34,7 +34,8 @@ PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 # one site per dropout of a layer call, in the order of the JAX stream
 SITE_ATTN, SITE_OUT, SITE_FFN_HIDDEN, SITE_FFN_OUT = 0, 1, 2, 3
-SITE_INPUT = 4          # SASRec's dropout of the embedded sequence
+SITE_INPUT = 4          # the dropout of an embedded sequence (SASRec, GRU4Rec, NARM)
+SITE_HIDDEN = 5         # a dropout of hidden vectors (NARM's query, MLP and GRU-stack layers)
 SEED_LIMIT = 1 << 62
 
 

@@ -54,8 +54,8 @@ class Predictor:
     def _dummy(self) -> Dict[str, np.ndarray]:
         out = {}
         for f in sorted(self.model.query_fields):
-            # only a sequence field has a length: other query towers have no max_seq_len
-            shape = ((self.max_batch, self.model.query_encoder.max_seq_len) if f.startswith("in_")
+            # only a sequence field has a length (the model's, from its dataset)
+            shape = ((self.max_batch, self.model.max_seq_len) if f.startswith("in_")
                      else (self.max_batch,))
             out[f] = np.zeros(shape, np.int32)
         return out

@@ -1,16 +1,20 @@
 """Parameter conversion between the JAX package and the port.
 
-``params_from_jax`` turns a JAX SASRec, BERT4Rec or BPR parameter tree
-(the nested dict of arrays that ``model.params`` holds; BERT4Rec's item
-table has one more row, the ``[MASK]`` token; BPR's tree is its two
-tables, ``query_encoder/embedding`` and ``item_encoder/embedding``) into
-the port's ``state_dict``; ``params_to_jax`` is the reverse.
+``params_from_jax`` turns a JAX SASRec, BERT4Rec, GRU4Rec, NARM, STAMP or
+BPR parameter tree (the nested dict of arrays that ``model.params`` holds;
+BERT4Rec's item table has one more row, the ``[MASK]`` token; BPR's tree is
+its two tables, ``query_encoder/embedding`` and ``item_encoder/embedding``;
+a sequence model's query encoder owns the item table the catalog is scored
+against) into the port's ``state_dict``; ``params_to_jax`` is the reverse.
 ``lazy_adam_state_from_jax`` loads the JAX lazy-Adam state (``count``,
 ``mu``, ``nu``) into the port's ``LazyAdam``. Flax kernels are ``[in, out]`` and the
 port's weights ``[out, in]``, so kernels are transposed. The fused
 ``qkv_kernel [D, 3D]`` is q|k|v blocks with the heads contiguous inside
 each block (``transformer_layer.py:244-246``), which is exactly the row
-order of the port's ``in_proj_weight [3D, D]``.
+order of the port's ``in_proj_weight [3D, D]``. A GRU layer's ``ih`` and
+``hh`` kernels ``[in, 3H]``, ``[H, 3H]`` are ``r | z | n`` blocks, as the
+rows of an ``nn.GRU``'s ``weight_ih_l0 [3H, in]`` and ``weight_hh_l0``;
+every other ``Dense`` kernel is a ``Linear``'s weight transposed.
 
 Gradients share their parameters' layouts, so the same maps carry them:
 ``params_to_jax`` of a ``{name: grad}`` dict (or ``layer_params_to_jax``
@@ -23,7 +27,7 @@ without JAX on the card.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -66,41 +70,76 @@ _TWO_TOWER = {("item_encoder", "embedding"): "item_encoder.weight",
               ("query_encoder", "embedding"): "query_encoder.weight"}
 
 
+def _port_name(path) -> Tuple[str, bool]:
+    """A leaf of a JAX query encoder's tree -> (the port's parameter name
+    under ``query_encoder.``, transpose)."""
+    if path == ("item_encoder", "embedding"):
+        return "item_encoder.weight", False
+    if path[0] == "transformer":                    # transformer/layer_{i}/<leaf>
+        name, tr = _LAYER_MAP[path[2]]
+        return f"transformer.layers.{path[1][len('layer_'):]}.{name}", tr
+    if path[0] == "gru":                            # gru/gru_{i}/{ih,hh}/{kernel,bias}
+        kind = "weight" if path[3] == "kernel" else "bias"
+        return f"gru.layers.{path[1][len('gru_'):]}.{kind}_{path[2]}_l0", kind == "weight"
+    if path[-1] == "kernel":                        # a Dense: kernel [in, out]
+        return ".".join(path[:-1]) + ".weight", True
+    return ".".join(path), False                    # biases, pos_emb_table
+
+
+def _jax_path(name: str) -> Tuple[Tuple[str, ...], bool]:
+    """``_port_name``'s inverse."""
+    parts = tuple(name.split("."))
+    if parts == ("item_encoder", "weight"):
+        return ("item_encoder", "embedding"), False
+    if parts[0] == "transformer":                   # transformer.layers.{i}.<name>
+        leaf, tr = _LAYER_UNMAP[parts[3]]
+        return ("transformer", f"layer_{parts[2]}", leaf), tr
+    if parts[0] == "gru":                           # gru.layers.{i}.{weight,bias}_{ih,hh}_l0
+        kind, gate, _ = parts[3].split("_")
+        return ("gru", f"gru_{parts[2]}", gate, "kernel" if kind == "weight" else "bias"), \
+            kind == "weight"
+    if parts[-1] == "weight":
+        return parts[:-1] + ("kernel",), True
+    return parts, False
+
+
+def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX SASRec, BERT4Rec or BPR params -> the port's ``state_dict``
-    (float32 CPU tensors)."""
+    """JAX SASRec, BERT4Rec, GRU4Rec, NARM, STAMP or BPR params -> the
+    port's ``state_dict`` (float32 CPU tensors)."""
     if "item_encoder" in tree:
         return {name: _tensor(tree[a][b]) for (a, b), name in _TWO_TOWER.items()}
-    qe = tree["query_encoder"]
-    sd = {"query_encoder.item_encoder.weight": _tensor(qe["item_encoder"]["embedding"]),
-          "query_encoder.pos_emb_table": _tensor(qe["pos_emb_table"])}
-    layers = qe["transformer"]
-    for i in range(len(layers)):
-        for name, value in layer_params_from_jax(layers[f"layer_{i}"]).items():
-            sd[f"query_encoder.transformer.layers.{i}.{name}"] = value
+    sd = {}
+    for path, value in _leaves(tree["query_encoder"]):
+        name, tr = _port_name(path)
+        sd["query_encoder." + name] = _tensor(value, tr)
     return sd
 
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """The port's SASRec, BERT4Rec or BPR ``state_dict`` (or its gradients
-    by the same names) -> a JAX-layout tree of numpy arrays."""
+    """The port's ``state_dict`` of one of those models (or its gradients by
+    the same names) -> a JAX-layout tree of numpy arrays."""
     a = lambda name: state_dict[name].detach().cpu().numpy().astype(np.float32)
+    out: Dict[str, Any] = {}
     if "item_encoder.weight" in state_dict:
-        out: Dict[str, Any] = {}
         for (top, leaf), name in _TWO_TOWER.items():
             out.setdefault(top, {})[leaf] = a(name)
         return out
-    layers: Dict[str, Dict[str, torch.Tensor]] = {}
-    prefix = "query_encoder.transformer.layers."
+    prefix = "query_encoder."
     for key in state_dict:
-        if key.startswith(prefix):
-            i, name = key[len(prefix):].split(".", 1)
-            layers.setdefault(f"layer_{i}", {})[name] = state_dict[key]
-    return {"query_encoder": {
-        "item_encoder": {"embedding": a("query_encoder.item_encoder.weight")},
-        "pos_emb_table": a("query_encoder.pos_emb_table"),
-        "transformer": {f"layer_{i}": layer_params_to_jax(layers[f"layer_{i}"])
-                        for i in range(len(layers))}}}
+        path, tr = _jax_path(key[len(prefix):])
+        node = out.setdefault("query_encoder", {})
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = a(key).T.copy() if tr else a(key)
+    return out
 
 
 def lazy_adam_state_from_jax(net: torch.nn.Module, optimizer, state) -> None:

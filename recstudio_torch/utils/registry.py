@@ -1,8 +1,8 @@
 """Model registry: name -> (model class, layered default config).
 
 The subset of ``recstudio_tpu/utils/registry.py`` this port implements:
-SASRec and BERT4Rec (``seq``), BPR (``mf``), and the dataset configs they
-run on.
+SASRec, BERT4Rec, GRU4Rec, NARM and STAMP (``seq``), BPR (``mf``), and the
+dataset configs they run on.
 """
 from __future__ import annotations
 
@@ -15,6 +15,9 @@ from .config import CONFIG_DIR, deep_update, get_base_model_config, load_json
 # model name (lower case) -> (family, class name, config files layered over basemodel)
 _MODELS = {"sasrec": ("seq", "SASRec", ("seq_all", "sasrec")),
            "bert4rec": ("seq", "BERT4Rec", ("seq_all", "bert4rec")),
+           "gru4rec": ("seq", "GRU4Rec", ("seq_all", "gru4rec")),
+           "narm": ("seq", "NARM", ("seq_all", "narm")),
+           "stamp": ("seq", "STAMP", ("seq_all", "stamp")),
            "bpr": ("mf", "BPR", ("mf_all", "bpr"))}
 
 

@@ -23,6 +23,14 @@ def test_bert4rec_config_equals_jax():
     assert got["model"]["dropout"] == 0.2 and "dropout_rate" not in got["model"]
 
 
+@pytest.mark.parametrize("name", ["GRU4Rec", "NARM", "STAMP"])
+def test_rnn_and_attention_model_configs_equal_jax(name):
+    _, want = jax_get_model(name)
+    cls, got = get_model(name)
+    assert got == want and cls.__name__ == name
+    assert get_model(name.lower())[1] == want
+
+
 def test_ml100k_config_equals_jax():
     assert get_dataset_default_config("ml-100k") == jax_dataset_config("ml-100k")
 
@@ -32,7 +40,8 @@ def test_unknown_dataset_falls_back_to_defaults():
 
 
 def test_registry_lists_what_is_ported():
-    assert list_models() == {"sasrec": "seq", "bert4rec": "seq", "bpr": "mf"}
+    assert list_models() == {"sasrec": "seq", "bert4rec": "seq", "gru4rec": "seq",
+                             "narm": "seq", "stamp": "seq", "bpr": "mf"}
 
 
 @pytest.mark.parametrize("key,value", [

@@ -674,3 +674,76 @@ def test_catalog_logsumexp_refuses_what_it_does_not_take(dev):
         catalog_logsumexp_fwd(q.double(), items.double())
     with pytest.raises(ValueError):
         catalog_logsumexp_dq(q, items, torch.zeros(7, device=dev), g)
+
+
+def test_catalog_kernels_at_a_pooled_batch(dev):
+    """K7, K8, K9 at NARM's and STAMP's training shape (phases K and L): one
+    query row a sequence, M 512 against 3,706 items at D 64, every row with
+    the cotangent 1 / 512 of a mean over the batch. Tolerances as
+    ``test_catalog_logsumexp_kernels_match_plain``; each repeats bit for
+    bit."""
+    M, N, D = 512, 3706, 64
+    q, items, _ = _clse_inputs(M, N, D, dev, 2031)
+    g = torch.full((M,), 1.0 / M, device=dev)
+    counts = [f.launches for f in (catalog_logsumexp_fwd, catalog_logsumexp_dq,
+                                   catalog_logsumexp_ditems)]
+    logz = catalog_logsumexp_fwd(q, items)
+    dq = catalog_logsumexp_dq(q, items, logz, g)
+    ditems = catalog_logsumexp_ditems(q, items, logz, g)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (catalog_logsumexp_fwd, catalog_logsumexp_dq,
+                                 catalog_logsumexp_ditems)] == [c + 1 for c in counts]
+    torch.testing.assert_close(logz, catalog_logsumexp_plain(q, items), rtol=1e-5, atol=1e-4)
+    for got, want in ((dq, catalog_logsumexp_dq_plain(q, items, logz, g)),
+                      (ditems, catalog_logsumexp_ditems_plain(q, items, logz, g))):
+        torch.testing.assert_close(got, want, rtol=1e-3,
+                                   atol=1e-4 * max(float(want.abs().max()), 1e-6))
+    assert torch.equal(logz, catalog_logsumexp_fwd(q, items))
+    assert torch.equal(dq, catalog_logsumexp_dq(q, items, logz, g))
+    assert torch.equal(ditems, catalog_logsumexp_ditems(q, items, logz, g))
+
+
+@pytest.mark.parametrize("num_layer,B,L,D,H", [(1, 512, 200, 64, 128), (2, 33, 57, 40, 72)])
+def test_gru_layer_on_the_card_matches_plain(dev, num_layer, B, L, D, H):
+    """``GRULayer`` through cuDNN against ``gru_layer_plain`` (its time loop
+    on cuBLAS, TF32 off) on the card, with TF32 allowed for cuDNN outside
+    the wrapper, as PyTorch's default has it: outputs to atol 2e-5, rtol
+    1e-4, and every gradient to 1e-4 of its largest magnitude + rtol 1e-3:
+    float32 sums in another order. TF32 products (10-bit mantissas) miss
+    these by orders of magnitude. The wrapper leaves the caller's cuDNN
+    setting as it found it, counts one launch a layer, and the padded
+    positions run through the recurrence as the JAX package's do."""
+    from recstudio_torch.models.module.layers import GRULayer, gru_layer
+    torch.manual_seed(num_layer)
+    layer = GRULayer(D, H, num_layer).to(dev)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.uniform_(-H ** -0.5, H ** -0.5)
+    rng = np.random.default_rng(B + L)
+    x0 = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    cot = torch.from_numpy(rng.normal(size=(B, L, H)).astype(np.float32)).to(dev)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        res = []
+        for plain in (False, True):
+            layer.plain = plain
+            x = x0.clone().requires_grad_()
+            before = gru_layer.launches
+            out = layer(x)
+            res.append([out] + list(torch.autograd.grad(out, [x, *layer.parameters()], cot)))
+            assert gru_layer.launches == before + (0 if plain else num_layer)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    (out, *grads), (want, *want_grads) = res
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=2e-5)
+    for got, w in zip(grads, want_grads):
+        torch.testing.assert_close(got, w, rtol=1e-3, atol=1e-4 * float(w.abs().max()))
+
+
+def test_gru_layer_refuses_what_cudnn_cannot_take(dev):
+    from recstudio_torch.models.module.layers import gru_layer
+    w = [torch.zeros(s, device=dev, dtype=torch.float64) for s in ((24, 4), (24, 8), (24,),
+                                                                  (24,))]
+    with pytest.raises(RuntimeError, match="cuDNN"):
+        gru_layer(torch.zeros((2, 3, 4), device=dev, dtype=torch.float64), *w)

@@ -31,6 +31,9 @@ ARGVS = [
     ["-m", "SASRec", "--dropout_rate", "0.2", "--split_ratio", "2", "--mode", "detail"],
     ["--model", "BERT4Rec", "--dataset", "ml-100k", "--batch_size", "64",
      "--test_metrics", "[ndcg,recall]"],
+    ["-m", "NARM", "--hidden_size", "64", "--dropout_rate", "[0.1,0.2]"],
+    ["-m", "STAMP", "-d", "ml-100k", "--epochs", "2", "--embed_dim", "32"],
+    ["-m", "GRU4Rec", "--negative_count", "2", "--layer_num", "2"],
 ]
 
 
@@ -42,7 +45,8 @@ def _parse(argv, get_model, get_default_parser, add_model_arguments, parser2nest
     return vars(args)["model"], parser2nested_dict(args)
 
 
-@pytest.mark.parametrize("argv", ARGVS, ids=["bpr", "bpr-flags", "sasrec", "bert4rec"])
+@pytest.mark.parametrize("argv", ARGVS, ids=["bpr", "bpr-flags", "sasrec", "bert4rec", "narm",
+                                         "stamp", "gru4rec"])
 def test_cli_overrides_match_jax(argv):
     from recstudio_tpu.utils import add_model_arguments as j_add
     from recstudio_tpu.utils import get_default_parser as j_parser
