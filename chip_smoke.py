@@ -90,6 +90,26 @@ then:
   test NDCG@10 held to the JAX seeds' bands (``recstudio_torch/assets/
   narm_ml100k_train_reference.json``, ``stamp_...``), 8 requests served
   whose lists must give ``evaluate``'s NDCG@10;
+- phase O: MultiDAE training and serving at the repo's config (d 200,
+  encoder [64, 32], decoder [32, 64], relu, dropout 0.5, batch 256, Adam
+  1e-2, weight decay 1e-5) on the synthetic ml-1m shape as a
+  ``UserDataset`` (one row a user, the training items as the history): 20
+  timed steps through the catalog log-partition kernels K7, K8, K9 at 256
+  query rows and D 200, one step held to the materialized scores from the
+  same generator states, every user served with the first two requests
+  held to the model copied to the CPU;
+- phase P: MultiVAE there (d 600, encoder [200], decoder [200], tanh,
+  batch 500, Adam 1e-3): 20 timed steps, which launch none of the
+  kernels (its scores are a plain product at D 600, as in the JAX
+  package), one step held to the model copied to the CPU with the same
+  eps, dropout seed and the KL weight at its cap, every user served with
+  two requests held to the CPU copy;
+- phase Q: ``quickstart.run("MultiDAE", "ml-100k")`` and ``("MultiVAE",
+  ...)`` at the repo's config (epoch caps 200 and 500, early stopping),
+  test NDCG@10 held to the JAX seeds' bands (``recstudio_torch/assets/
+  multidae_ml100k_train_reference.json``, ``multivae_...``), every test
+  user served, masked by the history window as ``evaluate`` masks, whose
+  lists must give ``evaluate``'s NDCG@10;
 - each kernel against its plain PyTorch version on the phases' shapes,
   with its time, the plain version's, PyTorch's own call where one exists,
   and the card's bound for the same work.
@@ -119,6 +139,10 @@ NARM_TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
                                     "narm_ml100k_train_reference.json")
 STAMP_TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
                                      "stamp_ml100k_train_reference.json")
+MULTIDAE_TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
+                                        "multidae_ml100k_train_reference.json")
+MULTIVAE_TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
+                                        "multivae_ml100k_train_reference.json")
 SAVE_DIR = os.path.join(REPO, "build", "recstudio_torch", "saved")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor
@@ -258,10 +282,14 @@ def serve_split(pred, model, split, batch_size):
 
 
 def rank_metrics(ids, targets):
+    """NDCG@10 and Recall@10 of served lists against one target a row
+    ``[n]`` or several ``[n, T]`` (0 = pad)."""
     import torch
     from recstudio_torch import eval as ev
     ids_t = torch.as_tensor(ids)
-    tgt = torch.as_tensor(targets)[:, None]
+    tgt = torch.as_tensor(targets)
+    if tgt.dim() == 1:
+        tgt = tgt[:, None]
     hit = ev.hit_matrix(ids_t, tgt)
     rating = (tgt > 0).float()
     return {"ndcg@10": float(ev.ndcg(hit, rating, 10).mean()),
@@ -457,6 +485,13 @@ def training_model(device, model_name, batch_size, L=200, **model_conf):
     return model, conf, ds, tst, name, time.perf_counter() - t0
 
 
+def epoch_stream(model):
+    """Device-resident batches, one epoch after another (a split of users
+    gives fewer batches an epoch than the timed steps take)."""
+    while True:
+        yield from model._epoch_batches()
+
+
 def timed_steps(model, batches, n=20, warmup=3):
     """``warmup`` optimizer steps, then ``n`` timed ones (host clock around
     ``_grad_step`` and a synchronize): (the timed batches, sorted step ms,
@@ -504,7 +539,7 @@ def steps_and_comparison(model, set_path, *plain_paths):
     the model is left on the kernel path, in eval mode."""
     import torch
     torch.cuda.reset_peak_memory_stats()
-    steps, times, losses, counts = timed_steps(model, model._epoch_batches())
+    steps, times, losses, counts = timed_steps(model, epoch_stream(model))
     step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     batch = steps[-1]
     states = (model.generator.get_state(), model.device_generator.get_state())
@@ -587,24 +622,32 @@ def fit_phase(device, tag, model_name, reference, model_keys, expected, kernels,
               quickstart=False):
     """fit + evaluate on ml-100k at the repo's config for the reference's
     epochs (through ``quickstart.run`` with ``quickstart``), test NDCG@10
-    held to the JAX seeds' band, then 8 requests served from the trained
-    weights. ``model_keys`` names the ``model`` config keys checked against
-    ``expected`` besides the width, L, batch and epochs."""
+    held to the JAX seeds' band, then every test user served from the
+    trained weights in requests of the eval batch (8 of 128 at ml-100k).
+    ``model_keys`` names the ``model`` config keys checked against
+    ``expected`` besides the width, L (a sequence model's), batch and
+    epochs. With no ``kernels`` named, the phase must launch none."""
     import numpy as np
+    from recstudio_torch.data import UserDataset
     from recstudio_torch.quickstart import run
     from recstudio_torch.serving import Predictor
     from recstudio_torch.utils import get_model
     with open(reference) as f:
         ref = json.load(f)
 
-    def serve(model, tst):
-        pred = Predictor(model, max_batch=128, k=20, train_data=tst).warm()
-        return pred, serve_split(pred, model, tst, 128)
+    def serve(model, trn, tst):
+        # requests of the eval batch, masked as evaluate() masks: the test
+        # split's history table, or a user model's history window (its
+        # training items: the train split's table)
+        size = int(model.config["eval"]["batch_size"])
+        hist = trn if isinstance(tst, UserDataset) else tst
+        pred = Predictor(model, max_batch=size, k=20, train_data=hist).warm()
+        return pred, serve_split(pred, model, tst, size)
 
     def drive():
         t0 = time.perf_counter()
         if quickstart:
-            model, (_, _, tst), result = run(
+            model, (trn, _, tst), result = run(
                 model_name, "ml-100k", verbose=False, device=device,
                 model_config={"train": {"epochs": ref["epochs"]}, "eval": {"save_path": SAVE_DIR}})
         else:
@@ -616,12 +659,14 @@ def fit_phase(device, tag, model_name, reference, model_keys, expected, kernels,
             model.fit(trn, val)
             result = model.evaluate(tst, verbose=False)
         run_s = time.perf_counter() - t0
-        return (model, result, run_s) + serve(model, tst)
+        return (model, result, run_s, len(tst.data_index)) + serve(model, trn, tst)
 
-    (model, result, run_s, pred, (scores, ids, targets)), counts = counted(drive)
+    (model, result, run_s, users, pred, (scores, ids, targets)), counts = counted(drive)
     mc, tc = model.config["model"], model.config["train"]
     shape = dict(embed_dim=model.embed_dim, **{k: mc[v] for k, v in model_keys.items()},
-                 L=model.max_seq_len, batch=tc["batch_size"], epochs=tc["epochs"])
+                 batch=tc["batch_size"], epochs=tc["epochs"])
+    if hasattr(model, "max_seq_len"):
+        shape["L"] = model.max_seq_len
     shape.update({k: tc[k] for k in ("mask_ratio", "weight_decay") if k in expected})
     check(shape == dict(expected, epochs=ref["epochs"]), f"phase {tag} config {shape}")
     served = rank_metrics(ids, targets)
@@ -651,10 +696,14 @@ def fit_phase(device, tag, model_name, reference, model_keys, expected, kernels,
     emit("PHASE", out)
     for name in kernels:
         check(counts[name] > 0, f"phase {tag} launched no {name}")
+    if not kernels:
+        check(not any(counts.values()), f"phase {tag} launched a kernel: {counts}")
     check(all(np.isfinite(e["train_loss"]) for e in model.epoch_log), f"phase {tag} loss")
     check(lo <= result["ndcg@10"] <= hi,
           f"phase {tag} test NDCG@10 {result['ndcg@10']} outside the JAX band [{lo}, {hi}]")
-    check(pred.stats()["requests"] == 8, f"phase {tag} served other than 8 requests")
+    requests = -(-users // pred.max_batch)
+    check(pred.stats()["requests"] == requests,
+          f"phase {tag} served {pred.stats()['requests']} requests, not {requests}")
     check(abs(served["ndcg@10"] - result["ndcg@10"]) <= TOL_METRIC and
           abs(served["recall@10"] - result["recall@10"]) <= TOL_METRIC,
           f"phase {tag}: served lists do not come from the evaluated (trained) weights")
@@ -1131,24 +1180,35 @@ def served_diffs(pred_a, pred_b, split, fields, n_requests=2, batch_size=256):
     return bad, n_cmp, max_diff
 
 
-def catalog_softmax_phase(device, tag, model_name, expected):
-    """NARM or STAMP training and serving at full width on the synthetic
-    ml-1m shape: 20 timed steps through ``_fused_softmax_step`` (K7, K8, K9
-    at one query row a sequence), one step held to the plain path (the
-    GRU's time loop where there is a GRU, materialized scores), every user
-    served, the first two requests held to the plain path (NARM) or to the
-    model copied to the CPU (STAMP, whose serving runs no kernel and no
-    GRU)."""
+# the model config keys a catalog-softmax phase reports and checks
+CATALOG_MODEL_KEYS = ("hidden_size", "layer_num", "dropout_rate", "dropout", "encoder_dims",
+                      "decoder_dims", "activation")
+
+
+def catalog_softmax_phase(device, tag, model_name, expected, batch_size=512):
+    """NARM, STAMP or MultiDAE training and serving at full width on the
+    synthetic ml-1m shape: 20 timed steps through ``_fused_softmax_step``
+    (K7, K8, K9 at one query row a sequence or a user), one step held to
+    the plain path (the GRU's time loop where there is a GRU, materialized
+    scores), every user served, the first two requests held to the plain
+    path (NARM) or to the model copied to the CPU (STAMP and MultiDAE, whose
+    serving runs no kernel and no GRU). A user model (MultiDAE) reports its
+    history width W, and the bytes of the ``[B, W, D]`` rows its history
+    bag sums (``F.embedding_bag`` reads them without storing them)."""
     import numpy as np
     import torch
     from recstudio_torch.serving import Predictor
-    model, conf, ds, tst, name, etl_s = training_model(device, model_name, 512)
-    mc = conf["model"]
-    shape = dict(B=conf["train"]["batch_size"], L=ds.max_seq_len, D=model.embed_dim,
-                 items=ds.num_items - 1, lr=conf["train"]["learning_rate"],
-                 learner=conf["train"]["learner"],
-                 **{k: mc[k] for k in ("hidden_size", "layer_num", "dropout_rate") if k in mc})
-    check(shape == expected, f"phase {tag} config {shape}")
+    model, conf, ds, tst, name, etl_s = training_model(device, model_name, batch_size)
+    mc, tc = conf["model"], conf["train"]
+    width = dict(L=ds.max_seq_len) if hasattr(ds, "max_seq_len") else \
+        dict(W=model.history_width)
+    shape = dict(B=tc["batch_size"], **width, D=model.embed_dim,
+                 items=ds.num_items - 1, lr=tc["learning_rate"], learner=tc["learner"],
+                 **{k: mc[k] for k in CATALOG_MODEL_KEYS if k in mc})
+    if tc.get("weight_decay"):
+        shape["weight_decay"] = tc["weight_decay"]
+    check({k: v for k, v in shape.items() if k != "W"} == expected,
+          f"phase {tag} config {shape}")
     check(model._use_fused_softmax(), f"phase {tag} does not take the fused softmax step")
     gru = getattr(model.query_encoder, "gru", None)
 
@@ -1174,6 +1234,7 @@ def catalog_softmax_phase(device, tag, model_name, expected):
         held_to = "the model copied to the CPU"
     counts = {k: train_counts[k] + serve_counts[k] for k in train_counts}
     out = {"phase": tag, "model": model_name, "dataset": name, "shape": shape, "etl_s": etl_s,
+           **({"bag_bytes": 4 * shape["B"] * shape["W"] * shape["D"]} if "W" in shape else {}),
            "launches": counts, "train_launches": train_counts, "serve_launches": serve_counts,
            **metrics, "plain_loss": loss_p, "grad_max_abs_err": max_abs,
            "served": len(ids), **{"serve_" + k: v for k, v in stats.items()},
@@ -1272,6 +1333,108 @@ def phase_n(device):
                            batch=512), CLSE_KERNELS + ("gru_layer_cudnn",), quickstart=True),
             fit_phase(device, "N", "STAMP", STAMP_TRAIN_REFERENCE, {},
                       dict(embed_dim=64, L=20, batch=512), CLSE_KERNELS, quickstart=True)]
+
+
+def phase_o(device):
+    """MultiDAE at full width: K7-K9 at 256 user rows, D 200."""
+    return catalog_softmax_phase(device, "O", "MultiDAE", dict(
+        B=256, D=200, items=3706, lr=1e-2, learner="adam", weight_decay=1e-5, dropout=0.5,
+        encoder_dims=[64, 32], decoder_dims=[32, 64], activation="relu"), batch_size=256)
+
+
+def vae_step(model, batch, eps):
+    """One MultiVAE training step's loss and gradients with ``eps``."""
+    from recstudio_torch.models.init import zero_pad_rows_in_grads
+    model.net.train()
+    model.net.zero_grad(set_to_none=True)
+    loss = model.training_step(batch, eps=eps)
+    loss.backward()
+    zero_pad_rows_in_grads(model.net)
+    model.net.eval()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                                  for n, p in model.net.named_parameters()}
+
+
+def phase_p(device):
+    """MultiVAE at full width: timed steps (materialized scores, no kernel
+    of the port), one step held to the model copied to the CPU with the same
+    eps, dropout seed and anneal at its cap, every user served."""
+    import numpy as np
+    import torch
+    from recstudio_torch.serving import Predictor
+    model, conf, ds, tst, name, etl_s = training_model(device, "MultiVAE", 500)
+    mc, tc = conf["model"], conf["train"]
+    shape = dict(B=tc["batch_size"], W=model.history_width, D=model.embed_dim,
+                 items=ds.num_items - 1, lr=tc["learning_rate"], learner=tc["learner"],
+                 weight_decay=tc["weight_decay"],
+                 **{k: mc[k] for k in CATALOG_MODEL_KEYS if k in mc})
+    check({k: v for k, v in shape.items() if k != "W"} == dict(
+        B=500, D=600, items=3706, lr=1e-3, learner="adam", weight_decay=1e-5, dropout_rate=0.5,
+        encoder_dims=[200], decoder_dims=[200], activation="tanh"), f"phase P config {shape}")
+    torch.cuda.reset_peak_memory_stats()
+    steps, times, losses, counts = timed_steps(model, epoch_stream(model))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # one step on the card held to the same model on the CPU: same batch,
+    # eps and dropout seed (the mask is a function of the seed), the KL
+    # term at its largest weight
+    batch = steps[-1]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    eps = torch.randn((tc["batch_size"], mc["encoder_dims"][-1]), generator=gen, device=device)
+    state = model.generator.get_state()
+    model.states["anneal"] = float(tc["anneal_max"])
+    loss_k, grads_k = vae_step(model, batch, eps)
+    cpu = cpu_copy(model, tst)
+    cpu.generator.set_state(state)
+    cpu.states["anneal"] = float(tc["anneal_max"])
+    loss_c, grads_c = vae_step(cpu, {k: v.cpu() for k, v in batch.items()}, eps.cpu())
+    max_abs, ok = grad_errors({k: v.cpu() for k, v in grads_k.items()}, grads_c)
+
+    pred = Predictor(model, max_batch=256, k=20, train_data=tst).warm()
+    (scores, ids, targets), serve_counts = counted(lambda: serve_split(pred, model, tst, 256))
+    stats = pred.stats()
+    cpu_pred = Predictor(cpu, max_batch=256, k=20, train_data=tst)
+    bad, n_cmp, max_diff = served_diffs(pred, cpu_pred, tst, sorted(model.query_fields))
+    p50 = times[len(times) // 2]
+    out = {"phase": "P", "model": "MultiVAE", "dataset": name, "shape": shape, "etl_s": etl_s,
+           "bag_bytes": 4 * shape["B"] * shape["W"] * shape["D"],
+           "launches": {k: counts[k] + serve_counts[k] for k in counts},
+           "train_launches": counts, "serve_launches": serve_counts, "steps": len(times),
+           "step_ms_p50": p50, "step_ms_max": times[-1],
+           "examples_per_s": tc["batch_size"] / (p50 / 1e3), "loss_first": float(losses[0]),
+           "loss_last": float(losses[-1]), "peak_mem_gb": peak, "anneal": tc["anneal_max"],
+           "card_loss": loss_k, "cpu_loss": loss_c, "grad_max_abs_err": max_abs,
+           "grad_tol": TOL_GRAD, "loss_tol": TOL_LOSS, "served": len(ids),
+           **{"serve_" + k: v for k, v in stats.items()}, **rank_metrics(ids, targets),
+           "served_held_to": "the model copied to the CPU", "held_rows": n_cmp,
+           "held_rows_disagreeing": bad, "held_max_score_diff": max_diff, "tol": TOL_SCORES}
+    emit("PHASE", out)
+    check(not any(out["launches"].values()), f"phase P launched a kernel: {out['launches']}")
+    check(bool(torch.isfinite(losses).all()), "phase P loss not finite")
+    check(abs(loss_k - loss_c) <= TOL_LOSS * abs(loss_c), f"phase P loss {loss_k} vs {loss_c}")
+    check(ok, f"phase P gradients disagree with the CPU copy's: {max_abs}")
+    check(np.isfinite(scores).all() and scores.shape == (len(tst.data_index), 20),
+          "phase P scores")
+    check(bad == 0, f"phase P: {bad} of {n_cmp} lists differ from the CPU copy's")
+    return out
+
+
+def phase_q(device):
+    """MultiDAE and MultiVAE the way users start them, ``quickstart.run`` on
+    ml-100k, held to their JAX bands."""
+    keys = {"encoder_dims": "encoder_dims", "decoder_dims": "decoder_dims",
+            "activation": "activation"}
+    return [fit_phase(device, "Q", "MultiDAE", MULTIDAE_TRAIN_REFERENCE,
+                      dict(keys, dropout="dropout"),
+                      dict(embed_dim=200, encoder_dims=[64, 32], decoder_dims=[32, 64],
+                           activation="relu", dropout=0.5, batch=256, weight_decay=1e-5),
+                      CLSE_KERNELS, quickstart=True),
+            fit_phase(device, "Q", "MultiVAE", MULTIVAE_TRAIN_REFERENCE,
+                      dict(keys, dropout="dropout_rate"),
+                      dict(embed_dim=600, encoder_dims=[200], decoder_dims=[200],
+                           activation="tanh", dropout=0.5, batch=500, weight_decay=1e-5),
+                      (), quickstart=True)]
 
 
 # ---------------------------------------------------------------------------
@@ -1707,7 +1870,8 @@ def main() -> int:
     phases = [phase_a(device), phase_b(device), phase_c(device), phase_d(device),
               phase_e(device), phase_f(device), phase_g(device), phase_h(device),
               phase_i(device), phase_j(device), phase_k(device), phase_l(device),
-              phase_m(device), *phase_n(device)]
+              phase_m(device), *phase_n(device), phase_o(device), phase_p(device),
+              *phase_q(device)]
 
     k1_a = k1_versus_plain(device, 128, 20, 64, 128, 2)
     k1_b = k1_versus_plain(device, 256, 200, 128, 128, 2)
@@ -1728,6 +1892,9 @@ def main() -> int:
     # phases K and L: one query row a sequence, 512 rows by 3,706 items, every
     # row with a gradient
     clse_k = clse_versus_plain(device, 512, 3706, 64, seed=2033, g_share=1.0)
+    # phase O: MultiDAE's one row a user, 256 rows by 3,706 items at D 200
+    # (the kernels' DK = 16 instantiation), every row with a gradient
+    clse_o = clse_versus_plain(device, 256, 3706, 200, seed=2034, g_share=1.0)
     rows = [("K1@A", k1_a), ("K1@B", k1_b), ("K3@B", k3_b), ("K3@C", k3_c),
             ("K3@F", k3_f),
             ("K1train@D", k1_d), ("K2@D", k2_d), ("K1@F", k1_f), ("K1train@F", k1t_f),
@@ -1735,6 +1902,7 @@ def main() -> int:
     rows += [(f"{k}@F", clse_f[k]) for k in ("K7", "K8", "K9")]
     rows += [(f"{k}@cat500k", clse_cat[k]) for k in ("K7", "K8", "K9")]
     rows += [(f"{k}@K", clse_k[k]) for k in ("K7", "K8", "K9")]
+    rows += [(f"{k}@O", clse_o[k]) for k in ("K7", "K8", "K9")]
     # phase H's attention (B 256, L 1024, Dh 64, causal, example 0 fully
     # masked in K4's row), BERT4Rec's route at L 2048 (no attention mask),
     # and an Lk that is a multiple of no tile

@@ -1,3 +1,3 @@
-from .dataset import SeqDataset, TripletDataset
+from .dataset import SeqDataset, TripletDataset, UserDataset
 
-__all__ = ["SeqDataset", "TripletDataset"]
+__all__ = ["SeqDataset", "TripletDataset", "UserDataset"]

@@ -1,9 +1,10 @@
 """Dataset layer: host-side ETL -> fixed-shape numpy batches.
 
-The subset of ``recstudio_tpu/data/dataset.py`` that serving SASRec on
-ml-100k needs, in numpy and plain Python (no pandas):
+The subset of ``recstudio_tpu/data/dataset.py`` that the ported models
+need, in numpy and plain Python (no pandas):
 
-- files are parsed as delimited text; token columns are interned in order
+- files are parsed as delimited text, vectorised over the file's bytes
+  (``_read_table``); token columns are interned in order
   of first appearance in the file as read, as the JAX package's native CSV
   path interns them (``recstudio_tpu/native/__init__.py:fast_read_csv``);
 - the rating threshold (``low_rating_thres``) and the duplicate-pair drop
@@ -18,9 +19,11 @@ ml-100k needs, in numpy and plain Python (no pandas):
   global stream as the JAX package shuffles;
 - split views expose ``data_index``, ``user_hist``, a ``train_loader``
   and an ``eval_loader`` of fixed-shape batches that carry ``_size``;
-- ``SeqDataset.device_epoch_arrays`` stages a split's raw columns for a
-  device-resident epoch, with a ``batch_fn`` that gathers the history
-  windows of a batch on the device.
+- ``UserDataset`` gives one row per user: the training items as the
+  history window, the split's items as the target window;
+- ``SeqDataset.device_epoch_arrays`` and ``UserDataset.device_epoch_arrays``
+  stage a split's raw columns for a device-resident epoch, with a
+  ``batch_fn`` that gathers the windows of a batch on the device.
 
 K-core filtering, sequence and network features and dataset-side
 negatives are not ported yet.
@@ -102,25 +105,75 @@ class _Tokens:
         return out
 
 
+# the line boundaries of ``str.splitlines`` besides "\n" ("\r" and "\r\n"
+# already read as "\n" in text mode)
+_LINE_BREAKS = "\r\x0b\x0c\x1c\x1d\x1e\x85\u2028\u2029"
+
+
+def _field_bytes(buf: np.ndarray, starts: np.ndarray, ends: np.ndarray) -> np.ndarray:
+    """The fields ``buf[starts[i]:ends[i]]`` as a fixed-width bytes array,
+    built one byte position at a time (no ``[rows, width]`` index array)."""
+    lengths = ends - starts
+    width = max(int(lengths.max(initial=0)), 1)
+    mat = np.zeros((len(starts), width), np.uint8)
+    last = max(len(buf) - 1, 0)
+    for k in range(width):
+        live = lengths > k
+        mat[:, k] = np.where(live, buf[np.minimum(starts + k, last)], 0)
+    return mat.view(f"S{width}").reshape(-1)
+
+
 def _read_table(path: str, header, sep: str, field_decls: List[str],
                 encoding: str) -> Tuple[Dict[str, object], Dict[str, str]]:
-    """Parse a delimited file into ``{name: _Tokens | float64 array}``."""
+    """Parse a delimited file into ``{name: _Tokens | float64 array}``.
+
+    The rows are the file's non-empty lines (``str.splitlines``) after
+    ``header + 1`` skipped lines, split at ``sep``. The parse runs in numpy
+    over the file's UTF-8 bytes: the positions of the line breaks and the
+    separators give every field's bounds, and a row with another number of
+    fields raises with its row number. Token columns keep their text, in
+    order of first appearance in the file; float columns parse as numpy's
+    ``astype(np.float64)`` of the text."""
     specs = [parse_field(d) for d in field_decls]
     if any(s.is_seq for s in specs):
         raise NotImplementedError("sequence fields are not ported yet")
     with open(path, "r", encoding=encoding) as f:
-        lines = f.read().splitlines()
+        text = f.read()
+    if any(c in text for c in _LINE_BREAKS):
+        text = text.translate({ord(c): "\n" for c in _LINE_BREAKS})
+    if len(sep) != 1 or ord(sep) > 127:
+        # one byte stands for a longer separator, matched as str.split does
+        mark = next(c for c in map(chr, range(1, 32)) if c != "\n" and c not in text)
+        text = text.replace(sep, mark)
+        sep = mark
+    buf = np.frombuffer(text.encode("utf-8"), np.uint8)
+    breaks = np.flatnonzero(buf == 10)
+    starts = np.r_[0, breaks + 1]
+    ends = np.r_[breaks, len(buf)]
     skip = 0 if header is None else int(header) + 1
-    rows = [ln.split(sep) for ln in lines[skip:] if ln]
-    bad = [i for i, r in enumerate(rows) if len(r) != len(specs)]
-    if bad:
-        raise ValueError(f"{path}: row {bad[0] + skip} has {len(rows[bad[0]])} fields, "
-                         f"expected {len(specs)}")
-    cols = list(zip(*rows)) if rows else [()] * len(specs)
+    starts, ends = starts[skip:], ends[skip:]
+    keep = ends > starts
+    starts, ends = starts[keep], ends[keep]
+    seps = np.flatnonzero(buf == ord(sep))
+    nfields = np.searchsorted(seps, ends) - np.searchsorted(seps, starts) + 1
+    bad = np.flatnonzero(nfields != len(specs))
+    if len(bad):
+        raise ValueError(f"{path}: row {int(bad[0]) + skip} has {int(nfields[bad[0]])} "
+                         f"fields, expected {len(specs)}")
+    # every row holds len(specs) - 1 separators, in order
+    seps = seps[np.searchsorted(seps, starts[0]):] if len(starts) else seps[:0]
+    seps = seps.reshape(len(starts), len(specs) - 1)
     out: Dict[str, object] = {}
-    for s, col in zip(specs, cols):
-        arr = np.asarray(col, dtype=str)
-        out[s.name] = arr.astype(np.float64) if s.dtype == "float" else _Tokens(arr)
+    for j, s in enumerate(specs):
+        lo = starts if j == 0 else seps[:, j - 1] + 1
+        hi = ends if j == len(specs) - 1 else seps[:, j]
+        col = _field_bytes(buf, lo, hi)
+        if s.dtype == "float":
+            out[s.name] = col.astype(np.float64)
+        else:
+            tokens = _Tokens(col)
+            tokens.pool = np.asarray([t.decode("utf-8") for t in tokens.pool], dtype=str)
+            out[s.name] = tokens
     return out, {s.name: s.dtype for s in specs}
 
 
@@ -614,6 +667,132 @@ def _int32_column(name: str, col: np.ndarray) -> np.ndarray:
             raise ValueError(f"column {name!r} has values outside int32")
         return col.astype(np.int32)
     raise TypeError(f"column {name!r} has dtype {col.dtype}, which cannot be staged")
+
+
+class UserDataset(TripletDataset):
+    """One row per user (``dataset.py:1024-1163``): the ``in_`` fields are
+    the user's training items (the history window), the targets the items
+    of the split (the target window), both zero-padded to the split's
+    widest. A row of ``data_index`` is ``[uid, train start, train end, uid,
+    split start, split end]``. At evaluation ``user_hist`` is the history
+    window (``dataset.py:1090-1096``), not the split's ``user_hist`` table.
+    Dataset-side negatives are not ported yet."""
+
+    def _init_common_field(self):
+        super()._init_common_field()
+        if self.fuid is None:
+            raise ValueError("UserDataset requires a user id field")
+
+    def build(self, binarized_rating_thres=None, fmeval: bool = False, neg_count=None,
+              sampler=None, shuffle: bool = True, split_mode: str = "user_entry",
+              split_ratio=None, **kwargs):
+        if neg_count or sampler:
+            raise NotImplementedError("dataset-side negatives are not ported yet")
+        if split_ratio is None:
+            split_ratio = [0.8, 0.1, 0.1]
+        self.split_mode = split_mode
+        self.fmeval = fmeval
+        return self._build(split_ratio, shuffle, split_mode, False, binarized_rating_thres)
+
+    def _get_data_idx(self, splits):
+        """``dataset.py:1039-1049``: per user, the training window then the
+        split's window; ``user_entry`` drops users whose validation window
+        is empty. A split with no per-user rows (``entry`` mode) has no
+        history to give, and raises (the JAX ``np.stack`` fails there)."""
+        splits, uids = splits
+        if uids is None or len(uids) != len(splits):
+            raise ValueError("UserDataset needs one split row per user "
+                             "(split_mode 'user_entry' or 'user')")
+        if self.split_mode == "user_entry":
+            keep = splits[:, 1] < splits[:, 2]
+            splits, uids = splits[keep], uids[keep]
+        first = np.stack([uids, splits[:, 0], splits[:, 1]], axis=1)
+        return [np.concatenate([first, np.stack([uids, splits[:, i - 1], splits[:, i]], axis=1)],
+                               axis=1).astype(np.int64)
+                for i in range(1, splits.shape[1])]
+
+    def _in_width(self) -> int:
+        """The widest history window of the split."""
+        if not hasattr(self, "_in_width_"):
+            self._in_width_ = int((self.data_index[:, 2] - self.data_index[:, 1]).max())
+        return self._in_width_
+
+    def _eval_target_width(self) -> int:
+        if not hasattr(self, "_target_width"):
+            self._target_width = int((self.data_index[:, 5] - self.data_index[:, 4]).max())
+        return self._target_width
+
+    def _windows(self):
+        """(field prefix, start column, end column, width) of the history
+        window and the target window."""
+        return (("in_", 1, 2, self._in_width()), ("", 4, 5, self._eval_target_width()))
+
+    def _get_pos_batch(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        rows = self.data_index[idx]
+        batch = {self.fuid: rows[:, 0].astype(np.int32)}
+        for f in self._fields_of(self.user_feat):
+            if f != self.fuid:
+                batch[f] = self.user_feat.get_col(f)[rows[:, 0]]
+        fiid_col = self.inter_feat.get_col(self.fiid)
+        for prefix, cs, ce, width in self._windows():
+            gather = rows[:, cs, None] + np.arange(width)[None, :]
+            valid = gather < rows[:, ce, None]
+            gather = np.where(valid, gather, 0)
+            iid = np.where(valid, fiid_col[gather], 0).astype(np.int32)
+            batch[prefix + self.fiid] = iid
+            if self.frating is not None:
+                rcol = self.inter_feat.get_col(self.frating)
+                batch[prefix + self.frating] = np.where(valid, rcol[gather], 0).astype(np.float32)
+            for f in self._fields_of(self.item_feat):
+                if f != self.fiid:          # joined by the windowed item ids (0 = pad row)
+                    batch[prefix + f] = np.where(valid, self.item_feat.get_col(f)[iid], 0)
+        return batch
+
+    def _make_batch(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        batch = self._get_pos_batch(idx)
+        if self.eval_mode and "user_hist" not in batch:
+            batch["user_hist"] = batch["in_" + self.fiid]
+        return batch
+
+    @property
+    def inter_feat_subset(self) -> np.ndarray:
+        di = self.data_index
+        return np.concatenate([np.arange(s, e) for s, e in zip(di[:, -2], di[:, -1])]
+                              + [np.zeros(0, np.int64)])
+
+    def device_epoch_arrays(self) -> Tuple[Dict[str, np.ndarray], Callable]:
+        """Compact staging for device-resident epochs (``dataset.py:
+        1098-1158``): ``data_index`` and the item id (and rating) column,
+        padded with ``max(history width, target width)`` zeros so every
+        window read stays in bounds; ``batch_fn(arrays, sel)`` returns
+        ``_get_pos_batch(sel)``'s batch as tensors, each row's two windows
+        read from the padded columns on the device. User and item feature
+        columns are not ported yet and raise."""
+        fuid, fiid, frating = self.fuid, self.fiid, self.frating
+        if [f for f in self._fields_of(self.user_feat) if f != fuid] or \
+                [f for f in self._fields_of(self.item_feat) if f != fiid]:
+            raise NotImplementedError("staging user or item feature columns is not ported yet")
+        pad = max(self._in_width(), self._eval_target_width())
+        compact = {"_rows": _int32_column("data_index", self.data_index),
+                   "_fiid": np.concatenate([_int32_column(fiid, self.inter_feat.get_col(fiid)),
+                                            np.zeros(pad, np.int32)])}
+        if frating is not None:
+            rcol = self.inter_feat.get_col(frating).astype(np.float32)
+            compact["_rating"] = np.concatenate([rcol, np.zeros(pad, np.float32)])
+        windows = self._windows()
+
+        def batch_fn(arrays: Dict[str, torch.Tensor], sel: torch.Tensor) -> Dict[str, torch.Tensor]:
+            rows = arrays["_rows"][sel].long()
+            batch = {fuid: rows[:, 0].int()}
+            for prefix, cs, ce, width in windows:
+                pos = rows[:, cs, None] + torch.arange(width, device=sel.device)[None, :]
+                valid = pos < rows[:, ce, None]
+                batch[prefix + fiid] = torch.where(valid, arrays["_fiid"][pos], 0)
+                if frating is not None:
+                    batch[prefix + frating] = torch.where(valid, arrays["_rating"][pos], 0.0)
+            return batch
+
+        return compact, batch_fn
 
 
 class SeqDataset(TripletDataset):

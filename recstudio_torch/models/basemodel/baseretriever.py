@@ -116,13 +116,18 @@ class BaseRetriever(Recommender):
             self.net = SharedItemTowerNet(self.query_encoder, self.score_func)
         else:
             self.net = TwoTowerNet(self.item_encoder, self.query_encoder, self.score_func)
-        # query-side fields: user feats + in_-prefixed item fields (+ seqlen)
-        from ...data.dataset import SeqDataset
+        # query-side fields: user feats + in_-prefixed item fields (+ seqlen);
+        # ``history_width``: the width of an ``in_`` field (a sequence
+        # model's length, a user model's widest training history)
+        from ...data.dataset import SeqDataset, UserDataset
         self.query_fields = set(train_data.user_feat.fields).intersection(self.fields)
-        if isinstance(train_data, SeqDataset):
+        if isinstance(train_data, (SeqDataset, UserDataset)):
             self.query_fields |= {"in_" + f for f in self.item_fields}
+        if isinstance(train_data, SeqDataset):
             self.query_fields.add("seqlen")
-            self.max_seq_len = train_data.max_seq_len
+            self.max_seq_len = self.history_width = train_data.max_seq_len
+        elif isinstance(train_data, UserDataset):
+            self.history_width = train_data._in_width()
 
     def _get_query_feat(self, batch: Dict[str, torch.Tensor]):
         """The query tower's input (``baseretriever.py:186-193``): the one

@@ -9,10 +9,11 @@ negative samples).
 
 Training (``fit``) runs one device-resident epoch after another
 (``_setup_scan_epoch``'s counterpart): the split is staged on the device
-once (``SeqDataset.device_epoch_arrays``), each epoch draws one permutation
-and wraps its tail batch to the epoch's head, every step gathers its batch
-on the device and takes one optimizer step (``_grad_step``), and the
-epoch's mean loss is read once, at its end. Evaluation serves each split
+once (``device_epoch_arrays`` of ``SeqDataset`` or ``UserDataset``), each
+epoch draws one permutation and wraps its tail batch to the epoch's head
+(``_steps_per_epoch`` batches), every step gathers its batch on the
+device and takes one optimizer step (``_grad_step``), and the epoch's
+mean loss is read once, at its end. Evaluation serves each split
 through ``topk`` and averages the rank metrics over its true rows.
 
 Not ported yet: the host-loader epoch (``train.epoch_scan: false``), the
@@ -197,6 +198,7 @@ class Recommender:
         self._epoch_arrays = {k: torch.as_tensor(np.ascontiguousarray(v)).to(self.device)
                               for k, v in host.items()}
         self._epoch_rows = n
+        self._steps_per_epoch = max(-(-n // int(self.config["train"]["batch_size"])), 1)
 
     def _epoch_batches(self):
         """This epoch's batches: one permutation (shuffle on), the tail

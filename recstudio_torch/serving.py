@@ -3,8 +3,10 @@
 Counterpart of ``recstudio_tpu/serving.py:Predictor``. Each request is
 padded to ``max_batch`` rows so every call runs the same shapes; ``warm()``
 runs one dummy request at start-up. The dummy is built from the model's
-query fields (zeros ``[max_batch, L]`` for ``in_*`` histories, zero
-``seqlen``), so it works for sequence retrievers; the JAX package builds it
+query fields (zeros ``[max_batch, W]`` for ``in_*`` histories, W the
+model's ``history_width``: a sequence model's length, a user model's
+widest training history; zero ``seqlen``), so it works for sequence and
+user retrievers; the JAX package builds it
 from the user id alone (``serving.py:102-108``), which SASRec rejects.
 
 Example::
@@ -54,8 +56,8 @@ class Predictor:
     def _dummy(self) -> Dict[str, np.ndarray]:
         out = {}
         for f in sorted(self.model.query_fields):
-            # only a sequence field has a length (the model's, from its dataset)
-            shape = ((self.max_batch, self.model.max_seq_len) if f.startswith("in_")
+            # only a history field has a width (the model's, from its dataset)
+            shape = ((self.max_batch, self.model.history_width) if f.startswith("in_")
                      else (self.max_batch,))
             out[f] = np.zeros(shape, np.int32)
         return out

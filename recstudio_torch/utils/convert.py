@@ -1,11 +1,13 @@
 """Parameter conversion between the JAX package and the port.
 
-``params_from_jax`` turns a JAX SASRec, BERT4Rec, GRU4Rec, NARM, STAMP or
-BPR parameter tree (the nested dict of arrays that ``model.params`` holds;
-BERT4Rec's item table has one more row, the ``[MASK]`` token; BPR's tree is
-its two tables, ``query_encoder/embedding`` and ``item_encoder/embedding``;
-a sequence model's query encoder owns the item table the catalog is scored
-against) into the port's ``state_dict``; ``params_to_jax`` is the reverse.
+``params_from_jax`` turns a JAX SASRec, BERT4Rec, GRU4Rec, NARM, STAMP,
+BPR, MultiDAE or MultiVAE parameter tree (the nested dict of arrays that
+``model.params`` holds; BERT4Rec's item table has one more row, the
+``[MASK]`` token; BPR's tree is its two tables, ``query_encoder/embedding``
+and ``item_encoder/embedding``; a sequence model's query encoder owns the
+item table the catalog is scored against; MultiDAE's and MultiVAE's query
+encoder has a table of its own, ``item_embedding``, beside the item
+tower's) into the port's ``state_dict``; ``params_to_jax`` is the reverse.
 ``lazy_adam_state_from_jax`` loads the JAX lazy-Adam state (``count``,
 ``mu``, ``nu``) into the port's ``LazyAdam``. Flax kernels are ``[in, out]`` and the
 port's weights ``[out, in]``, so kernels are transposed. The fused
@@ -65,16 +67,16 @@ def layer_params_to_jax(layer: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]
     return out
 
 
-# two-tower nets of embedding tables (BPR): JAX path <-> port parameter name
-_TWO_TOWER = {("item_encoder", "embedding"): "item_encoder.weight",
-              ("query_encoder", "embedding"): "query_encoder.weight"}
+# modules whose ``weight`` is an embedding table (the JAX ``embedding``
+# leaf, not transposed); a tower that is a table itself has the bare name
+_TABLES = ("item_encoder", "item_embedding")
 
 
 def _port_name(path) -> Tuple[str, bool]:
-    """A leaf of a JAX query encoder's tree -> (the port's parameter name
-    under ``query_encoder.``, transpose)."""
-    if path == ("item_encoder", "embedding"):
-        return "item_encoder.weight", False
+    """A leaf of a JAX tower's tree -> (the port's parameter name under
+    the tower's, transpose)."""
+    if path[-1] == "embedding":                     # an embedding table
+        return ".".join(path[:-1] + ("weight",)), False
     if path[0] == "transformer":                    # transformer/layer_{i}/<leaf>
         name, tr = _LAYER_MAP[path[2]]
         return f"transformer.layers.{path[1][len('layer_'):]}.{name}", tr
@@ -89,8 +91,8 @@ def _port_name(path) -> Tuple[str, bool]:
 def _jax_path(name: str) -> Tuple[Tuple[str, ...], bool]:
     """``_port_name``'s inverse."""
     parts = tuple(name.split("."))
-    if parts == ("item_encoder", "weight"):
-        return ("item_encoder", "embedding"), False
+    if parts == ("weight",) or (parts[-1] == "weight" and parts[-2] in _TABLES):
+        return parts[:-1] + ("embedding",), False
     if parts[0] == "transformer":                   # transformer.layers.{i}.<name>
         leaf, tr = _LAYER_UNMAP[parts[3]]
         return ("transformer", f"layer_{parts[2]}", leaf), tr
@@ -112,33 +114,28 @@ def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX SASRec, BERT4Rec, GRU4Rec, NARM, STAMP or BPR params -> the
-    port's ``state_dict`` (float32 CPU tensors)."""
-    if "item_encoder" in tree:
-        return {name: _tensor(tree[a][b]) for (a, b), name in _TWO_TOWER.items()}
+    """JAX SASRec, BERT4Rec, GRU4Rec, NARM, STAMP, BPR, MultiDAE or
+    MultiVAE params -> the port's ``state_dict`` (float32 CPU tensors)."""
     sd = {}
-    for path, value in _leaves(tree["query_encoder"]):
-        name, tr = _port_name(path)
-        sd["query_encoder." + name] = _tensor(value, tr)
+    for tower in ("item_encoder", "query_encoder"):
+        for path, value in _leaves(tree.get(tower, {})):
+            name, tr = _port_name(path)
+            sd[f"{tower}.{name}"] = _tensor(value, tr)
     return sd
 
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """The port's ``state_dict`` of one of those models (or its gradients by
     the same names) -> a JAX-layout tree of numpy arrays."""
-    a = lambda name: state_dict[name].detach().cpu().numpy().astype(np.float32)
     out: Dict[str, Any] = {}
-    if "item_encoder.weight" in state_dict:
-        for (top, leaf), name in _TWO_TOWER.items():
-            out.setdefault(top, {})[leaf] = a(name)
-        return out
-    prefix = "query_encoder."
-    for key in state_dict:
-        path, tr = _jax_path(key[len(prefix):])
-        node = out.setdefault("query_encoder", {})
+    for key, value in state_dict.items():
+        tower, _, name = key.partition(".")
+        path, tr = _jax_path(name)
+        node = out.setdefault(tower, {})
         for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[path[-1]] = a(key).T.copy() if tr else a(key)
+        a = value.detach().cpu().numpy().astype(np.float32)
+        node[path[-1]] = a.T.copy() if tr else a
     return out
 
 

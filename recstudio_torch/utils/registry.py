@@ -1,8 +1,8 @@
 """Model registry: name -> (model class, layered default config).
 
 The subset of ``recstudio_tpu/utils/registry.py`` this port implements:
-SASRec, BERT4Rec, GRU4Rec, NARM and STAMP (``seq``), BPR (``mf``), and the
-dataset configs they run on.
+SASRec, BERT4Rec, GRU4Rec, NARM and STAMP (``seq``), BPR (``mf``),
+MultiDAE and MultiVAE (``ae``), and the dataset configs they run on.
 """
 from __future__ import annotations
 
@@ -18,7 +18,9 @@ _MODELS = {"sasrec": ("seq", "SASRec", ("seq_all", "sasrec")),
            "gru4rec": ("seq", "GRU4Rec", ("seq_all", "gru4rec")),
            "narm": ("seq", "NARM", ("seq_all", "narm")),
            "stamp": ("seq", "STAMP", ("seq_all", "stamp")),
-           "bpr": ("mf", "BPR", ("mf_all", "bpr"))}
+           "bpr": ("mf", "BPR", ("mf_all", "bpr")),
+           "multidae": ("ae", "MultiDAE", ("multidae",)),
+           "multivae": ("ae", "MultiVAE", ("multivae",))}
 
 
 def list_models() -> Dict[str, str]:

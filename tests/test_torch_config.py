@@ -31,6 +31,14 @@ def test_rnn_and_attention_model_configs_equal_jax(name):
     assert get_model(name.lower())[1] == want
 
 
+@pytest.mark.parametrize("name", ["MultiDAE", "MultiVAE"])
+def test_autoencoder_model_configs_equal_jax(name):
+    _, want = jax_get_model(name)
+    cls, got = get_model(name)
+    assert got == want and cls.__name__ == name
+    assert got["eval"]["batch_size"] == 200 and got["train"]["weight_decay"] == 1e-5
+
+
 def test_ml100k_config_equals_jax():
     assert get_dataset_default_config("ml-100k") == jax_dataset_config("ml-100k")
 
@@ -41,7 +49,8 @@ def test_unknown_dataset_falls_back_to_defaults():
 
 def test_registry_lists_what_is_ported():
     assert list_models() == {"sasrec": "seq", "bert4rec": "seq", "gru4rec": "seq",
-                             "narm": "seq", "stamp": "seq", "bpr": "mf"}
+                             "narm": "seq", "stamp": "seq", "bpr": "mf",
+                             "multidae": "ae", "multivae": "ae"}
 
 
 @pytest.mark.parametrize("key,value", [

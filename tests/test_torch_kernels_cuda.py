@@ -537,10 +537,12 @@ def _clse_inputs(M, N, D, dev, seed=0):
 
 
 @pytest.mark.parametrize("M,N,D", [(300, 1000, 64), (37, 5000, 200), (1000, 129, 16),
-                                   (512, 40000, 64), (5, 3, 256), (6000, 3706, 64)])
+                                   (512, 40000, 64), (5, 3, 256), (6000, 3706, 64),
+                                   (256, 3706, 200)])
 def test_catalog_logsumexp_kernels_match_plain(dev, M, N, D):
     """K7, K8, K9 against their plain versions, ragged tiles and every
-    split plan (one range, items split, rows split). Tolerance: logZ atol
+    split plan (one range, items split, rows split), and MultiDAE's
+    training shape (256 users, the ml-1m catalog, D 200). Tolerance: logZ atol
     1e-4 (sums of up to 40,000 terms); gradients atol 1e-4 times their
     largest magnitude, rtol 1e-3. K8 and K9 repeat bit for bit."""
     q, items, g = _clse_inputs(M, N, D, dev, M + N)
