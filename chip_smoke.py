@@ -110,6 +110,26 @@ then:
   multidae_ml100k_train_reference.json``, ``multivae_...``), every test
   user served, masked by the history window as ``evaluate`` masks, whose
   lists must give ``evaluate``'s NDCG@10;
+- phase R: DeepFM at the repo's config (embed_dim 10, MLP [256, 256,
+  256], tanh, dropout 0.3) on ``generate_ctr("criteo-1m-shape")`` (1,000,000
+  rows, 13 float and 26 token fields; 499,331 table rows, the ids the
+  Zipf draws reach of 660,208 vocabulary slots; the JAX
+  bench's ``ctr_scale`` setup), batch 8192, Adam 1e-3: ``fit(train,
+  None)`` for one epoch, then four more, the test split evaluated after
+  each; the test AUC and logloss after the fifth held to the JAX seeds'
+  bands (``recstudio_torch/assets/deepfm_criteo1m_train_reference.json``),
+  whose AUC band must clear the untrained AUC by ``AUC_MARGIN``; 20 timed steps, peak memory, an epoch and its busy share, the
+  MLP's dropout masks a step; one step held to the model copied to the CPU
+  (same batch and dropout seeds) and to a repeat of itself; eval rows/s;
+  an epoch under ``sparse_adam`` (dense ``LazyAdam``); 8 requests of 8192
+  rows through ``ScorePredictor`` held to ``predict``. No kernel;
+- phase S: ``quickstart.run`` of DeepFM, FM and LR on ml-100k at the
+  repo's config (fm family: ``fmeval``, ratings binarized at 3.0; early
+  stopping on validation AUC, patience 10), test AUC held to each model's
+  JAX band (``recstudio_torch/assets/{deepfm,fm,lr}_ml100k_train_
+  reference.json``), one epoch profiled, every test row served through
+  ``ScorePredictor(max_batch=256)``, whose probabilities must be
+  ``evaluate``'s. No kernel;
 - each kernel against its plain PyTorch version on the phases' shapes,
   with its time, the plain version's, PyTorch's own call where one exists,
   and the card's bound for the same work.
@@ -143,6 +163,10 @@ MULTIDAE_TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
                                         "multidae_ml100k_train_reference.json")
 MULTIVAE_TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
                                         "multivae_ml100k_train_reference.json")
+CRITEO_TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
+                                      "deepfm_criteo1m_train_reference.json")
+RANKER_TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
+                                      "{}_ml100k_train_reference.json")
 SAVE_DIR = os.path.join(REPO, "build", "recstudio_torch", "saved")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor
@@ -173,6 +197,12 @@ TOL_LOGZ = (1e-4, 1e-5)
 # float32 sums in another order over 200 steps of |h| < 1; TF32 products
 # (10-bit mantissas) miss it by orders of magnitude
 TOL_GRU = (2e-5, 1e-4)     # (atol, rtol)
+# served CTR probabilities against predict()'s or evaluate()'s: the same
+# weights, the MLP's products at another batch size
+TOL_PROB = 1e-5
+# phase R: the JAX seeds' AUC band after its epochs must sit this far above
+# the untrained model's AUC, or the gate could not tell a model that learns
+AUC_MARGIN = 0.1
 CLSE_KERNELS = ("catalog_logsumexp_fwd", "catalog_logsumexp_dq", "catalog_logsumexp_ditems")
 
 
@@ -842,7 +872,11 @@ def phase_h(device):
 def busy_share(fn):
     """Run ``fn`` under ``torch.profiler``: (host ms, the card's busy ms,
     the union of its kernel and copy intervals). Busy ms is None when the
-    profiler records no device activity."""
+    profiler records no device activity. The intervals are read from the
+    profiler's raw events (ns; ``kineto_results``, which torch 2.11 keeps
+    and which is not public API): building its Python event tree takes
+    about a minute for an epoch of a few hundred thousand events. A torch
+    without them fails the run rather than measure another way."""
     import torch
     from torch.autograd import DeviceType
     torch.cuda.synchronize()
@@ -852,15 +886,19 @@ def busy_share(fn):
         fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, None
+    raw = getattr(prof.profiler, "kineto_results", None)
+    check(raw is not None and hasattr(raw, "events"),
+          f"torch {torch.__version__}'s profiler keeps no raw kineto results: busy_share "
+          "reads them (torch 2.11 does)")
+    spans = sorted((e.start_ns(), e.end_ns()) for e in raw.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy, end = 0, None
     for a, b in spans:
         if end is None or a > end:
             busy, end = busy + (b - a), b
         elif b > end:
             busy, end = busy + (b - end), b
-    return host_ms, (busy / 1e3 if spans else None)
+    return host_ms, (busy / 1e6 if spans else None)
 
 
 def multi_target_ndcg(ids, targets, k):
@@ -1438,6 +1476,300 @@ def phase_q(device):
 
 
 # ---------------------------------------------------------------------------
+def ranker_step(model, batch, gen_state):
+    """One training step's loss and gradients from the dropout generator
+    state ``gen_state``: the same seeds, so the same masks, on any device."""
+    from recstudio_torch.models.init import zero_pad_rows_in_grads
+    model.generator.set_state(gen_state)
+    model.net.train()
+    model.net.zero_grad(set_to_none=True)
+    loss = model.training_step(batch)
+    loss.backward()
+    zero_pad_rows_in_grads(model.net)
+    model.net.eval()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                                  for n, p in model.net.named_parameters()}
+
+
+def eval_probs(model, split):
+    """``evaluate``'s scores of a split (its staged eval batches), as
+    probabilities, true rows only."""
+    import torch
+    with torch.no_grad():
+        return torch.cat([torch.sigmoid(model.score(b))[:int(b["_size"])]
+                          for b in model._eval_batches(split)]).cpu().numpy()
+
+
+def criteo_setup():
+    """Phase R's data and DeepFM config (the JAX bench's ``ctr_scale``):
+    ``(reference, dataset, (train, val, test), DeepFM class, config, gen s,
+    ETL s)``."""
+    import numpy as np
+    from recstudio_torch.data import TripletDataset
+    from recstudio_torch.data.synthetic import ctr_shape_vocabs, generate_ctr
+    from recstudio_torch.utils import get_model
+    with open(CRITEO_TRAIN_REFERENCE) as f:
+        ref = json.load(f)
+    shape_name, rows, B = "criteo-1m-shape", ref["rows"], ref["batch_size"]
+    t0 = time.perf_counter()
+    name, config = generate_ctr(shape_name, rows, seed=11, vocabs=ctr_shape_vocabs(shape_name))
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np.random.seed(11)
+    ds = TripletDataset(name, config=config)
+    splits = ds.build(fmeval=True, split_mode="entry", split_ratio=[0.8, 0.1, 0.1])
+    etl_s = time.perf_counter() - t0
+    check(ds.num_inters == rows and len(ds.field2type) == 40 and ds.fuid is None,
+          f"phase R dataset {ds.num_inters} rows, {len(ds.field2type)} fields")
+    cls, conf = get_model("DeepFM")
+    conf["train"].update(epochs=1, batch_size=B, learner="adam", learning_rate=1e-3,
+                         seed=2022)
+    conf["eval"].update(batch_size=B, val_metrics=["auc"], test_metrics=["auc", "logloss"],
+                        save_path=SAVE_DIR)
+    return ref, ds, splits, cls, conf, gen_s, etl_s
+
+
+def phase_r(device):
+    """DeepFM at criteo-1m-shape (the JAX bench's ``ctr_scale``): a one-epoch
+    fit and four more epochs, the test AUC and logloss after the fifth held
+    to the JAX bands, 20 timed steps, one step held to the CPU copy, the
+    epoch's busy share, dropout masks, a sparse_adam epoch, and
+    ``ScorePredictor`` at 8192 rows a request."""
+    import numpy as np
+    import torch
+    from recstudio_torch.ops.dropout import SITE_HIDDEN, keep_scale
+    from recstudio_torch.serving import ScorePredictor
+    ref, ds, (trn, val, tst), cls, conf, gen_s, etl_s = criteo_setup()
+    name, rows, B = ds.name, ref["rows"], ref["batch_size"]
+    emb_rows = sum(ds.num_values(f) for f, t in ds.field2type.items() if t == "token")
+
+    def drive():
+        model = cls(conf, device=device)
+        t = time.perf_counter()
+        model.fit(trn, None)
+        fit_s = time.perf_counter() - t
+        log = [{"epochs": 1, **model.evaluate(tst, verbose=False)}]
+        for n in range(1, ref["epochs"]):
+            model.training_epoch(n)
+            log.append({"epochs": n + 1, **model.evaluate(tst, verbose=False)})
+        return model, fit_s, log
+
+    (model, fit_s, test_log), counts = counted(drive)
+    result = test_log[-1]
+    mc = model.config["model"]
+    shape = dict(embed_dim=model.embed_dim, mlp=mc["mlp_layer"], activation=mc["activation"],
+                 dropout=mc["dropout"], fields=len(model.net.embedding.field_specs), batch=B)
+    check(shape == dict(embed_dim=10, mlp=[256, 256, 256], activation="tanh", dropout=0.3,
+                        fields=39, batch=8192), f"phase R config {shape}")
+    n = len(trn.data_index)
+    steps = -(-n // B)
+
+    # 20 timed steps on device-resident batches, peak memory
+    batches = list(itertools.islice(model._epoch_batches(), 23))
+    torch.cuda.reset_peak_memory_stats(device)
+    model.net.train()
+    step_ms = []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model._grad_step(batch)
+        torch.cuda.synchronize()
+        if i >= 3:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    model.net.eval()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    step_p50 = sorted(step_ms)[len(step_ms) // 2]
+
+    # an epoch, then the same epoch profiled
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model.training_epoch(1)
+    epoch_s = time.perf_counter() - t
+    host_ms, busy_ms = busy_share(lambda: model.training_epoch(2))
+
+    # the MLP's dropout masks of one step: one before each of its 4 layers
+    widths = [model.net.mlp.dense_0.in_features] + list(mc["mlp_layer"])
+    mask_ms = time_ms(lambda: [keep_scale((B, w), mc["dropout"], 12345, SITE_HIDDEN, device)
+                               for w in widths])
+
+    # one step on the card held to the CPU copy (same batch, same dropout
+    # seeds), and repeated on the card
+    batch = batches[0]
+    gen = model.generator.get_state()
+    loss_k, grads_k = ranker_step(model, batch, gen)
+    loss_k2, grads_k2 = ranker_step(model, batch, gen)
+    bitwise = loss_k == loss_k2 and all(torch.equal(grads_k[k], grads_k2[k]) for k in grads_k)
+    cpu = cpu_copy(model, trn)
+    loss_c, grads_c = ranker_step(cpu, {k: v.cpu() for k, v in batch.items()}, gen)
+    max_abs, ok = grad_errors({k: v.cpu() for k, v in grads_k.items()}, grads_c)
+    del cpu
+
+    # evaluation rate (the split's batches are staged)
+    model._eval_epoch(tst, ["auc", "logloss"], [None])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model._eval_epoch(tst, ["auc", "logloss"], [None])
+    eval_s = time.perf_counter() - t
+
+    # sparse_adam (dense lazy Adam): fit's epoch warms it; a timed one, a profiled one
+    lconf = json.loads(json.dumps(conf))
+    lconf["train"]["learner"] = "sparse_adam"
+    lazy = cls(lconf, device=device).fit(trn, None)
+    lazy_loss = lazy.epoch_log[0]["train_loss"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lazy.training_epoch(1)
+    lazy_epoch_s = time.perf_counter() - t
+    lazy_host_ms, lazy_busy_ms = busy_share(lambda: lazy.training_epoch(2))
+    lazy_opt = type(lazy.optimizer).__name__
+    del lazy
+
+    # ScorePredictor at 8192 rows a request, held to predict()
+    pred = ScorePredictor(model, max_batch=B, train_data=trn)
+    fields = [f for f in tst.inter_feat.fields if f != model.frating]
+    starts = range(0, min(8 * B, len(tst.data_index)), B)
+    requests = [{f: tst.inter_feat.get_col(f)[tst.data_index[i:i + B]] for f in fields}
+                for i in starts]
+    pred.warm(requests[0])
+    served = [pred(r) for r in requests]
+    want = [model.predict(tst._get_pos_batch(np.arange(i, i + len(r)))) for i, r in zip(
+        starts, served)]
+    serve_diff = max(float(np.abs(a - b).max()) for a, b in zip(served, want))
+
+    lo, hi = ref["auc_band"]
+    llo, lhi = ref["logloss_band"]
+    out = {"phase": "R", "model": "DeepFM", "dataset": name, "rows": rows,
+           "train_rows": n, "test_rows": len(tst.data_index), "config": shape,
+           "emb_rows": emb_rows,
+           "launches": counts, "gen_s": gen_s, "etl_s": etl_s, "fit_s": fit_s,
+           "fit_epoch_s": model.epoch_log[0]["train_s"], "steps_per_epoch": steps,
+           "step_ms_p50": step_p50, "step_ms_min": min(step_ms),
+           "examples_per_s": B / step_p50 * 1e3, "peak_mem_gb": peak_gb,
+           "epoch_s": epoch_s, "epoch_examples_per_s": n / epoch_s,
+           "profiled_epoch_host_ms": host_ms, "profiled_epoch_busy_ms": busy_ms,
+           "busy_share_of_epoch": None if busy_ms is None else busy_ms / (epoch_s * 1e3),
+           "dropout_mask_ms_per_step": mask_ms,
+           "dropout_mask_elements_per_step": B * sum(widths),
+           "dropout_mask_share_of_step": mask_ms / step_p50,
+           "one_epoch_test_auc": test_log[0]["auc"],
+           "one_epoch_test_logloss": test_log[0]["logloss"], "band_epochs": ref["epochs"],
+           "test_auc": result["auc"], "test_logloss": result["logloss"], "test_log": test_log,
+           "jax_band_auc": [lo, hi], "jax_band_logloss": [llo, lhi],
+           "jax_untrained_auc": ref["untrained_auc"],
+           "jax_runs": [{k: r[k] for k in ("seed", "auc", "logloss", "untrained_auc")}
+                        for r in ref["runs"]], "eval_s": eval_s,
+           "eval_rows_per_s": len(tst.data_index) / eval_s,
+           "cpu_loss": loss_c, "card_loss": loss_k, "grad_max_abs_err": max_abs,
+           "grad_tol": TOL_GRAD, "loss_tol": TOL_LOSS, "step_bitwise_repeat": bitwise,
+           "sparse_adam": {"optimizer": lazy_opt, "first_epoch_loss": lazy_loss,
+                           "epoch_s": lazy_epoch_s, "profiled_epoch_host_ms": lazy_host_ms,
+                           "profiled_epoch_busy_ms": lazy_busy_ms,
+                           "busy_share_of_epoch": None if lazy_busy_ms is None
+                           else lazy_busy_ms / (lazy_epoch_s * 1e3)},
+           "serve_max_abs_diff_vs_predict": serve_diff,
+           **{"serve_" + k: v for k, v in pred.stats().items()}}
+    emit("PHASE", out)
+    check(not any(counts.values()), f"phase R launched a kernel: {counts}")
+    check(np.isfinite(model.epoch_log[0]["train_loss"]) and np.isfinite(lazy_loss),
+          "phase R loss not finite")
+    check(lo > ref["untrained_auc"] + AUC_MARGIN,
+          f"phase R: the JAX band [{lo}, {hi}] does not clear the untrained AUC "
+          f"{ref['untrained_auc']} by {AUC_MARGIN}")
+    check(lo <= result["auc"] <= hi,
+          f"phase R test AUC {result['auc']} outside the JAX band [{lo}, {hi}]")
+    check(llo <= result["logloss"] <= lhi,
+          f"phase R test logloss {result['logloss']} outside the JAX band [{llo}, {lhi}]")
+    check(abs(loss_k - loss_c) <= TOL_LOSS * abs(loss_c), f"phase R loss {loss_k} vs {loss_c}")
+    check(ok, f"phase R gradients disagree with the CPU copy's: {max_abs}")
+    check(lazy_opt == "LazyAdam", f"phase R sparse_adam ran {lazy_opt}")
+    check(serve_diff <= TOL_PROB, f"phase R ScorePredictor differs from predict by {serve_diff}")
+    check(pred.stats()["requests"] == len(starts) == min(8, -(-len(tst.data_index) // B)),
+          "phase R served other than 8 requests")
+    return out
+
+
+def phase_s(device):
+    """DeepFM, FM and LR the way users start them, ``quickstart.run`` on
+    ml-100k to their early stop, test AUC held to the JAX bands, one epoch
+    profiled, every test row served through ``ScorePredictor``."""
+    import numpy as np
+    from recstudio_torch import eval as ev
+    from recstudio_torch.quickstart import run
+    from recstudio_torch.serving import ScorePredictor
+    import torch
+    outs = []
+    for model_name, expected in (("DeepFM", dict(embed_dim=10, mlp=[256, 256, 256],
+                                                 dropout=0.3)),
+                                 ("FM", dict(embed_dim=10)), ("LR", dict(embed_dim=1))):
+        with open(RANKER_TRAIN_REFERENCE.format(model_name.lower())) as f:
+            ref = json.load(f)
+
+        def drive():
+            t0 = time.perf_counter()
+            model, (trn, _, tst), result = run(
+                model_name, "ml-100k", verbose=False, device=device,
+                model_config={"train": {"epochs": ref["epochs"]},
+                              "eval": {"save_path": SAVE_DIR}})
+            run_s = time.perf_counter() - t0
+            size = 256
+            fields = ("user_id", "item_id", "timestamp")
+            rows = tst.data_index
+            pred = ScorePredictor(model, max_batch=size, train_data=trn)
+            requests = [{f: tst.inter_feat.get_col(f)[rows[i:i + size]] for f in fields}
+                        for i in range(0, len(rows), size)]
+            pred.warm(requests[0])
+            probs = np.concatenate([pred(r) for r in requests])
+            return model, trn, tst, result, run_s, pred, probs
+
+        (model, trn, tst, result, run_s, pred, probs), counts = counted(drive)
+        mc, tc = model.config["model"], model.config["train"]
+        shape = dict(embed_dim=model.embed_dim, **{k: mc[v] for k, v in (
+            ("mlp", "mlp_layer"), ("dropout", "dropout")) if v in mc},
+            batch=tc["batch_size"], epochs=tc["epochs"],
+            patience=tc["early_stop_patience"], fmeval=trn.fmeval)
+        check(shape == dict(expected, batch=512, epochs=ref["epochs"],
+                            patience=ref["early_stop_patience"], fmeval=True),
+              f"phase S {model_name} config {shape}")
+        want = eval_probs(model, tst)
+        served_diff = float(np.abs(probs - want).max())
+        served_auc = float(ev.auc(torch.from_numpy(probs),
+                                  torch.from_numpy(tst.inter_feat.get_col("rating")[
+                                      tst.data_index])))
+        train_s = sorted(e["train_s"] for e in model.epoch_log)
+        epoch_s = train_s[len(train_s) // 2]
+        host_ms, busy_ms = busy_share(lambda: model.training_epoch(0))
+        steps = -(-model._epoch_rows // tc["batch_size"])
+        lo, hi = ref["auc_band"]
+        out = {"phase": "S", "model": model_name, "dataset": "ml-100k",
+               "entry": "quickstart.run", "config": shape, "launches": counts,
+               "run_s": run_s, "epochs_run": len(model.epoch_log),
+               "best_epoch": model.callback.best_epoch,
+               "fit_s": sum(e["train_s"] + e["eval_s"] for e in model.epoch_log),
+               "epoch_s_p50": epoch_s, "steps_per_epoch": steps,
+               "step_ms_p50": epoch_s / steps * 1e3,
+               "eval_s_p50": sorted(e["eval_s"] for e in model.epoch_log)[
+                   len(model.epoch_log) // 2],
+               "profiled_epoch_host_ms": host_ms, "profiled_epoch_busy_ms": busy_ms,
+               "busy_share_of_epoch": None if busy_ms is None else busy_ms / (epoch_s * 1e3),
+               "test_auc": result["auc"], "test_logloss": result["logloss"],
+               "jax_band_auc": [lo, hi], "jax_untrained_auc": ref["untrained_auc"],
+               "jax_runs": ref["runs"], "served_rows": len(probs),
+               "served_auc": served_auc, "served_max_abs_diff_vs_evaluate": served_diff,
+               **{"serve_" + k: v for k, v in pred.stats().items()}}
+        emit("PHASE", out)
+        check(not any(counts.values()), f"phase S {model_name} launched a kernel: {counts}")
+        check(all(np.isfinite(e["train_loss"]) for e in model.epoch_log),
+              f"phase S {model_name} loss")
+        check(lo <= result["auc"] <= hi, f"phase S {model_name} test AUC {result['auc']} "
+                                         f"outside the JAX band [{lo}, {hi}]")
+        check(len(probs) == len(tst.data_index) and served_diff <= TOL_PROB,
+              f"phase S {model_name}: served probabilities differ from evaluate's by "
+              f"{served_diff}")
+        outs.append(out)
+    return outs
+
+
+# ---------------------------------------------------------------------------
 def causal_mask(L, device, causal=True):
     """The causal attention mask (True = disallow), or None (bidirectional)."""
     import torch
@@ -1871,7 +2203,7 @@ def main() -> int:
               phase_e(device), phase_f(device), phase_g(device), phase_h(device),
               phase_i(device), phase_j(device), phase_k(device), phase_l(device),
               phase_m(device), *phase_n(device), phase_o(device), phase_p(device),
-              *phase_q(device)]
+              *phase_q(device), phase_r(device), *phase_s(device)]
 
     k1_a = k1_versus_plain(device, 128, 20, 64, 128, 2)
     k1_b = k1_versus_plain(device, 256, 200, 128, 128, 2)

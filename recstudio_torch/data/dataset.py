@@ -8,7 +8,8 @@ need, in numpy and plain Python (no pandas):
   of first appearance in the file as read, as the JAX package's native CSV
   path interns them (``recstudio_tpu/native/__init__.py:fast_read_csv``);
 - the rating threshold (``low_rating_thres``) and the duplicate-pair drop
-  are applied, then float preprocessing;
+  are applied, then float preprocessing; ratings are binarized at
+  ``binarized_rating_thres`` when a split is built;
 - ids are factorized per shared id space by first appearance over the
   columns in file order (inter, user, item), with ``[PAD]`` = 0
   (``dataset.py:388-508``);
@@ -19,6 +20,9 @@ need, in numpy and plain Python (no pandas):
   global stream as the JAX package shuffles;
 - split views expose ``data_index``, ``user_hist``, a ``train_loader``
   and an ``eval_loader`` of fixed-shape batches that carry ``_size``;
+  with ``fmeval`` every split is a flat array of interaction rows (the
+  rankers' pointwise evaluation), and a dataset with no user or item id
+  (the criteo layout) has no ``user_hist``;
 - ``UserDataset`` gives one row per user: the training items as the
   history window, the split's items as the target window;
 - ``SeqDataset.device_epoch_arrays`` and ``UserDataset.device_epoch_arrays``
@@ -227,6 +231,10 @@ class TripletDataset:
     def use_field(self):
         return self._use_field
 
+    @use_field.setter
+    def use_field(self, fields):
+        self._use_field = {f for f in fields if f is not None}
+
     def _resolve_dir(self) -> str:
         if self.data_dir:
             return self.data_dir
@@ -285,7 +293,7 @@ class TripletDataset:
         thres = self.config.get("low_rating_thres")
         if thres is not None and self.frating is not None:
             self._keep_inter_rows(self.inter_feat[self.frating] >= thres)
-        if self.drop_dup:
+        if self.drop_dup and self.fuid is not None and self.fiid is not None:
             self._keep_inter_rows(self._first_pair())
         if (self.config.get("min_user_inter") or 0) > 0 or (self.config.get("min_item_inter") or 0) > 0:
             raise NotImplementedError("k-core filtering is not ported yet")
@@ -317,9 +325,12 @@ class TripletDataset:
 
     def _prepare_user_item_feat(self):
         """Reindex the user/item tables by id so row i = entity id i."""
-        for kind, key, n in (("user", self.fuid, self.num_users),
-                             ("item", self.fiid, self.num_items)):
+        for kind, key in (("user", self.fuid), ("item", self.fiid)):
             feat = getattr(self, f"{kind}_feat")
+            if key is None:                 # no such id: no entity table
+                setattr(self, f"{kind}_feat", None)
+                continue
+            n = self.num_values(key)
             if feat is None:
                 cols = {key: np.arange(n)}
             else:
@@ -348,8 +359,9 @@ class TripletDataset:
 
     @property
     def num_inters(self) -> int:
-        return len(self._column(self.fiid)) if isinstance(self.inter_feat, dict) \
-            else len(self.inter_feat)
+        if isinstance(self.inter_feat, dict):
+            return len(self._column(self.fiid or self.frating))
+        return len(self.inter_feat)
 
     def __len__(self) -> int:
         return len(self.data_index) if self.data_index is not None else self.num_inters
@@ -371,14 +383,16 @@ class TripletDataset:
     def _build(self, ratio_or_num, shuffle: bool, split_mode: str, rep: bool,
                binarized_rating_thres=None):
         """``dataset.py:586-656``. Every draw comes from numpy's global
-        stream, in the JAX package's order, so one seed gives the same rows."""
+        stream, in the JAX package's order, so one seed gives the same rows.
+        A dataset with no user or item id keeps every row (no duplicate
+        pairs to find) and gets no ``user_hist``."""
         if binarized_rating_thres is not None:
-            raise NotImplementedError("rating binarization is not ported yet")
-        if self.fmeval:
-            raise NotImplementedError("fmeval splits are not ported yet")
+            self._binarize_rating(binarized_rating_thres)
+        has_ids = self.fuid is not None and self.fiid is not None
         if not hasattr(self, "first_item_idx"):
-            self.first_item_idx = self._first_pair()
-        if self.drop_dup and not rep:
+            self.first_item_idx = self._first_pair() if has_ids \
+                else np.ones(self.num_inters, bool)
+        if self.drop_dup and not rep and has_ids:
             keep = self.first_item_idx
             self._keep_inter_rows(keep)
             self.first_item_idx = self.first_item_idx[keep]
@@ -422,6 +436,8 @@ class TripletDataset:
             splits = self._split_by_num(ratio_or_num, counts)
         self.inter_feat = Frame.from_columns(self.inter_feat, self.field2type)
         datasets = [self._copy(idx) for idx in self._get_data_idx((splits, user_ids))]
+        if not has_ids:
+            return datasets
         # user history: train hist for train/val; train+val hist for test
         user_hist, user_count = datasets[0].get_hist(True)
         for d in datasets[:2]:
@@ -437,6 +453,12 @@ class TripletDataset:
             datasets[-1].user_hist = merged[:, :max(maxlen, 1)]
             datasets[-1].user_count = user_count + uc
         return datasets
+
+    def _binarize_rating(self, thres: float) -> None:
+        """``dataset.py:581-584``: a rating below ``thres`` becomes 0.0,
+        every other rating (NaN too) 1.0."""
+        col = self.inter_feat[self.frating]
+        self.inter_feat[self.frating] = np.where(col < thres, 0.0, 1.0)
 
     def _take_rows(self, order: np.ndarray) -> None:
         self._keep_inter_rows(order)
@@ -508,8 +530,13 @@ class TripletDataset:
     def _get_data_idx(self, splits):
         """``dataset.py:715-740``: train view -> flat interaction indices;
         eval views -> ``(uid, start, end)`` rows, one per user with rows in
-        the split, or, with no per-user split, one per run of a user's rows."""
+        the split, or, with no per-user split, one per run of a user's rows.
+        With ``fmeval`` every view is flat."""
         splits, uids = splits
+        if self.fmeval:
+            return [np.concatenate([np.arange(s, e) for s, e in zip(splits[:, i - 1], splits[:, i])]
+                                   + [np.zeros(0, np.int64)]).astype(np.int64)
+                    for i in range(1, splits.shape[1])]
         out = [np.concatenate([np.arange(s, e) for s, e in zip(splits[:, 0], splits[:, 1])]
                               + [np.zeros(0, np.int64)]).astype(np.int64)]
         for i in range(2, splits.shape[1]):
@@ -566,15 +593,22 @@ class TripletDataset:
     def _fields_of(self, frame: Frame) -> List[str]:
         return [f for f in frame.fields if f in self._use_field]
 
+    def _gather_entity_feats(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Join the user and item features of the ids already in ``batch``
+        (``dataset.py:854-865``)."""
+        for frame, key in ((self.user_feat, self.fuid), (self.item_feat, self.fiid)):
+            if frame is None or key not in batch:
+                continue
+            for f in self._fields_of(frame):
+                if f != key and f not in batch:
+                    batch[f] = frame.get_col(f)[batch[key]]
+        return batch
+
     def _get_pos_batch(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
         if self.data_index.ndim == 1:
             rows = self.data_index[idx]
             batch = {f: self.inter_feat.get_col(f)[rows] for f in self._fields_of(self.inter_feat)}
-            for frame, key in ((self.user_feat, self.fuid), (self.item_feat, self.fiid)):
-                for f in self._fields_of(frame):
-                    if f != key and f not in batch:
-                        batch[f] = frame.get_col(f)[batch[key]]
-            return batch
+            return self._gather_entity_feats(batch)
         rows = self.data_index[idx]
         batch = {self.fuid: rows[:, 0].astype(np.int32)}
         for f in self._fields_of(self.user_feat):
@@ -611,7 +645,8 @@ class TripletDataset:
 
     def _make_batch(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
         batch = self._get_pos_batch(idx)
-        if self.eval_mode and self.fuid is not None and "user_hist" not in batch:
+        if self.eval_mode and self.fuid is not None and not self.fmeval \
+                and "user_hist" not in batch:
             batch["user_hist"] = self.user_hist[batch[self.fuid]].astype(np.int32)
         return batch
 

@@ -307,8 +307,8 @@ class BaseRetriever(Recommender):
         (``_make_eval_step``): per-sample values summed over the true rows of
         each padded batch on the device, read once at the end."""
         for name in metric_names:
-            if name not in eval_mod.metric_dict:
-                raise NotImplementedError(f"metric {name!r} is not ported yet")
+            if not eval_mod.get_rank_metrics(name):
+                raise NotImplementedError(f"metric {name!r} is not ported yet for a retriever")
         self._epoch_refresh(-1)            # the catalog of the current weights
         topk = int(self.config["eval"]["topk"])
         sums: Dict[str, torch.Tensor] = {}

@@ -32,6 +32,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from ... import eval as eval_mod
 from ...utils import get_base_model_config, make_generator, resolve_device, seed_everything
 from ...utils.callbacks import EarlyStopping, SaveLastCallback
 from ..init import init_parameters, zero_pad_rows_in_grads
@@ -242,7 +243,8 @@ class Recommender:
         if self.val_check:
             vm = self.config["eval"]["val_metrics"]
             vm = vm[0] if isinstance(vm, list) else vm
-            self.val_metric = f"{vm}@{self._cutoffs()[0]}"
+            # a rank metric is read at the first cutoff (recommender.py:824-834)
+            self.val_metric = f"{vm}@{self._cutoffs()[0]}" if eval_mod.get_rank_metrics(vm) else vm
         self.callback = self._get_callback(train_data.name)
         self.optimizer = self._get_optimizer()
         self._setup_scan_epoch(train_data)

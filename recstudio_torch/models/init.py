@@ -34,6 +34,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
       GRU's ``weight_ih_l0 [3H, in]`` and ``weight_hh_l0 [3H, H]``, whose
       fans are the JAX ``[in, 3H]`` kernel's): ``method``, with row 0 of
       embedding tables set to 0;
+    - a 2-D parameter named ``*embedding*`` (the CTR ``dense_embedding``
+      kernel ``[Fd, D]``): ``method``, with row 0 set to 0, as the JAX rule
+      by name does to every ``embedding`` leaf;
     - any other 2-D parameter (learned position tables): N(0, 0.02), the
       initializer the JAX modules declare for them.
     """
@@ -48,6 +51,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
             p.copy_(_draw(tuple(p.shape), method, init_range, generator))
             if id(p) in embeddings:
                 p[0].zero_()
+        elif "embedding" in leaf and p.dim() == 2:
+            p.copy_(_draw(tuple(p.shape), method, init_range, generator))
+            p[0].zero_()
         elif p.dim() == 2:
             p.copy_(0.02 * torch.randn(tuple(p.shape), generator=generator))
 

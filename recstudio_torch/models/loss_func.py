@@ -5,8 +5,10 @@ Counterpart of ``recstudio_tpu/models/loss_func.py``: a pairwise loss takes
 probabilities being the sampler's proposal, and padding positions carry
 ``pos_score == -inf`` and drop out of every reduction; a full-score loss
 takes ``(label, pos_score, all_score)``, the scores on the whole catalog.
-Ported so far: the binary cross-entropy of SASRec, the softmax of
-BERT4Rec and the BPR loss of BPR; the other losses come with their models.
+A pointwise loss takes ``(label, pos_score)``. Ported so far: the binary
+cross-entropy of SASRec, the softmax of BERT4Rec, the BPR loss of BPR and
+the rankers' ``BCEWithLogitLoss``; the other losses come with their
+models.
 """
 from __future__ import annotations
 
@@ -92,3 +94,20 @@ class BinaryCrossEntropyLoss(PairwiseLoss):
         else:
             neg_loss = neg_loss.mean()
         return -pos_loss + neg_loss
+
+
+class PointwiseLoss:
+    def __call__(self, label, pos_score):
+        raise NotImplementedError
+
+
+class BCEWithLogitLoss(PointwiseLoss):
+    """``loss_func.py:182-188``: ``softplus(score) - score * label``, its
+    mean (``reduction="mean"``) or per sample."""
+
+    def __init__(self, reduction: str = "mean"):
+        self.reduction = reduction
+
+    def __call__(self, label, pos_score):
+        loss = softplus(pos_score) - pos_score * label
+        return loss.mean() if self.reduction == "mean" else loss

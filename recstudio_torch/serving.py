@@ -1,6 +1,8 @@
-"""Online serving: fixed-shape batched top-k inference.
+"""Online serving: fixed-shape batched top-k inference and CTR scoring.
 
-Counterpart of ``recstudio_tpu/serving.py:Predictor``. Each request is
+Counterpart of ``recstudio_tpu/serving.py``: ``Predictor`` serves a
+retriever's top-k lists, ``ScorePredictor`` a ranker's probabilities.
+Each request is
 padded to ``max_batch`` rows so every call runs the same shapes; ``warm()``
 runs one dummy request at start-up. The dummy is built from the model's
 query fields (zeros ``[max_batch, W]`` for ``in_*`` histories, W the
@@ -14,6 +16,8 @@ Example::
     from recstudio_torch.serving import Predictor
     pred = Predictor(model, max_batch=128, k=20, train_data=test_split).warm()
     scores, items = pred({"user_id": uids, "in_item_id": hist, "seqlen": lens})
+
+    probs = ScorePredictor(ranker, max_batch=256, train_data=trn).warm(rows)(rows)
 """
 from __future__ import annotations
 
@@ -26,7 +30,34 @@ import torch
 from .models.basemodel.recommender import batch_to_device
 
 
-class Predictor:
+class _FixedShapeServer:
+    """Pad-to-``max_batch`` and latency accounting, shared by the servers."""
+
+    max_batch: int
+    _lat_ms: list
+
+    def _pad(self, batch: Dict[str, np.ndarray]) -> Tuple[Dict[str, np.ndarray], int]:
+        n = len(next(iter(batch.values())))
+        if n > self.max_batch:
+            raise ValueError(f"request batch {n} > max_batch {self.max_batch}"
+                             " — split the request")
+        out = {}
+        for key, value in batch.items():
+            value = np.asarray(value)
+            out[key] = np.pad(value, [(0, self.max_batch - n)] + [(0, 0)] * (value.ndim - 1))
+        return out, n
+
+    def stats(self) -> Dict[str, float]:
+        lat = sorted(self._lat_ms) or [0.0]
+        return {
+            "requests": len(self._lat_ms),
+            "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+            "mean_ms": float(np.mean(lat)),
+        }
+
+
+class Predictor(_FixedShapeServer):
     """Fixed-shape batched top-k server for a retriever. Runs on the
     model's device; history masking uses ``train_data.user_hist``."""
 
@@ -41,17 +72,6 @@ class Predictor:
         self._hist = None if hist is None else \
             torch.as_tensor(np.asarray(hist, dtype=np.int32)).to(model.device)
         self._lat_ms = []
-
-    def _pad(self, batch: Dict[str, np.ndarray]) -> Tuple[Dict[str, np.ndarray], int]:
-        n = len(next(iter(batch.values())))
-        if n > self.max_batch:
-            raise ValueError(f"request batch {n} > max_batch {self.max_batch}"
-                             " — split the request")
-        out = {}
-        for key, value in batch.items():
-            value = np.asarray(value)
-            out[key] = np.pad(value, [(0, self.max_batch - n)] + [(0, 0)] * (value.ndim - 1))
-        return out, n
 
     def _dummy(self) -> Dict[str, np.ndarray]:
         out = {}
@@ -88,11 +108,44 @@ class Predictor:
         self._lat_ms.append((time.perf_counter() - t0) * 1e3)
         return scores, items
 
-    def stats(self) -> Dict[str, float]:
-        lat = sorted(self._lat_ms) or [0.0]
-        return {
-            "requests": len(self._lat_ms),
-            "p50_ms": lat[len(lat) // 2],
-            "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
-            "mean_ms": float(np.mean(lat)),
-        }
+
+class ScorePredictor(_FixedShapeServer):
+    """Fixed-shape CTR scorer for a fitted ranker (``serving.py:128-167``):
+    each feature batch is joined with the user and item features of its
+    ids, as the training loader joins them (``train_data``'s
+    ``_gather_entity_feats``), padded to ``max_batch`` rows, scored on the
+    model's device, and returned as sigmoid probabilities in numpy."""
+
+    def __init__(self, model, max_batch: int = 256, train_data=None):
+        from .models.basemodel.baseranker import BaseRanker
+        if not isinstance(model, BaseRanker):
+            raise NotImplementedError("ScorePredictor serves rankers; scoring a retriever's "
+                                      "(user, item) rows is not ported yet (ROADMAP.md queue 1, "
+                                      "the ranker items)")
+        self.model = model
+        self.max_batch = int(max_batch)
+        self._feat_join = getattr(train_data, "_gather_entity_feats", None)
+        self._lat_ms = []
+
+    def _pad(self, batch: Dict[str, np.ndarray]) -> Tuple[Dict[str, np.ndarray], int]:
+        if self._feat_join is not None:
+            batch = self._feat_join(dict(batch))
+        return super()._pad(batch)
+
+    @torch.no_grad()
+    def _run(self, padded: Dict[str, np.ndarray]) -> torch.Tensor:
+        self.model.net.eval()
+        return self.model.score(batch_to_device(padded, self.model.device))
+
+    def warm(self, example: Dict[str, np.ndarray]) -> "ScorePredictor":
+        """Score ``example`` once before the first real request."""
+        padded, _ = self._pad(example)
+        float(self._run(padded).sum().item())   # host read: genuinely complete
+        return self
+
+    def __call__(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
+        t0 = time.perf_counter()
+        padded, n = self._pad(batch)
+        out = torch.sigmoid(self._run(padded)[:n]).cpu().numpy()   # the host read is the fence
+        self._lat_ms.append((time.perf_counter() - t0) * 1e3)
+        return out

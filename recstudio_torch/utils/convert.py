@@ -23,6 +23,14 @@ Gradients share their parameters' layouts, so the same maps carry them:
 for one layer) gives the JAX package's gradient tree, which is how the
 parity tests compare the two packages' gradients.
 
+``ranker_params_from_jax`` and ``ranker_params_to_jax`` do the same for a
+ranker's tree (DeepFM, FM, LR): token tables ``{name}_embedding`` and
+``token_embedding`` become ``nn.Embedding`` weights (a packed ``[N, 3D]``
+table of the JAX row-sparse fit gives its first D columns), the float
+kernel ``dense_embedding`` and the biases keep their names, and
+``{name}_dense/weight/kernel`` and ``mlp/dense_{i}/kernel`` are ``Linear``
+weights, transposed.
+
 ``random_sasrec_params`` draws a JAX-layout tree from a numpy seed, so the
 tests and ``chip_smoke.py`` can feed the same weights to both packages
 without JAX on the card.
@@ -136,6 +144,47 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         a = value.detach().cpu().numpy().astype(np.float32)
         node[path[-1]] = a.T.copy() if tr else a
+    return out
+
+
+def _is_token_table(leaf: str) -> bool:
+    return leaf.endswith("_embedding") and leaf != "dense_embedding"
+
+
+def ranker_params_from_jax(tree: Dict[str, Any], embed_dim: int) -> Dict[str, torch.Tensor]:
+    """A JAX ranker's params -> the port's ``state_dict``. ``embed_dim`` is
+    the model's D (the ``linear`` tree's tables are 1 wide)."""
+    sd = {}
+    for path, value in _leaves(tree):
+        if path[-1] == "kernel":
+            sd[".".join(path[:-1]) + ".weight"] = _tensor(value, True)
+        elif _is_token_table(path[-1]):
+            d = 1 if path[0] == "linear" else embed_dim
+            a = np.asarray(value, np.float32)
+            if a.shape[-1] == 3 * d:               # packed: params | mu | nu
+                a = a[:, :d]
+            sd[".".join(path) + ".weight"] = _tensor(a)
+        else:
+            sd[".".join(path)] = _tensor(value)
+    return sd
+
+
+def ranker_params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``ranker_params_from_jax``'s inverse, for parameters or gradients."""
+    out: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        parts = tuple(key.split("."))
+        tr = False
+        if parts[-1] == "weight":
+            if _is_token_table(parts[-2]):
+                parts = parts[:-1]
+            else:
+                parts, tr = parts[:-1] + ("kernel",), True
+        node = out
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        a = value.detach().cpu().numpy().astype(np.float32)
+        node[parts[-1]] = a.T.copy() if tr else a
     return out
 
 

@@ -2,7 +2,8 @@
 
 The subset of ``recstudio_tpu/utils/registry.py`` this port implements:
 SASRec, BERT4Rec, GRU4Rec, NARM and STAMP (``seq``), BPR (``mf``),
-MultiDAE and MultiVAE (``ae``), and the dataset configs they run on.
+MultiDAE and MultiVAE (``ae``), DeepFM, FM and LR (``fm``), and the
+dataset configs they run on.
 """
 from __future__ import annotations
 
@@ -20,7 +21,10 @@ _MODELS = {"sasrec": ("seq", "SASRec", ("seq_all", "sasrec")),
            "stamp": ("seq", "STAMP", ("seq_all", "stamp")),
            "bpr": ("mf", "BPR", ("mf_all", "bpr")),
            "multidae": ("ae", "MultiDAE", ("multidae",)),
-           "multivae": ("ae", "MultiVAE", ("multivae",))}
+           "multivae": ("ae", "MultiVAE", ("multivae",)),
+           "deepfm": ("fm", "DeepFM", ("fm_all", "deepfm")),
+           "fm": ("fm", "FM", ("fm_all", "fm")),
+           "lr": ("fm", "LR", ("fm_all", "lr"))}
 
 
 def list_models() -> Dict[str, str]:

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Where a training step's card time goes, for the training phases of
-``chip_smoke.py`` that run on ``UserDataset`` (O: MultiDAE, P: MultiVAE).
+"""Where a training step's card time goes, for training phases of
+``chip_smoke.py``: O (MultiDAE) and P (MultiVAE) on ``UserDataset``, and R
+(DeepFM at criteo-1m-shape, batch 8192).
 
 Run from the root of a checkout, on a machine with the card::
 
-    python3 scripts/torch_step_profile.py [O] [P]     # both when none is named
+    python3 scripts/torch_step_profile.py [O] [P] [R]   # all when none is named
 
-Each phase's model is built as ``chip_smoke.py`` builds it (the synthetic
-ml-1m shape, seed 7, the repo's config), takes 3 warm-up steps, then
-``STEPS`` steps under ``torch.profiler``. It prints one JSON line a phase:
-the host time of a step, the card's busy time a step (the union of its
-kernel and copy intervals), and the operators that hold the card longest
-(self device time a step, with their calls a step).
+Each phase's model is built as ``chip_smoke.py`` builds it (O, P: the
+synthetic ml-1m shape, seed 7; R: ``chip_smoke.criteo_setup``; the repo's
+configs), takes 3 warm-up steps, then ``STEPS`` steps under
+``torch.profiler``. It prints one JSON line a phase: the host time of a
+step, the card's busy time a step (the union of its kernel and copy
+intervals), its kernel launches a step, and the operators that hold the
+card longest (self device time a step, with their calls a step).
 """
 from __future__ import annotations
 
@@ -22,17 +24,31 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 10
-PHASES = {"O": ("MultiDAE", 256), "P": ("MultiVAE", 500)}
+PHASES = {"O": ("MultiDAE", 256), "P": ("MultiVAE", 500), "R": ("DeepFM", 8192)}
+
+
+def phase_model(tag: str, device):
+    """(model ready for steps, an endless stream of its device batches)."""
+    import chip_smoke as c
+    model_name, batch_size = PHASES[tag]
+    if tag != "R":
+        model = c.training_model(device, model_name, batch_size)[0]
+        return model, c.epoch_stream(model)
+    _, _, (trn, _, _), cls, conf, _, _ = c.criteo_setup()
+    model = cls(conf, device=device)
+    model._init_model(trn)
+    model._init_parameter(trn)
+    model.optimizer = model._get_optimizer()
+    model._setup_scan_epoch(trn)
+    return model, c.epoch_stream(model)
 
 
 def profile_phase(tag: str, top: int = 15) -> dict:
     import torch
-    import chip_smoke as c
     from torch.autograd import DeviceType
     device = torch.device("cuda", 0)
     model_name, batch_size = PHASES[tag]
-    model, conf, _, _, _, _ = c.training_model(device, model_name, batch_size)
-    batches = c.epoch_stream(model)
+    model, batches = phase_model(tag, device)
     model.net.train()
     for _ in range(3):
         model._grad_step(next(batches))
@@ -46,8 +62,8 @@ def profile_phase(tag: str, top: int = 15) -> dict:
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t) * 1e3
     model.net.eval()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, end = 0.0, None
     for a, b in spans:
         if end is None or a > end:
@@ -57,8 +73,9 @@ def profile_phase(tag: str, top: int = 15) -> dict:
     ops = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)
     return {"phase": tag, "model": model_name, "batch": batch_size,
-            "history_width": model.history_width, "steps": STEPS,
+            "history_width": getattr(model, "history_width", None), "steps": STEPS,
             "host_ms_per_step": host_ms / STEPS, "busy_ms_per_step": busy / 1e3 / STEPS,
+            "device_events_per_step": len(events) / STEPS,
             "top_ops": [{"op": e.key, "device_ms_per_step": e.self_device_time_total / 1e3 / STEPS,
                          "calls_per_step": e.count / STEPS} for e in ops[:top]]}
 

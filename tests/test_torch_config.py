@@ -39,6 +39,15 @@ def test_autoencoder_model_configs_equal_jax(name):
     assert got["eval"]["batch_size"] == 200 and got["train"]["weight_decay"] == 1e-5
 
 
+@pytest.mark.parametrize("name", ["DeepFM", "FM", "LR"])
+def test_ranker_model_configs_equal_jax(name):
+    _, want = jax_get_model(name)
+    cls, got = get_model(name)
+    assert got == want and cls.__name__ == name
+    assert got["data"]["fmeval"] is True and got["data"]["binarized_rating_thres"] == 3.0
+    assert got["eval"]["cutoff"] is None
+
+
 def test_ml100k_config_equals_jax():
     assert get_dataset_default_config("ml-100k") == jax_dataset_config("ml-100k")
 
@@ -50,7 +59,8 @@ def test_unknown_dataset_falls_back_to_defaults():
 def test_registry_lists_what_is_ported():
     assert list_models() == {"sasrec": "seq", "bert4rec": "seq", "gru4rec": "seq",
                              "narm": "seq", "stamp": "seq", "bpr": "mf",
-                             "multidae": "ae", "multivae": "ae"}
+                             "multidae": "ae", "multivae": "ae",
+                             "deepfm": "fm", "fm": "fm", "lr": "fm"}
 
 
 @pytest.mark.parametrize("key,value", [

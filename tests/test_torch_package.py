@@ -55,6 +55,43 @@ def test_imports_with_jax_blocked():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+RANKER_MODULES = ("recstudio_torch.models.basemodel.baseranker",
+                  "recstudio_torch.models.module.ctr", "recstudio_torch.models.fm.deepfm",
+                  "recstudio_torch.models.fm.fm", "recstudio_torch.models.fm.lr",
+                  "recstudio_torch.serving", "recstudio_torch.eval",
+                  "recstudio_torch.data.synthetic")
+
+
+def test_ranker_modules_import_with_jax_blocked():
+    """The ranker path's modules, named one by one, import where jax,
+    flax, pandas and yaml cannot, and load nothing of recstudio_tpu."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'yaml'):\n"
+        "    sys.modules[m] = None\n"
+        f"for name in {RANKER_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from recstudio_torch.serving import ScorePredictor\n"
+        "from recstudio_torch.utils import get_model\n"
+        "assert [get_model(n)[0].__name__ for n in ('DeepFM', 'FM', 'LR')] == "
+        "['DeepFM', 'FM', 'LR']\n"
+        "assert not [m for m in sys.modules if m.startswith('recstudio_tpu')]\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("name", ["DeepFM", "FM", "LR"])
+def test_rankers_need_cuda_unless_cpu_is_asked(monkeypatch, name):
+    from recstudio_torch.utils import get_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cls, conf = get_model(name)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls(conf)
+    assert cls(conf, device="cpu").device == torch.device("cpu")
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     from recstudio_torch.models.basemodel.recommender import batch_to_device
     from recstudio_torch.utils import get_model, resolve_device
