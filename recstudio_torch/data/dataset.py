@@ -30,7 +30,8 @@ need, in numpy and plain Python (no pandas):
   ``batch_fn`` that gathers the windows of a batch on the device.
 
 K-core filtering, sequence and network features and dataset-side
-negatives are not ported yet.
+negatives are not ported yet; a build that asks for dataset-side negatives
+(``neg_count`` or ``sampler``) raises.
 """
 from __future__ import annotations
 
@@ -179,6 +180,15 @@ def _read_table(path: str, header, sep: str, field_decls: List[str],
             tokens.pool = np.asarray([t.decode("utf-8") for t in tokens.pool], dtype=str)
             out[s.name] = tokens
     return out, {s.name: s.dtype for s in specs}
+
+
+def _refuse_dataset_negatives(neg_count, sampler) -> None:
+    """Dataset-side negatives (``neg_count`` rating-0 rows appended to each
+    batch, ``dataset.py:564-579``) are not ported: raise rather than build
+    batches without them."""
+    if neg_count or sampler:
+        raise NotImplementedError("dataset-side negatives (data.neg_count, data.sampler) "
+                                  "are not ported yet")
 
 
 class TripletDataset:
@@ -370,11 +380,15 @@ class TripletDataset:
     # build / split
     # ------------------------------------------------------------------
     def build(self, split_ratio=None, shuffle: bool = True, split_mode: str = "user_entry",
-              fmeval: bool = False, binarized_rating_thres=None, **kwargs):
+              fmeval: bool = False, binarized_rating_thres=None, neg_count=None, sampler=None,
+              **kwargs):
         """Split into train/val/test views (``dataset.py:562-570``):
         ``split_ratio`` a list of floats (ratio split), a list of ints (count
         split) or an int (leave-one-out); ``split_mode`` ``user_entry``
-        (per user), ``entry`` (over all rows) or ``user`` (whole users)."""
+        (per user), ``entry`` (over all rows) or ``user`` (whole users).
+        Dataset-side negatives (a truthy ``neg_count`` or ``sampler``) are
+        not ported and raise."""
+        _refuse_dataset_negatives(neg_count, sampler)
         if split_ratio is None:
             split_ratio = [0.8, 0.1, 0.1]
         self.fmeval = fmeval
@@ -721,8 +735,7 @@ class UserDataset(TripletDataset):
     def build(self, binarized_rating_thres=None, fmeval: bool = False, neg_count=None,
               sampler=None, shuffle: bool = True, split_mode: str = "user_entry",
               split_ratio=None, **kwargs):
-        if neg_count or sampler:
-            raise NotImplementedError("dataset-side negatives are not ported yet")
+        _refuse_dataset_negatives(neg_count, sampler)
         if split_ratio is None:
             split_ratio = [0.8, 0.1, 0.1]
         self.split_mode = split_mode
@@ -839,7 +852,8 @@ class SeqDataset(TripletDataset):
 
     def build(self, split_ratio=2, split_mode: str = "user_entry", test_rep: bool = True,
               train_rep: bool = True, fmeval: bool = False, binarized_rating_thres=None,
-              **kwargs):
+              neg_count=None, sampler=None, **kwargs):
+        _refuse_dataset_negatives(neg_count, sampler)
         self.test_rep = test_rep
         self.train_rep = train_rep and test_rep
         self.fmeval = fmeval

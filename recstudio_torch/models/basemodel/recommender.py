@@ -80,6 +80,10 @@ def check_train_config(tc: Dict[str, Any]) -> None:
 
 
 class Recommender:
+    # ``states`` entries computed from the weights (a graph model adds its
+    # propagated users), dropped when a fit moves the weights
+    _weight_caches = ("item_vector",)
+
     def __init__(self, config: Optional[Dict] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.config = config if config is not None else get_base_model_config()
@@ -279,7 +283,8 @@ class Recommender:
             if self.callback(nepoch, metrics):
                 logger.info("early stopped at epoch %d", nepoch)
                 break
-        self.states.pop("item_vector", None)   # the weights moved: no stale catalog
+        for key in self._weight_caches:        # the weights moved: no stale catalog
+            self.states.pop(key, None)
         self.ckpt_path = self.callback.save_checkpoint(nepoch)
 
     def validation_epoch(self, val_data) -> Dict[str, float]:

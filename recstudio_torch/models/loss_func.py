@@ -7,8 +7,9 @@ probabilities being the sampler's proposal, and padding positions carry
 takes ``(label, pos_score, all_score)``, the scores on the whole catalog.
 A pointwise loss takes ``(label, pos_score)``. Ported so far: the binary
 cross-entropy of SASRec, the softmax of BERT4Rec, the BPR loss of BPR and
-the rankers' ``BCEWithLogitLoss``; the other losses come with their
-models.
+the graph models, the rankers' ``BCEWithLogitLoss``, and
+``l2_reg_loss_fn``, the graph models' penalty on the raw embedding rows of
+a batch; the other losses come with their models.
 """
 from __future__ import annotations
 
@@ -111,3 +112,12 @@ class BCEWithLogitLoss(PointwiseLoss):
     def __call__(self, label, pos_score):
         loss = softplus(pos_score) - pos_score * label
         return loss.mean() if self.reduction == "mean" else loss
+
+
+def l2_reg_loss_fn(*embs: torch.Tensor) -> torch.Tensor:
+    """``loss_func.py:214-218``: the sum over ``embs`` of each one's mean
+    squared row norm."""
+    loss = 0.0
+    for emb in embs:
+        loss = loss + (emb * emb).sum(-1).mean()
+    return loss

@@ -31,6 +31,12 @@ kernel ``dense_embedding`` and the biases keep their names, and
 ``{name}_dense/weight/kernel`` and ``mlp/dense_{i}/kernel`` are ``Linear``
 weights, transposed.
 
+``graph_params_from_jax`` and ``graph_params_to_jax`` do the same for a
+graph model's tree (LightGCN, NGCF, SimGCL): the tables ``user_embedding``
+and ``item_embedding`` are ``GraphNet``'s ``nn.Embedding`` weights, and
+NGCF's ``layer_{i}/W1`` and ``W2`` ``Dense`` kernels are ``Linear``
+weights, transposed.
+
 ``random_sasrec_params`` draws a JAX-layout tree from a numpy seed, so the
 tests and ``chip_smoke.py`` can feed the same weights to both packages
 without JAX on the card.
@@ -185,6 +191,37 @@ def ranker_params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         a = value.detach().cpu().numpy().astype(np.float32)
         node[parts[-1]] = a.T.copy() if tr else a
+    return out
+
+
+def graph_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX graph model's params -> the port's ``state_dict``."""
+    sd = {}
+    for path, value in _leaves(tree):
+        if len(path) == 1:                          # user_embedding, item_embedding
+            sd[f"{path[0]}.weight"] = _tensor(value)
+        elif path[-1] == "kernel":                  # layer_{i}/W{1,2}/kernel [in, out]
+            sd[".".join(path[:-1]) + ".weight"] = _tensor(value, True)
+        else:
+            sd[".".join(path)] = _tensor(value)
+    return sd
+
+
+def graph_params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``graph_params_from_jax``'s inverse, for parameters or gradients."""
+    out: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        parts = tuple(key.split("."))
+        a = value.detach().cpu().numpy().astype(np.float32)
+        if len(parts) == 2 and parts[1] == "weight":
+            out[parts[0]] = a
+            continue
+        if parts[-1] == "weight":
+            parts, a = parts[:-1] + ("kernel",), a.T.copy()
+        node = out
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = a
     return out
 
 

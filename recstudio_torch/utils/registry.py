@@ -2,8 +2,8 @@
 
 The subset of ``recstudio_tpu/utils/registry.py`` this port implements:
 SASRec, BERT4Rec, GRU4Rec, NARM and STAMP (``seq``), BPR (``mf``),
-MultiDAE and MultiVAE (``ae``), DeepFM, FM and LR (``fm``), and the
-dataset configs they run on.
+MultiDAE and MultiVAE (``ae``), DeepFM, FM and LR (``fm``), LightGCN, NGCF
+and SimGCL (``graph``), and the dataset configs they run on.
 """
 from __future__ import annotations
 
@@ -24,7 +24,10 @@ _MODELS = {"sasrec": ("seq", "SASRec", ("seq_all", "sasrec")),
            "multivae": ("ae", "MultiVAE", ("multivae",)),
            "deepfm": ("fm", "DeepFM", ("fm_all", "deepfm")),
            "fm": ("fm", "FM", ("fm_all", "fm")),
-           "lr": ("fm", "LR", ("fm_all", "lr"))}
+           "lr": ("fm", "LR", ("fm_all", "lr")),
+           "lightgcn": ("graph", "LightGCN", ("lightgcn",)),
+           "ngcf": ("graph", "NGCF", ("ngcf",)),
+           "simgcl": ("graph", "SimGCL", ("simgcl",))}
 
 
 def list_models() -> Dict[str, str]:

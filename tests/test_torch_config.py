@@ -48,6 +48,15 @@ def test_ranker_model_configs_equal_jax(name):
     assert got["eval"]["cutoff"] is None
 
 
+@pytest.mark.parametrize("name", ["LightGCN", "NGCF", "SimGCL"])
+def test_graph_model_configs_equal_jax(name):
+    _, want = jax_get_model(name)
+    cls, got = get_model(name)
+    assert got == want and cls.__name__ == name
+    assert got["train"]["negative_count"] == 1 and got["data"]["neg_count"] == 0
+    assert got["data"]["sampler"] is None
+
+
 def test_ml100k_config_equals_jax():
     assert get_dataset_default_config("ml-100k") == jax_dataset_config("ml-100k")
 
@@ -60,7 +69,8 @@ def test_registry_lists_what_is_ported():
     assert list_models() == {"sasrec": "seq", "bert4rec": "seq", "gru4rec": "seq",
                              "narm": "seq", "stamp": "seq", "bpr": "mf",
                              "multidae": "ae", "multivae": "ae",
-                             "deepfm": "fm", "fm": "fm", "lr": "fm"}
+                             "deepfm": "fm", "fm": "fm", "lr": "fm",
+                             "lightgcn": "graph", "ngcf": "graph", "simgcl": "graph"}
 
 
 @pytest.mark.parametrize("key,value", [

@@ -82,6 +82,41 @@ def test_ranker_modules_import_with_jax_blocked():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+GRAPH_MODULES = ("recstudio_torch.models.graph", "recstudio_torch.models.graph.base",
+                 "recstudio_torch.models.graph.lightgcn", "recstudio_torch.models.graph.ngcf",
+                 "recstudio_torch.models.graph.simgcl",
+                 "recstudio_torch.models.module.data_augmentation")
+
+
+def test_graph_modules_import_with_jax_blocked():
+    """The graph family's modules, named one by one, import where jax,
+    flax, pandas and yaml cannot, and load nothing of recstudio_tpu."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'yaml'):\n"
+        "    sys.modules[m] = None\n"
+        f"for name in {GRAPH_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from recstudio_torch.utils import get_model\n"
+        "assert [get_model(n)[0].__name__ for n in ('LightGCN', 'NGCF', 'SimGCL')] == "
+        "['LightGCN', 'NGCF', 'SimGCL']\n"
+        "assert not [m for m in sys.modules if m.startswith('recstudio_tpu')]\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("name", ["LightGCN", "NGCF", "SimGCL"])
+def test_graph_models_need_cuda_unless_cpu_is_asked(monkeypatch, name):
+    from recstudio_torch.utils import get_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cls, conf = get_model(name)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls(conf)
+    assert cls(conf, device="cpu").device == torch.device("cpu")
+
+
 @pytest.mark.parametrize("name", ["DeepFM", "FM", "LR"])
 def test_rankers_need_cuda_unless_cpu_is_asked(monkeypatch, name):
     from recstudio_torch.utils import get_model
