@@ -121,7 +121,7 @@ then:
   whose AUC band must clear the untrained AUC by ``AUC_MARGIN``; 20 timed steps, peak memory, an epoch and its busy share, the
   MLP's dropout masks a step; one step held to the model copied to the CPU
   (same batch and dropout seeds) and to a repeat of itself; eval rows/s;
-  an epoch under ``sparse_adam`` (dense ``LazyAdam``); 8 requests of 8192
+  an epoch under ``sparse_adam`` (the packed row-sparse step); 8 requests of 8192
   rows through ``ScorePredictor`` held to ``predict``. No kernel;
 - phase S: ``quickstart.run`` of DeepFM, FM and LR on ml-100k at the
   repo's config (fm family: ``fmeval``, ratings binarized at 3.0; early
@@ -149,6 +149,30 @@ then:
   the JAX package either, its last epoch's training loss (its NDCG@10
   reported beside its band); every test user served, LightGCN's lists
   held to the model copied to the CPU. No kernel;
+- phase V: DeepFM at the repo's config through the packed row-sparse
+  step (``learner: sparse_adam``, ``sparse_rows: auto``) on
+  ``generate_ctr("criteo-10m-hugevocab-shape")`` at 6,000,000 rows (the
+  JAX bench's ``ctr_bigvocab_sparse_adam`` at 10,000,000, cut for the time
+  limit; its data built by a process of this script's own while the
+  earlier phases run), batch 8192: gen and ETL seconds, the table's rows,
+  a one-epoch fit and its test AUC, 20 timed steps, the card's busy share
+  over 200 profiled steps; one packed step held to one dense lazy-Adam
+  step from the same state (parameters and moments), rows no lookup
+  touched held unchanged bit for bit, and the step to a bitwise repeat;
+  20 steps of the dense ``LazyAdam`` beside. No kernel;
+- phase W: AutoInt at its repo config (embed 10, attention 64, 3 layers, 2
+  heads, MLP [128, 64], dropout 0.5) on phase R's data, batch 8192: a
+  one-epoch fit and its test AUC, the evaluation and ``ScorePredictor``
+  through K3 (counted), training through the plain softmax (no launch);
+  20 timed steps, one step held to the CPU copy with the same dropout
+  seeds, the evaluation's probabilities held to the plain route's;
+- phase X: ``quickstart.run`` of WideDeep, DCN, NFM and AutoInt on
+  ml-100k at the repo's configs to their early stop, test AUC held to
+  the JAX seeds' bands (``recstudio_torch/assets/{widedeep,dcn,nfm,
+  autoint}_ml100k_train_reference.json``), whose AUC band must clear the
+  untrained AUC by ``AUC_MARGIN``; the batch norms calibrated; every test
+  row served through ``ScorePredictor`` against ``evaluate`` and
+  ``predict``; AutoInt launches K3;
 - each kernel against its plain PyTorch version on the phases' shapes,
   with its time, the plain version's, PyTorch's own call where one exists,
   and the card's bound for the same work.
@@ -203,6 +227,8 @@ TOL_SCORES = 1e-4          # served scores: dot products of O(1) vectors, d <= 1
 # gradients (K2, phase D): float32 sums of up to B L = 204,800 terms in
 # another order than cuBLAS's; per tensor, relative to its largest value
 TOL_GRAD = (1e-4, 1e-3)    # (atol as a share of max |g|, rtol)
+# a gradient that is zero in exact arithmetic, as a share of the largest
+TOL_ZERO_GRAD = 1e-6
 TOL_LOSS = 1e-5            # phase D loss, relative
 TOL_METRIC = 1e-6          # phase E: served NDCG@10 against evaluate()'s
 # phase J: one row-sparse lazy-Adam step against the dense step, per
@@ -506,13 +532,22 @@ def phase_c(device):
     return out
 
 
-def grad_errors(got, want):
+def grad_errors(got, want, zero=()):
     """(max abs error, ok) of gradient tensors by name, each held to
-    TOL_GRAD relative to its own largest magnitude."""
+    TOL_GRAD relative to its own largest magnitude. The tensors named in
+    ``zero`` have a zero gradient in exact arithmetic (an attention's key
+    bias moves every score of a row alike, which the softmax removes):
+    both sides' float32 noise there is held under ``TOL_ZERO_GRAD`` of the
+    largest gradient of all, not to each other."""
     max_abs, ok = 0.0, True
+    largest = max(float(w.abs().max()) for w in want.values())
     for name, w in want.items():
         diff = (got[name] - w).abs()
         max_abs = max(max_abs, float(diff.max()))
+        if name in zero:
+            ok &= max(float(got[name].abs().max()), float(w.abs().max())) \
+                < TOL_ZERO_GRAD * largest
+            continue
         ok &= bool((diff <= TOL_GRAD[0] * float(w.abs().max()) + TOL_GRAD[1] * w.abs()).all())
     return max_abs, ok
 
@@ -1562,17 +1597,28 @@ def eval_probs(model, split):
                           for b in model._eval_batches(split)]).cpu().numpy()
 
 
+_CRITEO = {}
+
+
 def criteo_setup():
     """Phase R's data and DeepFM config (the JAX bench's ``ctr_scale``):
     ``(reference, dataset, (train, val, test), DeepFM class, config, gen s,
-    ETL s)``."""
+    ETL s)``; built once a process (phase W trains AutoInt on it), a fresh
+    copy of the config each call."""
+    if "setup" not in _CRITEO:
+        _CRITEO["setup"] = _criteo_setup()
+    ref, ds, splits, cls, conf, gen_s, etl_s = _CRITEO["setup"]
+    return ref, ds, splits, cls, json.loads(json.dumps(conf)), gen_s, etl_s
+
+
+def ctr_dataset(shape_name, rows):
+    """``generate_ctr(shape_name)`` at ``rows`` (seed 11, the shape's
+    vocabularies) built as the JAX bench builds it (``fmeval``, entry split
+    [0.8, 0.1, 0.1] after ``np.random.seed(11)``): ``(dataset, splits, gen
+    s, ETL s)``."""
     import numpy as np
     from recstudio_torch.data import TripletDataset
     from recstudio_torch.data.synthetic import ctr_shape_vocabs, generate_ctr
-    from recstudio_torch.utils import get_model
-    with open(CRITEO_TRAIN_REFERENCE) as f:
-        ref = json.load(f)
-    shape_name, rows, B = "criteo-1m-shape", ref["rows"], ref["batch_size"]
     t0 = time.perf_counter()
     name, config = generate_ctr(shape_name, rows, seed=11, vocabs=ctr_shape_vocabs(shape_name))
     gen_s = time.perf_counter() - t0
@@ -1582,7 +1628,16 @@ def criteo_setup():
     splits = ds.build(fmeval=True, split_mode="entry", split_ratio=[0.8, 0.1, 0.1])
     etl_s = time.perf_counter() - t0
     check(ds.num_inters == rows and len(ds.field2type) == 40 and ds.fuid is None,
-          f"phase R dataset {ds.num_inters} rows, {len(ds.field2type)} fields")
+          f"{shape_name} dataset {ds.num_inters} rows, {len(ds.field2type)} fields")
+    return ds, splits, gen_s, etl_s
+
+
+def _criteo_setup():
+    from recstudio_torch.utils import get_model
+    with open(CRITEO_TRAIN_REFERENCE) as f:
+        ref = json.load(f)
+    ds, splits, gen_s, etl_s = ctr_dataset("criteo-1m-shape", ref["rows"])
+    B = ref["batch_size"]
     cls, conf = get_model("DeepFM")
     conf["train"].update(epochs=1, batch_size=B, learner="adam", learning_rate=1e-3,
                          seed=2022)
@@ -1595,8 +1650,8 @@ def phase_r(device):
     """DeepFM at criteo-1m-shape (the JAX bench's ``ctr_scale``): a one-epoch
     fit and four more epochs, the test AUC and logloss after the fifth held
     to the JAX bands, 20 timed steps, one step held to the CPU copy, the
-    epoch's busy share, dropout masks, a sparse_adam epoch, and
-    ``ScorePredictor`` at 8192 rows a request."""
+    epoch's busy share, dropout masks, a sparse_adam epoch (the packed
+    row-sparse step), and ``ScorePredictor`` at 8192 rows a request."""
     import numpy as np
     import torch
     from recstudio_torch.ops.dropout import SITE_HIDDEN, keep_scale
@@ -1673,7 +1728,8 @@ def phase_r(device):
     model._eval_epoch(tst, ["auc", "logloss"], [None])
     eval_s = time.perf_counter() - t
 
-    # sparse_adam (dense lazy Adam): fit's epoch warms it; a timed one, a profiled one
+    # sparse_adam (the packed row-sparse step): fit's epoch warms it; a timed
+    # one, a profiled one
     lconf = json.loads(json.dumps(conf))
     lconf["train"]["learner"] = "sparse_adam"
     lazy = cls(lconf, device=device).fit(trn, None)
@@ -1684,6 +1740,7 @@ def phase_r(device):
     lazy_epoch_s = time.perf_counter() - t
     lazy_host_ms, lazy_busy_ms = busy_share(lambda: lazy.training_epoch(2))
     lazy_opt = type(lazy.optimizer).__name__
+    lazy_packed = lazy._ctr_sparse_enabled()
     del lazy
 
     # ScorePredictor at 8192 rows a request, held to predict()
@@ -1723,7 +1780,8 @@ def phase_r(device):
            "eval_rows_per_s": len(tst.data_index) / eval_s,
            "cpu_loss": loss_c, "card_loss": loss_k, "grad_max_abs_err": max_abs,
            "grad_tol": TOL_GRAD, "loss_tol": TOL_LOSS, "step_bitwise_repeat": bitwise,
-           "sparse_adam": {"optimizer": lazy_opt, "first_epoch_loss": lazy_loss,
+           "sparse_adam": {"optimizer": lazy_opt, "packed_step": lazy_packed,
+                           "first_epoch_loss": lazy_loss,
                            "epoch_s": lazy_epoch_s, "profiled_epoch_host_ms": lazy_host_ms,
                            "profiled_epoch_busy_ms": lazy_busy_ms,
                            "busy_share_of_epoch": None if lazy_busy_ms is None
@@ -1743,92 +1801,111 @@ def phase_r(device):
           f"phase R test logloss {result['logloss']} outside the JAX band [{llo}, {lhi}]")
     check(abs(loss_k - loss_c) <= TOL_LOSS * abs(loss_c), f"phase R loss {loss_k} vs {loss_c}")
     check(ok, f"phase R gradients disagree with the CPU copy's: {max_abs}")
-    check(lazy_opt == "LazyAdam", f"phase R sparse_adam ran {lazy_opt}")
+    check(lazy_opt == "LazyAdam" and lazy_packed,
+          f"phase R sparse_adam ran {lazy_opt}, packed step {lazy_packed}")
     check(serve_diff <= TOL_PROB, f"phase R ScorePredictor differs from predict by {serve_diff}")
     check(pred.stats()["requests"] == len(starts) == min(8, -(-len(tst.data_index) // B)),
           "phase R served other than 8 requests")
     return out
 
 
-def phase_s(device):
-    """DeepFM, FM and LR the way users start them, ``quickstart.run`` on
-    ml-100k to their early stop, test AUC held to the JAX bands, one epoch
-    profiled, every test row served through ``ScorePredictor``."""
+def ranker_fit_phase(device, tag, model_name, expected, kernels=(), profile=True):
+    """A ranker the way users start it, ``quickstart.run(model_name,
+    "ml-100k")`` at the repo's config to its early stop, test AUC held to
+    its JAX band (which must clear the untrained AUC by ``AUC_MARGIN``),
+    one epoch profiled (``profile``), every test row served through
+    ``ScorePredictor(max_batch=256)``, whose probabilities must be
+    ``evaluate``'s and ``predict``'s. Its batch norms must be calibrated
+    (count > 0). It launches ``kernels`` and no other."""
     import numpy as np
     from recstudio_torch import eval as ev
+    from recstudio_torch.models.module.layers import SimpleBatchNorm
     from recstudio_torch.quickstart import run
     from recstudio_torch.serving import ScorePredictor
     import torch
-    outs = []
-    for model_name, expected in (("DeepFM", dict(embed_dim=10, mlp=[256, 256, 256],
-                                                 dropout=0.3)),
-                                 ("FM", dict(embed_dim=10)), ("LR", dict(embed_dim=1))):
-        with open(ML100K_TRAIN_REFERENCE.format(model_name.lower())) as f:
-            ref = json.load(f)
+    with open(ML100K_TRAIN_REFERENCE.format(model_name.lower())) as f:
+        ref = json.load(f)
 
-        def drive():
-            t0 = time.perf_counter()
-            model, (trn, _, tst), result = run(
-                model_name, "ml-100k", verbose=False, device=device,
-                model_config={"train": {"epochs": ref["epochs"]},
-                              "eval": {"save_path": SAVE_DIR}})
-            run_s = time.perf_counter() - t0
-            size = 256
-            fields = ("user_id", "item_id", "timestamp")
-            rows = tst.data_index
-            pred = ScorePredictor(model, max_batch=size, train_data=trn)
-            requests = [{f: tst.inter_feat.get_col(f)[rows[i:i + size]] for f in fields}
-                        for i in range(0, len(rows), size)]
-            pred.warm(requests[0])
-            probs = np.concatenate([pred(r) for r in requests])
-            return model, trn, tst, result, run_s, pred, probs
+    def drive():
+        t0 = time.perf_counter()
+        model, (trn, _, tst), result = run(
+            model_name, "ml-100k", verbose=False, device=device,
+            model_config={"train": {"epochs": ref["epochs"]}, "eval": {"save_path": SAVE_DIR}})
+        run_s = time.perf_counter() - t0
+        size = 256
+        fields = ("user_id", "item_id", "timestamp")
+        rows = tst.data_index
+        pred = ScorePredictor(model, max_batch=size, train_data=trn)
+        requests = [{f: tst.inter_feat.get_col(f)[rows[i:i + size]] for f in fields}
+                    for i in range(0, len(rows), size)]
+        pred.warm(requests[0])
+        probs = np.concatenate([pred(r) for r in requests])
+        return model, trn, tst, result, run_s, pred, probs
 
-        (model, trn, tst, result, run_s, pred, probs), counts = counted(drive)
-        mc, tc = model.config["model"], model.config["train"]
-        shape = dict(embed_dim=model.embed_dim, **{k: mc[v] for k, v in (
-            ("mlp", "mlp_layer"), ("dropout", "dropout")) if v in mc},
-            batch=tc["batch_size"], epochs=tc["epochs"],
-            patience=tc["early_stop_patience"], fmeval=trn.fmeval)
-        check(shape == dict(expected, batch=512, epochs=ref["epochs"],
-                            patience=ref["early_stop_patience"], fmeval=True),
-              f"phase S {model_name} config {shape}")
-        want = eval_probs(model, tst)
-        served_diff = float(np.abs(probs - want).max())
-        served_auc = float(ev.auc(torch.from_numpy(probs),
-                                  torch.from_numpy(tst.inter_feat.get_col("rating")[
-                                      tst.data_index])))
-        train_s = sorted(e["train_s"] for e in model.epoch_log)
-        epoch_s = train_s[len(train_s) // 2]
-        host_ms, busy_ms = busy_share(lambda: model.training_epoch(0))
-        steps = -(-model._epoch_rows // tc["batch_size"])
-        lo, hi = ref["auc_band"]
-        out = {"phase": "S", "model": model_name, "dataset": "ml-100k",
-               "entry": "quickstart.run", "config": shape, "launches": counts,
-               "run_s": run_s, "epochs_run": len(model.epoch_log),
-               "best_epoch": model.callback.best_epoch,
-               "fit_s": sum(e["train_s"] + e["eval_s"] for e in model.epoch_log),
-               "epoch_s_p50": epoch_s, "steps_per_epoch": steps,
-               "step_ms_p50": epoch_s / steps * 1e3,
-               "eval_s_p50": sorted(e["eval_s"] for e in model.epoch_log)[
-                   len(model.epoch_log) // 2],
-               "profiled_epoch_host_ms": host_ms, "profiled_epoch_busy_ms": busy_ms,
-               "busy_share_of_epoch": None if busy_ms is None else busy_ms / (epoch_s * 1e3),
-               "test_auc": result["auc"], "test_logloss": result["logloss"],
-               "jax_band_auc": [lo, hi], "jax_untrained_auc": ref["untrained_auc"],
-               "jax_runs": ref["runs"], "served_rows": len(probs),
-               "served_auc": served_auc, "served_max_abs_diff_vs_evaluate": served_diff,
-               **{"serve_" + k: v for k, v in pred.stats().items()}}
-        emit("PHASE", out)
-        check(not any(counts.values()), f"phase S {model_name} launched a kernel: {counts}")
-        check(all(np.isfinite(e["train_loss"]) for e in model.epoch_log),
-              f"phase S {model_name} loss")
-        check(lo <= result["auc"] <= hi, f"phase S {model_name} test AUC {result['auc']} "
-                                         f"outside the JAX band [{lo}, {hi}]")
-        check(len(probs) == len(tst.data_index) and served_diff <= TOL_PROB,
-              f"phase S {model_name}: served probabilities differ from evaluate's by "
-              f"{served_diff}")
-        outs.append(out)
-    return outs
+    (model, trn, tst, result, run_s, pred, probs), counts = counted(drive)
+    mc, tc = model.config["model"], model.config["train"]
+    shape = dict(embed_dim=model.embed_dim, **{k: mc[k] for k in expected if k != "embed_dim"},
+                 batch=tc["batch_size"], epochs=tc["epochs"],
+                 patience=tc["early_stop_patience"], fmeval=trn.fmeval)
+    check(shape == dict(expected, batch=512, epochs=ref["epochs"],
+                        patience=ref["early_stop_patience"], fmeval=True),
+          f"phase {tag} {model_name} config {shape}")
+    want = eval_probs(model, tst)
+    served_diff = float(np.abs(probs - want).max())
+    tst.use_field = model.fields
+    predicted = np.concatenate([model.predict(tst._get_pos_batch(np.arange(
+        i, min(i + 4096, len(tst.data_index))))) for i in range(0, len(tst.data_index), 4096)])
+    predict_diff = float(np.abs(probs - predicted).max())
+    served_auc = float(ev.auc(torch.from_numpy(probs),
+                              torch.from_numpy(tst.inter_feat.get_col("rating")[
+                                  tst.data_index])))
+    bn_counts = [float(m.count) for m in model.net.modules() if isinstance(m, SimpleBatchNorm)]
+    train_s = sorted(e["train_s"] for e in model.epoch_log)
+    epoch_s = train_s[len(train_s) // 2]
+    host_ms, busy_ms = busy_share(lambda: model.training_epoch(0)) if profile else (None, None)
+    steps = -(-model._epoch_rows // tc["batch_size"])
+    lo, hi = ref["auc_band"]
+    out = {"phase": tag, "model": model_name, "dataset": "ml-100k",
+           "entry": "quickstart.run", "config": shape, "launches": counts,
+           "run_s": run_s, "epochs_run": len(model.epoch_log),
+           "best_epoch": model.callback.best_epoch,
+           "fit_s": sum(e["train_s"] + e["eval_s"] for e in model.epoch_log),
+           "epoch_s_p50": epoch_s, "steps_per_epoch": steps,
+           "step_ms_p50": epoch_s / steps * 1e3,
+           "eval_s_p50": sorted(e["eval_s"] for e in model.epoch_log)[
+               len(model.epoch_log) // 2],
+           "profiled_epoch_host_ms": host_ms, "profiled_epoch_busy_ms": busy_ms,
+           "busy_share_of_epoch": None if busy_ms is None else busy_ms / (epoch_s * 1e3),
+           "test_auc": result["auc"], "test_logloss": result["logloss"],
+           "jax_band_auc": [lo, hi], "jax_untrained_auc": ref["untrained_auc"],
+           "jax_runs": ref["runs"], "bn_counts": bn_counts, "served_rows": len(probs),
+           "served_auc": served_auc, "served_max_abs_diff_vs_evaluate": served_diff,
+           "served_max_abs_diff_vs_predict": predict_diff,
+           **{"serve_" + k: v for k, v in pred.stats().items()}}
+    emit("PHASE", out)
+    others = {k: v for k, v in counts.items() if k not in kernels and v}
+    check(not others, f"phase {tag} {model_name} launched {others}")
+    check(all(counts[k] > 0 for k in kernels), f"phase {tag} {model_name}: {counts}")
+    check(all(np.isfinite(e["train_loss"]) for e in model.epoch_log),
+          f"phase {tag} {model_name} loss")
+    check(lo > ref["untrained_auc"] + AUC_MARGIN,
+          f"phase {tag} {model_name}: the JAX band [{lo}, {hi}] does not clear the untrained "
+          f"AUC {ref['untrained_auc']} by {AUC_MARGIN}")
+    check(lo <= result["auc"] <= hi, f"phase {tag} {model_name} test AUC {result['auc']} "
+                                     f"outside the JAX band [{lo}, {hi}]")
+    check(all(c > 0 for c in bn_counts), f"phase {tag} {model_name} BN counts {bn_counts}")
+    check(len(probs) == len(tst.data_index) and max(served_diff, predict_diff) <= TOL_PROB,
+          f"phase {tag} {model_name}: served probabilities differ from evaluate's by "
+          f"{served_diff}, from predict's by {predict_diff}")
+    return out
+
+
+def phase_s(device):
+    """DeepFM, FM and LR the way users start them (``ranker_fit_phase``).
+    No kernel."""
+    return [ranker_fit_phase(device, "S", name, expected) for name, expected in (
+        ("DeepFM", dict(embed_dim=10, mlp_layer=[256, 256, 256], dropout=0.3)),
+        ("FM", dict(embed_dim=10)), ("LR", dict(embed_dim=1)))]
 
 
 # ---------------------------------------------------------------------------
@@ -1988,6 +2065,437 @@ def phase_u(device):
             for name, (keys, expected) in graph.items()]
 
 
+# phase V: the JAX bench's ctr_bigvocab_sparse_adam (bench.py:307-327), its
+# rows cut from 10,000,000 to 6,000,000 for the script's time limit, the
+# vocabularies kept; the table (the ids the Zipf draws reach, 21.8 M rows at
+# 10,000,000) must keep more than V_MIN_TABLE_ROWS rows
+V_SHAPE = "criteo-10m-hugevocab-shape"
+V_ROWS = 6_000_000
+V_MIN_TABLE_ROWS = 13_000_000
+# the epoch's steps run under the profiler for the card's busy share
+V_PROFILE_STEPS = 200
+# one packed step against one dense lazy-Adam step (tests/test_sparse_rows.py)
+TOL_PACKED = (2e-4, 1e-6)  # (rtol, atol)
+
+
+def start_ctr_data(shape_name, rows):
+    """Build ``ctr_dataset(shape_name, rows)`` in a process of its own (its
+    generation and ETL are host work, minutes at 10,000,000 rows), while
+    the card's earlier phases run: ``(process, pickle path)``."""
+    path = os.path.join(REPO, "build", "recstudio_torch", f"{shape_name}-{rows}.pkl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ctr-data",
+                             shape_name, str(rows), path], cwd=REPO)
+    return proc, path
+
+
+def write_ctr_data(shape_name, rows, path):
+    """``--ctr-data``: pickle ``ctr_dataset(shape_name, rows)`` to ``path``,
+    at a low priority beside the phases that run meanwhile."""
+    import pickle
+    os.nice(10)
+    sys.path.insert(0, REPO)
+    data = ctr_dataset(shape_name, rows)
+    with open(path + ".part", "wb") as f:
+        pickle.dump(data, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(path + ".part", path)
+
+
+def load_ctr_data(prepared):
+    """Wait for ``start_ctr_data``'s process and load its dataset:
+    ``(dataset, splits, gen s, ETL s, s waited)``."""
+    import pickle
+    proc, path = prepared
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    wait_s = time.perf_counter() - t0
+    check(rc == 0 and os.path.isfile(path), f"the CTR data process failed ({rc})")
+    with open(path, "rb") as f:
+        ds, splits, gen_s, etl_s = pickle.load(f)
+    os.remove(path)
+    return ds, splits, gen_s, etl_s, wait_s
+
+
+def net_state(model):
+    """Copies of a model's parameters, buffers and optimizer state."""
+    import copy
+    return ({k: v.detach().clone() for k, v in model.net.state_dict().items()},
+            copy.deepcopy(model.optimizer.state_dict()))
+
+
+def set_net_state(model, state):
+    """Load ``net_state``'s copies (the optimizer takes its state tensors as
+    they are, so it is given copies of them, and ``state`` stays as saved)."""
+    import copy
+    sd, opt = state
+    model.net.load_state_dict(sd)
+    model.optimizer.load_state_dict(copy.deepcopy(opt))
+
+
+def dense_copy(model, trn, state):
+    """The port's DeepFM with ``sparse_rows: false`` (dense ``LazyAdam``)
+    holding the packed model's ``state``: the tables' first D columns, their
+    moments from the packed columns, the dense leaves' moments and the
+    step count from its optimizer."""
+    import torch
+    conf = json.loads(json.dumps(model.config))
+    conf["train"]["sparse_rows"] = "false"
+    dense = type(model)(conf, device=model.device)
+    dense._init_model(trn)
+    dense._init_parameter(trn)
+    sd, opt = state
+    tables = {k: m.embed_dim for k, m in packed_table_names(model).items()}
+    dense.net.load_state_dict({k: v[:, :tables[k]] if k in tables else v
+                               for k, v in sd.items()})
+    dense.optimizer = dense._get_optimizer()
+    names = [n for n, _ in model.net.named_parameters()]
+    moments = {names[i]: st for i, st in opt["state"].items()}
+    with torch.no_grad():
+        for name, p in dense.net.named_parameters():
+            mu, nu = dense.optimizer.moments(p)
+            if name in tables:
+                d = tables[name]
+                mu.copy_(sd[name][:, d:2 * d])
+                nu.copy_(sd[name][:, 2 * d:])
+            elif name in moments:
+                mu.copy_(moments[name]["mu"])
+                nu.copy_(moments[name]["nu"])
+    dense.optimizer.param_groups[0]["count"] = opt["param_groups"][0]["count"]
+    return dense
+
+
+def packed_table_names(model):
+    """``{state_dict name of a packed table: its Embeddings module}``."""
+    return {f"{prefix}.token_embedding.weight": m for prefix, m in model.net.named_modules()
+            if m in model._packed_embeddings()}
+
+
+def packed_versus_dense(model, dense, state, after, tables):
+    """Largest errors of the packed step's ``after`` state against the dense
+    step's: parameters, and each table's mu and nu columns against the
+    dense moments; and whether all lie within ``TOL_PACKED``."""
+    import torch
+    rtol, atol = TOL_PACKED
+    errs, ok = {}, True
+    params = dict(dense.net.named_parameters())
+    for name, want in dense.net.state_dict().items():
+        got = after[name]
+        pairs = [("params", got, want)]
+        if name in tables:
+            d = tables[name].embed_dim
+            mu, nu = dense.optimizer.moments(params[name])
+            pairs = [("params", got[:, :d], want), ("mu", got[:, d:2 * d], mu),
+                     ("nu", got[:, 2 * d:], nu)]
+        for tag, g, w in pairs:
+            diff = (g - w).abs()
+            errs[f"{name}:{tag}"] = float(diff.max())
+            ok &= bool((diff <= atol + rtol * w.abs()).all())
+    return errs, ok
+
+
+def phase_v(device, rows=V_ROWS, prepared=None):
+    """DeepFM at criteo-10m-hugevocab-shape through the packed row-sparse
+    step (the JAX bench's ``ctr_bigvocab_sparse_adam``): gen and ETL
+    seconds (in ``start_ctr_data``'s process when ``prepared``), the
+    table's rows, one epoch by ``fit`` and its test AUC, 20 timed steps,
+    the card's busy share over ``V_PROFILE_STEPS`` profiled steps; one packed step held to one
+    dense lazy-Adam step from the same state, to a bitwise repeat, and
+    rows no lookup touched to be unchanged bit for bit; 20 steps of the
+    dense ``LazyAdam`` on the same batches for comparison."""
+    import numpy as np
+    import torch
+    from recstudio_torch.data.synthetic import ctr_shape_vocabs
+    from recstudio_torch.utils import get_model
+    if prepared is None:
+        ds, (trn, val, tst), gen_s, etl_s = ctr_dataset(V_SHAPE, rows)
+        wait_s = None
+    else:
+        ds, (trn, val, tst), gen_s, etl_s, wait_s = load_ctr_data(prepared)
+    check(ds.num_inters == rows, f"phase V dataset {ds.num_inters} rows, not {rows}")
+    vocab_rows = sum(ds.num_values(f) for f, t in ds.field2type.items() if t == "token")
+    B = 8192
+    cls, conf = get_model("DeepFM")
+    conf["train"].update(epochs=1, batch_size=B, learner="sparse_adam", sparse_rows="auto",
+                         learning_rate=1e-3, seed=2022)
+    conf["eval"].update(batch_size=B, val_metrics=["auc"], test_metrics=["auc", "logloss"],
+                        save_path=SAVE_DIR)
+
+    def drive():
+        model = cls(conf, device=device)
+        t = time.perf_counter()
+        model.fit(trn, None)
+        fit_s = time.perf_counter() - t
+        return model, fit_s, model.evaluate(tst, verbose=False)
+
+    (model, fit_s, result), counts = counted(drive)
+    if model.ckpt_path and os.path.isfile(model.ckpt_path):
+        os.remove(model.ckpt_path)          # a few GB of packed table
+    engaged = model._ctr_sparse_enabled()
+    tables = packed_table_names(model)
+    mc = model.config["model"]
+    shape = dict(embed_dim=model.embed_dim, mlp=mc["mlp_layer"], activation=mc["activation"],
+                 dropout=mc["dropout"], fields=len(model.net.embedding.field_specs), batch=B)
+    check(shape == dict(embed_dim=10, mlp=[256, 256, 256], activation="tanh", dropout=0.3,
+                        fields=39, batch=8192), f"phase V config {shape}")
+    check(rows < V_ROWS or vocab_rows > V_MIN_TABLE_ROWS,
+          f"phase V table {vocab_rows} rows, not past {V_MIN_TABLE_ROWS}")
+    check(engaged and sorted(tables) == ["embedding.token_embedding.weight",
+                                         "linear.embedding.token_embedding.weight"],
+          f"phase V: the packed step did not engage ({sorted(tables)})")
+    table = model.net.embedding.token_embedding.weight
+    n = len(trn.data_index)
+
+    # 20 timed steps on device-resident batches, peak memory
+    batches = list(itertools.islice(epoch_stream(model), 23))
+
+    def timed(m):
+        torch.cuda.reset_peak_memory_stats(device)
+        m.net.train()
+        ms = []
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m._grad_step(batch)
+            torch.cuda.synchronize()
+            if i >= 3:
+                ms.append((time.perf_counter() - t) * 1e3)
+        m.net.eval()
+        return sorted(ms)[len(ms) // 2], min(ms), torch.cuda.max_memory_allocated(device) / 1e9
+
+    step_p50, step_min, peak_gb = timed(model)
+
+    # fit's epoch, and the first V_PROFILE_STEPS steps of the next profiled
+    # for the card's busy time (a whole epoch under the profiler took 42 s
+    # at 10,000,000 rows)
+    epoch_s = model.epoch_log[0]["train_s"]
+    steps = -(-n // B)
+
+    def profiled_steps():
+        model.net.train()
+        for batch in itertools.islice(model._epoch_batches(), V_PROFILE_STEPS):
+            model._grad_step(batch)
+        model.net.eval()
+
+    host_ms, busy_ms = busy_share(profiled_steps)
+    busy_share_of_steps = None if busy_ms is None else \
+        busy_ms / (V_PROFILE_STEPS * epoch_s / steps * 1e3)
+
+    # one packed step from a saved state, twice: a bitwise repeat, and rows
+    # no lookup of the batch touched unchanged bit for bit
+    batch = batches[0]
+    gen = model.generator.get_state()
+    state = net_state(model)
+    model.generator.set_state(gen)
+    model.net.train()
+    loss_a = float(model._grad_step(batch))
+    after = {k: v.detach().clone() for k, v in model.net.state_dict().items()}
+    set_net_state(model, state)
+    model.generator.set_state(gen)
+    loss_b = float(model._grad_step(batch))
+    model.net.eval()
+    bitwise = loss_a == loss_b and all(torch.equal(after[k], v)
+                                       for k, v in model.net.state_dict().items())
+    untouched_ok, touched_rows = True, {}
+    for name, m in tables.items():
+        touched = torch.zeros(after[name].shape[0], dtype=torch.bool, device=device)
+        ids = torch.stack([batch[f] for _, f in m.token], -1).long() + m.offsets
+        touched[ids.reshape(-1)] = True
+        touched_rows[name] = int(touched.sum())
+        untouched_ok &= torch.equal(after[name][~touched], state[0][name][~touched])
+
+    # the same step on the dense LazyAdam from the same state
+    dense = dense_copy(model, trn, state)
+    check(not dense._ctr_sparse_enabled() and table.shape[1] == 3 * model.embed_dim,
+          "phase V: the dense copy is packed")
+    dense.generator.set_state(gen)
+    dense.net.train()
+    loss_d = float(dense._grad_step(batch))
+    dense.net.eval()
+    errs, same = packed_versus_dense(model, dense, state, after, tables)
+    del state, after
+    dense_p50, dense_min, dense_peak = timed(dense)
+    del dense
+    torch.cuda.empty_cache()
+
+    out = {"phase": "V", "model": "DeepFM", "dataset": ds.name, "rows": rows,
+           "train_rows": n, "test_rows": len(tst.data_index), "config": shape,
+           "learner": "sparse_adam", "sparse_rows": "auto", "packed_step": engaged,
+           "vocab_slots": sum(ctr_shape_vocabs(V_SHAPE)), "table_rows": vocab_rows, "table_shape": list(table.shape),
+           "table_gb": table.numel() * 4 / 1e9, "launches": counts, "gen_s": gen_s,
+           "etl_s": etl_s, "data_wait_s": wait_s, "fit_s": fit_s,
+           "steps_per_epoch": steps, "step_ms_p50": step_p50, "step_ms_min": step_min,
+           "examples_per_s": B / step_p50 * 1e3, "peak_mem_gb": peak_gb,
+           "epoch_s": epoch_s, "epoch_examples_per_s": n / epoch_s,
+           "profiled_steps": V_PROFILE_STEPS, "profiled_steps_host_ms": host_ms,
+           "profiled_steps_busy_ms": busy_ms, "busy_share_of_epoch": busy_share_of_steps,
+           "test_auc": result["auc"], "test_logloss": result["logloss"],
+           "packed_vs_dense": {"loss_packed": loss_a, "loss_dense": loss_d,
+                               "max_abs_err": max(errs.values()), "tol": TOL_PACKED,
+                               "ok": same, "errors": errs},
+           "untouched_rows_bitwise": untouched_ok, "touched_rows": touched_rows,
+           "step_bitwise_repeat": bitwise,
+           "dense_lazy_adam": {"step_ms_p50": dense_p50, "step_ms_min": dense_min,
+                               "examples_per_s": B / dense_p50 * 1e3,
+                               "peak_mem_gb": dense_peak}}
+    emit("PHASE", out)
+    check(not any(counts.values()), f"phase V launched a kernel: {counts}")
+    check(np.isfinite(model.epoch_log[0]["train_loss"]) and 0 < result["auc"] < 1,
+          f"phase V loss {model.epoch_log[0]['train_loss']}, AUC {result['auc']}")
+    check(same, f"phase V: the packed step differs from dense lazy Adam's: {errs}")
+    check(untouched_ok, "phase V: the packed step moved rows no lookup touched")
+    check(bitwise, "phase V: the packed step does not repeat bit for bit")
+    return out
+
+
+def phase_w(device):
+    """AutoInt at its repo config on phase R's data (criteo-1m-shape), batch
+    8192: a one-epoch fit and its test AUC (the evaluation through K3), 20
+    timed steps (dropout 0.5 in training: the plain softmax, no kernel),
+    one step held to the CPU copy with the same dropout seeds, the
+    evaluation's probabilities held to the plain-attention route on the
+    same weights, eval rows/s, and ``ScorePredictor`` at 8192 rows a
+    request held to ``predict``."""
+    import numpy as np
+    import torch
+    from recstudio_torch.models.module.layers import MultiHeadAttention
+    from recstudio_torch.serving import ScorePredictor
+    from recstudio_torch.utils import get_model
+    ref, ds, (trn, val, tst), _, _, gen_s, etl_s = criteo_setup()
+    B = ref["batch_size"]
+    cls, conf = get_model("AutoInt")
+    conf["train"].update(epochs=1, batch_size=B, learner="adam", learning_rate=1e-3,
+                         seed=2022)
+    conf["eval"].update(batch_size=B, val_metrics=["auc"], test_metrics=["auc", "logloss"],
+                        save_path=SAVE_DIR)
+
+    def drive():
+        model = cls(conf, device=device)
+        t = time.perf_counter()
+        model.fit(trn, None)
+        fit_s = time.perf_counter() - t
+        return model, fit_s, model.evaluate(tst, verbose=False)
+
+    (model, fit_s, result), counts = counted(drive)
+    mc = model.config["model"]
+    shape = dict(embed_dim=model.embed_dim, **{k: mc[k] for k in (
+        "attention_dim", "num_attention_layers", "n_head", "mlp_layer", "activation",
+        "dropout", "wide", "deep", "residual_project", "layer_norm")},
+        fields=len(model.net.embedding.field_specs), batch=B)
+    check(shape == dict(embed_dim=10, attention_dim=64, num_attention_layers=3, n_head=2,
+                        mlp_layer=[128, 64], activation="relu", dropout=0.5, wide=True,
+                        deep=True, residual_project=True, layer_norm=False, fields=39,
+                        batch=8192), f"phase W config {shape}")
+    n = len(trn.data_index)
+    batches = list(itertools.islice(epoch_stream(model), 23))
+    torch.cuda.reset_peak_memory_stats(device)
+    model.net.train()
+    step_ms = []
+    _, train_counts = counted(lambda: model._grad_step(batches[0]))
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model._grad_step(batch)
+        torch.cuda.synchronize()
+        if i >= 3:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    model.net.eval()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    step_p50 = sorted(step_ms)[len(step_ms) // 2]
+
+    # one step on the card held to the CPU copy (same batch and dropout seeds)
+    batch = batches[0]
+    gen = model.generator.get_state()
+    loss_k, grads_k = ranker_step(model, batch, gen)
+    cpu = cpu_copy(model, trn)
+    loss_c, grads_c = ranker_step(cpu, {k: v.cpu() for k, v in batch.items()}, gen)
+    key_biases = [k for k in grads_c if k.endswith(".attn.k_proj.bias")]
+    grads_k = {k: v.cpu() for k, v in grads_k.items()}
+    max_abs, ok = grad_errors(grads_k, grads_c, key_biases)
+    # each tensor's largest error over its tolerance (1 at the tolerance)
+    grad_err_over_tol = {k: float(((grads_k[k] - w).abs() / (
+        TOL_GRAD[0] * float(w.abs().max()) + TOL_GRAD[1] * w.abs() + 1e-30)).max())
+        for k, w in grads_c.items()}
+    del cpu
+
+    # the evaluation's probabilities through K3, and through the plain softmax
+    attn = [m for m in model.net.modules() if isinstance(m, MultiHeadAttention)]
+    probs_k, eval_counts = counted(lambda: eval_probs(model, tst))
+    for m in attn:
+        m.plain = True
+    probs_p = eval_probs(model, tst)
+    for m in attn:
+        m.plain = False
+    k3_diff = float(np.abs(probs_k - probs_p).max())
+    model._eval_epoch(tst, ["auc", "logloss"], [None])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model._eval_epoch(tst, ["auc", "logloss"], [None])
+    eval_s = time.perf_counter() - t
+
+    # ScorePredictor at 8192 rows a request, held to predict()
+    pred = ScorePredictor(model, max_batch=B, train_data=trn)
+    fields = [f for f in tst.inter_feat.fields if f != model.frating]
+    starts = range(0, min(8 * B, len(tst.data_index)), B)
+    requests = [{f: tst.inter_feat.get_col(f)[tst.data_index[i:i + B]] for f in fields}
+                for i in starts]
+    pred.warm(requests[0])
+    served, serve_counts = counted(lambda: [pred(r) for r in requests])
+    want = [model.predict(tst._get_pos_batch(np.arange(i, i + len(r)))) for i, r in zip(
+        starts, served)]
+    serve_diff = max(float(np.abs(a - b).max()) for a, b in zip(served, want))
+    L = len(model.net.embedding.field_specs)
+    tile = 32
+    out = {"phase": "W", "model": "AutoInt", "dataset": ds.name, "rows": ref["rows"],
+           "train_rows": n, "test_rows": len(tst.data_index), "config": shape,
+           "launches": counts, "training_step_launches": train_counts,
+           "eval_launches": eval_counts, "serve_launches": serve_counts,
+           "fit_s": fit_s, "fit_epoch_s": model.epoch_log[0]["train_s"],
+           "steps_per_epoch": -(-n // B), "step_ms_p50": step_p50, "step_ms_min": min(step_ms),
+           "examples_per_s": B / step_p50 * 1e3, "peak_mem_gb": peak_gb,
+           "test_auc": result["auc"], "test_logloss": result["logloss"],
+           "eval_s": eval_s, "eval_rows_per_s": len(tst.data_index) / eval_s,
+           "cpu_loss": loss_c, "card_loss": loss_k, "grad_max_abs_err": max_abs,
+           "grad_tol": TOL_GRAD, "loss_tol": TOL_LOSS, "zero_gradients": key_biases,
+           "grad_err_over_tol": grad_err_over_tol,
+           "zero_gradient_tol": TOL_ZERO_GRAD,
+           "k3_vs_plain_route_max_abs_diff": k3_diff, "prob_tol": TOL_PROB,
+           "k3_real_pair_share_of_tiles": L * L / (-(-L // tile) * tile) ** 2,
+           "serve_max_abs_diff_vs_predict": serve_diff,
+           **{"serve_" + k: v for k, v in pred.stats().items()}}
+    emit("PHASE", out)
+    others = {k: v for k, v in counts.items() if k != "fused_mha" and v}
+    check(not others, f"phase W launched {others}")
+    check(counts["fused_mha"] > 0 and eval_counts["fused_mha"] > 0
+          and serve_counts["fused_mha"] > 0 and not any(train_counts.values()),
+          f"phase W: K3 launches fit/evaluate {counts}, eval {eval_counts}, serving "
+          f"{serve_counts}, a training step {train_counts}")
+    check(np.isfinite(model.epoch_log[0]["train_loss"]) and 0 < result["auc"] < 1,
+          f"phase W loss {model.epoch_log[0]['train_loss']}, AUC {result['auc']}")
+    check(abs(loss_k - loss_c) <= TOL_LOSS * abs(loss_c), f"phase W loss {loss_k} vs {loss_c}")
+    check(ok, f"phase W gradients disagree with the CPU copy's: {max_abs}")
+    check(k3_diff <= TOL_PROB, f"phase W: K3's probabilities differ from the plain route's "
+                               f"by {k3_diff}")
+    check(serve_diff <= TOL_PROB, f"phase W ScorePredictor differs from predict by {serve_diff}")
+    return out
+
+
+def phase_x(device):
+    """WideDeep, DCN, NFM and AutoInt the way users start them
+    (``ranker_fit_phase``): batch norms calibrated, AutoInt's validation,
+    evaluation and serving through K3."""
+    return [ranker_fit_phase(device, "X", name, expected,
+                             ("fused_mha",) if name == "AutoInt" else (), profile=False)
+            for name, expected in (
+                ("WideDeep", dict(embed_dim=10, mlp_layer=[256, 256, 256], activation="relu",
+                                  dropout=0.3, batch_norm=True)),
+                ("DCN", dict(embed_dim=10, mlp_layer=[256, 256, 256], num_layers=6,
+                             activation="relu", dropout=0.5, batch_norm=True)),
+                ("NFM", dict(embed_dim=10, mlp_layer=[128, 128, 128], activation="sigmoid",
+                             dropout=0.3, batch_norm=True)),
+                ("AutoInt", dict(embed_dim=10, attention_dim=64, num_attention_layers=3,
+                                 n_head=2, mlp_layer=[128, 64], dropout=0.5)))]
+
+
 # ---------------------------------------------------------------------------
 def causal_mask(L, device, causal=True):
     """The causal attention mask (True = disallow), or None (bidirectional)."""
@@ -2073,6 +2581,37 @@ def k3_versus_plain(device, B, H, L, Dh, causal=True):
             "extra_pass_share": float(extra.float().mean()), "ms": ms,
             "kernel_only_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
+
+
+def k3_unmasked_versus_plain(device, B, H, L, Dh):
+    """K3 through ``fused_mha`` with no mask at all (AutoInt's attention over
+    the fields) against mha_plain, with a bitwise repeat, beside SDPA; the
+    share of the ``MHA_TILE`` tiles' score pairs that are real (L pads to
+    whole tiles)."""
+    import numpy as np
+    import torch
+    from recstudio_torch.ops.attention import MHA_TILE, fused_mha, mha_plain
+    rng = np.random.default_rng(B + L + 2)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, H, L, Dh)).astype(np.float32)).to(device)
+               for _ in range(3))
+    kern = lambda: fused_mha(q, k, v)
+    plain = lambda: mha_plain(q, k, v)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    with torch.no_grad():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        max_abs, max_rel, ok = errors(got, want, TOL_K3)
+        bitwise = torch.equal(got, kern())
+        ms, plain_ms, library_ms = time_ms(kern), time_ms(plain), time_ms(lib)
+    flops = 4 * B * H * L * L * Dh
+    nbytes = 4 * 4 * B * H * L * Dh
+    b_ms, by = bound(flops, nbytes)
+    padded = (-(-L // MHA_TILE[0]) * MHA_TILE[0]) * (-(-L // MHA_TILE[1]) * MHA_TILE[1])
+    return {"shape": dict(B=B, H=H, L=L, Dh=Dh, causal=False, key_padding=False),
+            "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": TOL_K3,
+            "ok": ok and bitwise, "bitwise_repeatable": bitwise, "tile": list(MHA_TILE),
+            "real_pair_share_of_tiles": L * L / padded, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
 
 
 def layer_inputs(device, B, L, D, F, seed, causal=True):
@@ -2411,6 +2950,22 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}",
           flush=True)
 
+    v_data = start_ctr_data(V_SHAPE, V_ROWS)
+    try:
+        return _main(device, v_data)
+    finally:
+        if v_data[0].poll() is None:
+            v_data[0].kill()
+            v_data[0].wait()
+        for path in (v_data[1], v_data[1] + ".part"):
+            if os.path.isfile(path):
+                os.remove(path)
+
+
+def _main(device, v_data) -> int:
+    import torch
+    from recstudio_torch.ops import _native
+    gpu = gpu_line()
     lib = _native.load()
     ptxas = [ln.strip() for ln in lib.ptxas_log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
@@ -2418,12 +2973,15 @@ def main() -> int:
     for ln in ptxas:
         print(f"PTXAS {ln}", flush=True)
 
-    phases = [phase_a(device), phase_b(device), phase_c(device), phase_d(device),
-              phase_e(device), phase_f(device), phase_g(device), phase_h(device),
-              phase_i(device), phase_j(device), phase_k(device), phase_l(device),
-              phase_m(device), *phase_n(device), phase_o(device), phase_p(device),
-              *phase_q(device), phase_r(device), *phase_s(device), phase_t(device),
-              *phase_u(device)]
+    phases = []
+    for fn in (phase_a, phase_b, phase_c, phase_d, phase_e, phase_f, phase_g, phase_h,
+               phase_i, phase_j, phase_k, phase_l, phase_m, phase_n, phase_o, phase_p,
+               phase_q, phase_r, phase_s, phase_t, phase_u, phase_w, phase_x,
+               lambda d: phase_v(d, prepared=v_data)):
+        t = time.perf_counter()
+        out = fn(device)
+        phases += out if isinstance(out, list) else [out]
+        print(f"LAP {phases[-1]['phase']} {time.perf_counter() - t:.1f} s", flush=True)
 
     k1_a = k1_versus_plain(device, 128, 20, 64, 128, 2)
     k1_b = k1_versus_plain(device, 256, 200, 128, 128, 2)
@@ -2431,6 +2989,8 @@ def main() -> int:
     k3_c = k3_versus_plain(device, 64, 2, 384, 64)
     # BERT4Rec's attention through K1 at F: no attention mask, right padding
     k3_f = k3_versus_plain(device, 256, 2, 200, 32, causal=False)
+    # AutoInt's attention over criteo's 39 fields at W's batch: no mask, Dh 32
+    k3_autoint = k3_unmasked_versus_plain(device, 8192, 2, 39, 32)
     k1_d = k1_train_versus_plain(device, 1024, 200, 128, 128, 2)
     k2_d = k2_versus_plain(device, 1024, 200, 128, 128, 2)
     # phase F's shapes: BERT4Rec layers (no attention mask, dropout 0.2), and
@@ -2448,7 +3008,7 @@ def main() -> int:
     # (the kernels' DK = 16 instantiation), every row with a gradient
     clse_o = clse_versus_plain(device, 256, 3706, 200, seed=2034, g_share=1.0)
     rows = [("K1@A", k1_a), ("K1@B", k1_b), ("K3@B", k3_b), ("K3@C", k3_c),
-            ("K3@F", k3_f),
+            ("K3@F", k3_f), ("K3@autoint", k3_autoint),
             ("K1train@D", k1_d), ("K2@D", k2_d), ("K1@F", k1_f), ("K1train@F", k1t_f),
             ("K2@F", k2_f)]
     rows += [(f"{k}@F", clse_f[k]) for k in ("K7", "K8", "K9")]
@@ -2481,7 +3041,10 @@ def main() -> int:
          "launches": launches("fused_transformer_layer"), **row(k1_b)},
         {"name": "fused_mha", "route": "cuda", "source": "recstudio_torch/csrc/attention.cu",
          "replaces": "recstudio_tpu/ops/attention.py:71",
-         "launches": launches("fused_mha"), **row(k3_c)},
+         "launches": launches("fused_mha"),
+         "launches_by_phase": {p["phase"] + ("" if "model" not in p else f":{p['model']}"):
+                               p["launches"]["fused_mha"] for p in phases
+                               if p["launches"].get("fused_mha")}, **row(k3_c)},
         {"name": "fused_transformer_layer_bwd", "route": "cuda",
          "source": "recstudio_torch/csrc/transformer_layer_bwd.cu",
          "replaces": "recstudio_tpu/ops/transformer_layer.py:292",
@@ -2512,6 +3075,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ctr-data"]:     # start_ctr_data's process
+        write_ctr_data(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     try:
         sys.exit(main())
     except SmokeFailure as e:

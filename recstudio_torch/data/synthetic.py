@@ -150,11 +150,26 @@ def generate_ctr(name: str, n_rows: int, out_dir: Optional[str] = None,
     return name, config
 
 
+def _column_text(col: np.ndarray) -> list:
+    """``col.astype(str).tolist()``, converting each distinct value once."""
+    uniq, inv = np.unique(col, return_inverse=True)
+    return np.asarray(uniq.astype(str).tolist(), dtype=object)[inv].tolist()
+
+
+# rows of text made and written at a time by ``write_ctr``
+CTR_CHUNK_ROWS = 500_000
+
+
 def write_ctr(path: str, n_rows: int, seed: int, n_float: int,
               vocabs: Tuple[int, ...]) -> None:
     """``synthetic.py:167-196``: the same draws from the same generator in
     the same order, written as pandas' ``to_csv`` writes the JAX package's
-    frame (float32 columns by numpy's shortest float32 text)."""
+    frame (float32 columns by numpy's shortest float32 text). The columns
+    are drawn whole; the text is made and written ``CTR_CHUNK_ROWS`` rows
+    at a time, so the host holds one chunk's strings, not the file's (40 lists
+    of ``n_rows`` strings at 10,000,000 rows), and the bytes are the
+    same. Each distinct value of a chunk's column is converted once
+    (``_column_text``)."""
     rng = np.random.default_rng(seed)
 
     cols = {}
@@ -180,7 +195,8 @@ def write_ctr(path: str, n_rows: int, seed: int, n_float: int,
         cols[f"C{j + 1}"] = ids
     y = (rng.random(n_rows) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float32)
     frame = {"rating": y, **cols}
-    text = [col.astype(str).tolist() for col in frame.values()]
     with open(path, "w", encoding="utf-8", newline="") as f:
         f.write("\t".join(frame) + "\n")
-        f.writelines("\t".join(row) + "\n" for row in zip(*text))
+        for start in range(0, n_rows, CTR_CHUNK_ROWS):
+            text = [_column_text(col[start:start + CTR_CHUNK_ROWS]) for col in frame.values()]
+            f.writelines("\t".join(row) + "\n" for row in zip(*text))

@@ -10,12 +10,21 @@ dataset is a feature (``_set_data_field``). Evaluation is per row
 per-row sums, and ``auc`` once over the whole split's scores, labels and
 weights, all kept on the device (``recommender.py:1159-1188``).
 
-``learner: sparse_adam`` runs the port's dense ``LazyAdam``, whose
-trajectory the JAX package's row-sparse CTR step follows; that packed
-``[N, 3D]`` step (``_ctr_sparse_grad_step``) is not ported, and
-``train.sparse_rows: true``, which asks for it, raises. A retriever or a
-two-stage cascade, multitask ratings and the rank metrics a cascade
-serves are not ported yet and raise.
+The packed row-sparse CTR step (``baseranker.py:150-385``): with
+``learner: sparse_adam`` and ``train.sparse_rows`` ``auto`` or ``true``,
+no weight decay, no clip, no scheduler and no mesh
+(``_ctr_sparse_config_ok``), the net is built with packed fused token
+tables (``module/ctr.packed_tables``: ``[N, 3D]`` rows of params, mu and
+nu, the moment columns zeroed after initialisation and the tables taking
+no gradient, ``_prepare_sparse_state``), and each step
+(``_ctr_sparse_grad_step``) takes every lookup's gradient on the gathered
+``[B, T, D]`` rows, updates the dense leaves by lazy Adam, and each packed
+table by ``fused_table_lazy_adam_packed``: one gather of the candidate
+rows and one write back, no ``[N, D]`` gradient. ``sparse_rows: false``
+trains the same trajectory with the dense ``LazyAdam``. A net's batch
+norms are calibrated by ``_calibration_forward`` (``baseranker.py:387``).
+A retriever or a two-stage cascade, multitask ratings and the rank
+metrics a cascade serves are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -25,7 +34,10 @@ import numpy as np
 import torch
 
 from ... import eval as eval_mod
+from ..init import zero_pad_rows_in_grads
 from ..loss_func import BCEWithLogitLoss
+from ..module.ctr import Embeddings, packed_tables
+from ..optim import fused_table_lazy_adam_packed, unpack_table_params
 from .recommender import Recommender, batch_to_device
 
 _QUEUE = "(ROADMAP.md queue 1, the ranker items)"
@@ -37,12 +49,6 @@ class BaseRanker(Recommender):
             raise NotImplementedError(f"a ranker with a cascaded retriever (two-stage) is not "
                                       f"ported yet {_QUEUE}")
         super().__init__(config, device)
-        tc = self.config["train"]
-        if str(tc.get("sparse_rows", "auto")).lower() == "true":
-            raise NotImplementedError(
-                "train.sparse_rows 'true' asks for the packed row-sparse CTR step, which is not "
-                f"ported yet {_QUEUE}; 'auto' or 'false' trains sparse_adam as dense lazy Adam, "
-                "the same trajectory")
         self._eval_cache: Dict[Tuple[int, int], Tuple[object, List[Dict[str, torch.Tensor]]]] = {}
 
     def _set_data_field(self, data) -> None:
@@ -54,14 +60,95 @@ class BaseRanker(Recommender):
         super()._init_model(train_data)
         if isinstance(self.frating, list):
             raise NotImplementedError(f"multitask ratings are not ported yet {_QUEUE}")
-        self.net = self._get_score_net(train_data)
+        with packed_tables(self._ctr_sparse_config_ok()):
+            self.net = self._get_score_net(train_data)
         self._eval_cache.clear()
+
+    def _init_parameter(self, train_data=None):
+        super()._init_parameter(train_data)
+        self._prepare_sparse_state()
 
     def _get_score_net(self, train_data) -> torch.nn.Module:
         raise NotImplementedError
 
     def _get_loss_func(self):
         return BCEWithLogitLoss()
+
+    # ------------------------------------------------------------------
+    # the packed row-sparse CTR step
+    # ------------------------------------------------------------------
+    def _ctr_sparse_config_ok(self) -> bool:
+        """The config's half of the gate (``baseranker.py:150-171``), known
+        before the net is built: it decides whether the fused tables are
+        declared packed."""
+        tc = self.config["train"]
+        return (str(tc.get("sparse_rows", "auto")).lower() != "false"
+                and str(tc.get("learner", "adam")).lower() == "sparse_adam"
+                and not tc.get("weight_decay") and not tc.get("grad_clip_norm")
+                and not tc.get("scheduler") and not tc.get("mesh"))
+
+    def _packed_embeddings(self) -> List[Embeddings]:
+        return [m for m in self.net.modules() if isinstance(m, Embeddings) and m.packed]
+
+    def _ctr_sparse_enabled(self) -> bool:
+        """The packed step runs (``baseranker.py:173-205``): the config
+        qualifies and the net holds packed fused tables."""
+        return self.net is not None and self._ctr_sparse_config_ok() \
+            and bool(self._packed_embeddings())
+
+    @torch.no_grad()
+    def _prepare_sparse_state(self) -> None:
+        """After initialisation (``baseranker.py:207-278``): a packed table's
+        moment columns are set to 0 (the initialisation drew the whole
+        leaf) and the table takes no gradient (the packed step updates it);
+        a packed table whose gate is off is unpacked to its first D columns,
+        so the dense path trains it."""
+        enabled = self._ctr_sparse_enabled()
+        for m in self._packed_embeddings():
+            w = m.token_embedding.weight
+            if enabled:
+                w[:, m.embed_dim:].zero_()
+                w.requires_grad_(False)
+            else:
+                m.token_embedding.weight = torch.nn.Parameter(
+                    unpack_table_params(w).contiguous())
+
+    def _grad_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if self._ctr_sparse_enabled():
+            return self._ctr_sparse_grad_step(batch)
+        return super()._grad_step(batch)
+
+    def _ctr_sparse_grad_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One lazy-Adam step (``baseranker.py:287-356``): the loss is
+        differentiated with respect to the dense leaves and to the rows
+        each packed table's read gathered (``Embeddings.probe``); the dense
+        leaves take ``LazyAdam``'s update, each packed table
+        ``fused_table_lazy_adam_packed`` from its per-lookup gradients."""
+        tables = self._packed_embeddings()
+        self.optimizer.zero_grad(set_to_none=True)
+        for m in tables:
+            m.probe, m.probed = True, None
+        try:
+            loss = self.training_step(batch)
+        finally:
+            for m in tables:
+                m.probe = False
+        probed = [m.probed for m in tables]
+        for m in tables:
+            m.probed = None
+        loss.backward()
+        zero_pad_rows_in_grads(self.net)
+        self.optimizer.step()
+        group = self.optimizer.param_groups[0]
+        count = group["count"]
+        for m, (ids, rows) in zip(tables, probed):
+            fused_table_lazy_adam_packed(m.sizes, m.token_embedding.weight, ids, rows.grad,
+                                         count, group["lr"], group["betas"][0],
+                                         group["betas"][1], group["eps"])
+        return loss.detach()
+
+    def _calibration_forward(self, batch: Dict[str, torch.Tensor]) -> None:
+        self.net(batch, self.generator)
 
     # ------------------------------------------------------------------
     def score(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -16,6 +16,13 @@ device and takes one optimizer step (``_grad_step``), and the epoch's
 mean loss is read once, at its end. Evaluation serves each split
 through ``topk`` and averages the rank metrics over its true rows.
 
+A net with batch norm (``SimpleBatchNorm``) keeps its population
+statistics in buffers, calibrated before each validation and, when a fit
+ran none, in ``evaluate`` (``_refresh_net_state``): the first 32
+training batches, in order, go through the net in eval mode with no
+gradient, the statistics reset first. They are part of ``state_dict``,
+so they travel with checkpoints, snapshots and the best epoch's restore.
+
 Not ported yet: the host-loader epoch (``train.epoch_scan: false``), the
 TPU dispatch strategies (``_setup_chunked_epoch``, ``_fit_loop_blocks``),
 config overrides passed to ``fit``, adagrad and rmsprop, learning-rate
@@ -24,6 +31,7 @@ schedules, orbax checkpoints and
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import time
@@ -36,6 +44,7 @@ from ... import eval as eval_mod
 from ...utils import get_base_model_config, make_generator, resolve_device, seed_everything
 from ...utils.callbacks import EarlyStopping, SaveLastCallback
 from ..init import init_parameters, zero_pad_rows_in_grads
+from ..module.layers import SimpleBatchNorm
 from ..optim import LazyAdam
 
 logger = logging.getLogger("recstudio_torch")
@@ -103,6 +112,8 @@ class Recommender:
         self.ckpt_path: Optional[str] = None
         self.callback = None
         self.val_check = False
+        self._train_data = None
+        self._calib_batches: Optional[List[Dict[str, torch.Tensor]]] = None
 
     @staticmethod
     def _get_dataset_class():
@@ -250,6 +261,8 @@ class Recommender:
             # a rank metric is read at the first cutoff (recommender.py:824-834)
             self.val_metric = f"{vm}@{self._cutoffs()[0]}" if eval_mod.get_rank_metrics(vm) else vm
         self.callback = self._get_callback(train_data.name)
+        self._train_data = train_data
+        self._calib_batches = None
         self.optimizer = self._get_optimizer()
         self._setup_scan_epoch(train_data)
         start = 0
@@ -275,6 +288,7 @@ class Recommender:
             metrics: Dict[str, float] = {"train_loss": self.training_epoch(nepoch)}
             t1 = time.perf_counter()
             if self.val_check and nepoch % self.config["eval"].get("val_n_epoch", 1) == 0:
+                self._refresh_net_state()
                 metrics.update(self.validation_epoch(val_data))
             t2 = time.perf_counter()
             self.epoch_log.append({"epoch": nepoch, **metrics, "train_s": t1 - t0,
@@ -300,6 +314,8 @@ class Recommender:
         validation epoch's parameters restored when there was one."""
         if self.ckpt_path is not None and getattr(self.callback, "best_params", None) is not None:
             self.restore(self.callback.best_params)
+        elif not self.val_check:
+            self._refresh_net_state()          # no validation calibrated it
         out = self._eval_epoch(test_data, self.config["eval"]["test_metrics"], self._cutoffs())
         if verbose:
             logger.info("test result %s", out)
@@ -307,6 +323,45 @@ class Recommender:
 
     def _epoch_refresh(self, nepoch: int) -> None:
         pass
+
+    # ------------------------------------------------------------------
+    # batch-norm population statistics (recommender.py:300-334)
+    # ------------------------------------------------------------------
+    def _calibration_forward(self, batch: Dict[str, torch.Tensor]) -> None:
+        """One forward pass of the calibration (the ranker's score net)."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def _refresh_net_state(self, max_batches: int = 32) -> None:
+        """Calibrate every ``SimpleBatchNorm``: reset its statistics to 0,
+        then stream the first ``max_batches`` training batches (unshuffled,
+        staged on the device once a fit) through the net in eval mode, each
+        layer keeping the cumulative average of its batch means and
+        variances. A model with no batch norm, or never given training data
+        by ``fit``, is left as it is (evaluation then normalizes with each
+        batch's statistics)."""
+        bns = [m for m in self.net.modules() if isinstance(m, SimpleBatchNorm)]
+        if not bns or self._train_data is None:
+            return
+        if self._calib_batches is None:
+            bs = int(self.config["train"]["batch_size"])
+            self._calib_batches = [
+                batch_to_device(b, self.device) for b in
+                itertools.islice(self._train_data.train_loader(bs, shuffle=False), max_batches)]
+        was_training = self.net.training
+        self.net.eval()
+        for bn in bns:
+            bn.mean.zero_()
+            bn.var.zero_()
+            bn.count.zero_()
+            bn.calibrating = True
+        try:
+            for batch in self._calib_batches:
+                self._calibration_forward(batch)
+        finally:
+            for bn in bns:
+                bn.calibrating = False
+            self.net.train(was_training)
 
     def _eval_epoch(self, data, metric_names, cutoffs) -> Dict[str, float]:
         raise NotImplementedError

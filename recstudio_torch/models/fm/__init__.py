@@ -1,5 +1,9 @@
+from .autoint import AutoInt
+from .dcn import DCN
 from .deepfm import DeepFM
 from .fm import FM
 from .lr import LR
+from .nfm import NFM
+from .widedeep import WideDeep
 
-__all__ = ["DeepFM", "FM", "LR"]
+__all__ = ["AutoInt", "DCN", "DeepFM", "FM", "LR", "NFM", "WideDeep"]

@@ -38,7 +38,11 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
       kernel ``[Fd, D]``): ``method``, with row 0 set to 0, as the JAX rule
       by name does to every ``embedding`` leaf;
     - any other 2-D parameter (learned position tables): N(0, 0.02), the
-      initializer the JAX modules declare for them.
+      initializer the JAX modules declare for them;
+    - a 1-D parameter ``w_{i}`` (DCN's cross weights): N(0, 1), the
+      initializer the JAX module declares (its rule by name leaves them);
+      every other 1-D parameter keeps the value its module gave it (a
+      batch norm's ``scale`` 1, ``Dice``'s ``alpha`` 0).
     """
     embeddings = {id(m.weight) for m in module.modules() if isinstance(m, nn.Embedding)}
     for name, p in module.named_parameters():
@@ -56,6 +60,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
             p[0].zero_()
         elif p.dim() == 2:
             p.copy_(0.02 * torch.randn(tuple(p.shape), generator=generator))
+        elif p.dim() == 1 and leaf.startswith("w_"):
+            p.copy_(torch.randn(tuple(p.shape), generator=generator))
 
 
 @torch.no_grad()

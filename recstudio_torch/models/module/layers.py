@@ -1,8 +1,8 @@
-"""Sequence building blocks: transformer encoder, GRU, feedforward
-attention, MLP and sequence pooling.
+"""Building blocks: transformer encoder, GRU, attention, MLP, batch norm
+and sequence pooling.
 
 Counterpart of the parts of ``recstudio_tpu/models/module/layers.py`` that
-SASRec, BERT4Rec, GRU4Rec, NARM and STAMP use. ``TransformerLayer`` owns its parameters directly, in
+SASRec, BERT4Rec, GRU4Rec, NARM, STAMP and the rankers use. ``TransformerLayer`` owns its parameters directly, in
 PyTorch's ``[out, in]`` layout, so the whole layer can go to the fused
 kernel (``ops/transformer_layer.py``) with the same two-way dispatch as the
 JAX module (``layers.py:391-433``):
@@ -25,6 +25,11 @@ versions. Setting ``plain = True`` on a layer sends it through the plain
 versions on any device; that is how the kernels are held against them on
 the card.
 
+``MultiHeadAttention`` (AutoInt's) sends its heads to ``fused_mha`` under
+the JAX gate: K3 in evaluation and serving, the plain softmax where
+dropout acts on the weights. ``SimpleBatchNorm`` keeps calibrated
+statistics in buffers (``Recommender._refresh_net_state``).
+
 The GRU, the feedforward attention and the MLP reach no Pallas kernel in
 the JAX package (its GRU is an ``nn.scan`` that XLA compiles), so they have
 no hand-written kernel here: ``GRULayer`` runs each layer through cuDNN on
@@ -35,7 +40,7 @@ is its reference on either device (``GRULayer.plain``).
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -64,16 +69,81 @@ _ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 }
 
 
-def get_act(activation) -> Callable[[torch.Tensor], torch.Tensor]:
-    """An activation by name, a callable as it is, ``None`` the identity.
-    ``dice`` needs ``SimpleBatchNorm``, which is not ported yet."""
+class SimpleBatchNorm(nn.Module):
+    """Batch normalization with calibrated population statistics
+    (``layers.py:18-68``). In training mode it normalizes with the batch's
+    statistics (the last axis is the feature axis, every other axis a batch
+    axis; the variance is the population variance). The statistics
+    ``mean``, ``var`` and ``count`` are buffers, not parameters, so no
+    optimizer touches them: they move only in a calibration pass
+    (``calibrating`` set, by ``Recommender._refresh_net_state``), which
+    keeps a cumulative average of the batch means and variances, counts
+    the batches, and normalizes with the batch's statistics. In eval mode
+    it normalizes with the calibrated statistics, or with the batch's
+    while ``count`` is 0."""
+
+    def __init__(self, num_features: int, epsilon: float = 1e-5, use_scale: bool = True,
+                 use_bias: bool = True):
+        super().__init__()
+        self.epsilon = epsilon
+        self.calibrating = False
+        self.scale = nn.Parameter(torch.ones(num_features)) if use_scale else None
+        self.bias = nn.Parameter(torch.zeros(num_features)) if use_bias else None
+        self.register_buffer("mean", torch.zeros(num_features))
+        self.register_buffer("var", torch.ones(num_features))
+        self.register_buffer("count", torch.zeros(()))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axes = tuple(range(x.dim() - 1))
+        batch_mean = x.mean(axes)
+        batch_var = x.var(axes, unbiased=False)
+        if self.calibrating:
+            with torch.no_grad():
+                k = self.count + 1.0
+                self.mean.add_((batch_mean - self.mean) / k)
+                self.var.add_((batch_var - self.var) / k)
+                self.count.copy_(k)
+        if self.training or self.calibrating:
+            mean, var = batch_mean, batch_var
+        else:
+            seen = self.count > 0
+            mean = torch.where(seen, self.mean, batch_mean)
+            var = torch.where(seen, self.var, batch_var)
+        y = (x - mean) * torch.rsqrt(var + self.epsilon)
+        if self.scale is not None:
+            y = y * self.scale
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
+
+class Dice(nn.Module):
+    """The data-adaptive activation of DIN (``layers.py:70-81``): ``x p +
+    alpha x (1 - p)``, p the sigmoid of ``x`` batch-normalized without
+    scale or bias (epsilon 1e-8)."""
+
+    def __init__(self, emb_size: int):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.zeros(emb_size))
+        self.bn = SimpleBatchNorm(emb_size, epsilon=1e-8, use_scale=False, use_bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = torch.sigmoid(self.bn(x))
+        return x * p + self.alpha * x * (1.0 - p)
+
+
+def get_act(activation, dim: Optional[int] = None) -> Callable[[torch.Tensor], torch.Tensor]:
+    """An activation by name, a callable as it is, ``None`` the identity;
+    ``dice`` is a new ``Dice`` module over ``dim`` features."""
     if activation is None:
         return _identity
     if not isinstance(activation, str):
         return activation
     name = activation.lower()
     if name == "dice":
-        raise NotImplementedError("the dice activation needs SimpleBatchNorm, not ported yet")
+        if dim is None:
+            raise ValueError("the dice activation needs a dimension")
+        return Dice(dim)
     if name not in _ACTIVATIONS:
         raise ValueError(f"unknown activation: {activation}")
     return _ACTIVATIONS[name]
@@ -89,28 +159,39 @@ def seeded_dropout(x: torch.Tensor, p: float, training: bool, rng: Optional[torc
 
 class MLPModule(nn.Module):
     """``layers.py:110-139``: for each layer, dropout, ``Linear`` (named
-    ``dense_{i}`` as the JAX package's), then the activation, which the last
-    layer takes only with ``last_activation``. ``mlp_layers`` lists the
-    input width first."""
+    ``dense_{i}`` as the JAX package's), ``SimpleBatchNorm`` (``bn_{i}``)
+    with ``batch_norm``, then the activation. The last layer takes the
+    batch norm only with ``last_bn`` and the activation only with
+    ``last_activation``. ``mlp_layers`` lists the input width first. The
+    ``dice`` activation is a module a layer (``Dice_{i}``, the JAX
+    package's automatic names)."""
 
     def __init__(self, mlp_layers: Sequence[int], activation_func="relu", dropout: float = 0.0,
-                 bias: bool = True, batch_norm: bool = False, last_activation: bool = True):
+                 bias: bool = True, batch_norm: bool = False, last_activation: bool = True,
+                 last_bn: bool = True):
         super().__init__()
-        if batch_norm:
-            raise NotImplementedError("MLPModule's batch_norm needs SimpleBatchNorm, "
-                                      "not ported yet")
         sizes = list(mlp_layers)
         self.n_layers = len(sizes) - 1
-        self.dropout, self.last_activation = dropout, last_activation
-        self.act = get_act(activation_func)
+        self.dropout = dropout
+        self.acts: List[Callable[[torch.Tensor], torch.Tensor]] = []
         for i in range(self.n_layers):
+            is_last = i == self.n_layers - 1
             self.add_module(f"dense_{i}", nn.Linear(sizes[i], sizes[i + 1], bias=bias))
+            if batch_norm and (not is_last or last_bn):
+                self.add_module(f"bn_{i}", SimpleBatchNorm(sizes[i + 1]))
+            act = get_act(activation_func, sizes[i + 1]) \
+                if not is_last or last_activation else _identity
+            if isinstance(act, nn.Module):
+                self.add_module(f"Dice_{i}", act)
+            self.acts.append(act)
 
     def forward(self, x: torch.Tensor, rng: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.n_layers):
             x = getattr(self, f"dense_{i}")(seeded_dropout(x, self.dropout, self.training, rng))
-            if i < self.n_layers - 1 or self.last_activation:
-                x = self.act(x)
+            bn = getattr(self, f"bn_{i}", None)
+            if bn is not None:
+                x = bn(x)
+            x = self.acts[i](x)
         return x
 
 
@@ -226,30 +307,91 @@ class GRULayer(nn.Module):
         return x
 
 
+class MultiHeadAttention(nn.Module):
+    """Projected multi-head softmax attention (``layers.py:254-300``):
+    ``q_proj``, ``k_proj``, ``v_proj`` and ``out_proj`` ``Linear``s of
+    width ``q_dim`` split into ``n_head`` heads. The route is the JAX
+    gate's (``layers.py:277-279``): with no weights asked for, no dropout
+    in training, and ``attn_mask`` absent or 2-D, the heads go through
+    ``fused_mha`` (K3 on a CUDA tensor for Lk <= 512, which raises rather
+    than fall back; its plain version on a CPU tensor); otherwise through
+    the plain softmax, masked with ``finfo(float32).min``, with dropout on
+    the weights from ``seeded_dropout`` (seeds from ``rng``).
+    ``need_weight`` also returns the weights averaged over the heads.
+    Setting ``plain = True`` takes the plain softmax on any device, which
+    is how K3 is held against it on the card."""
+
+    def __init__(self, q_dim: int, n_head: int = 1, dropout: float = 0.0, bias: bool = True,
+                 k_dim: Optional[int] = None, v_dim: Optional[int] = None):
+        super().__init__()
+        self.q_dim, self.n_head, self.dropout = q_dim, n_head, dropout
+        self.plain = False
+        self.q_proj = nn.Linear(q_dim, q_dim, bias=bias)
+        self.k_proj = nn.Linear(q_dim if k_dim is None else k_dim, q_dim, bias=bias)
+        self.v_proj = nn.Linear(q_dim if v_dim is None else v_dim, q_dim, bias=bias)
+        self.out_proj = nn.Linear(q_dim, q_dim, bias=bias)
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+                key_padding_mask: Optional[torch.Tensor] = None,
+                attn_mask: Optional[torch.Tensor] = None, need_weight: bool = False,
+                rng: Optional[torch.Generator] = None):
+        d, H = self.q_dim, self.n_head
+        B, Lq, Lk = query.shape[0], query.shape[1], key.shape[1]
+
+        def heads(t, L):
+            return t.reshape(B, L, H, d // H).transpose(1, 2).contiguous()
+
+        q, k, v = (heads(self.q_proj(query), Lq), heads(self.k_proj(key), Lk),
+                   heads(self.v_proj(value), Lk))
+        if (not self.plain and not need_weight and not (self.dropout > 0 and self.training)
+                and (attn_mask is None or attn_mask.dim() == 2)):
+            out = fused_mha(q, k, v, key_padding_mask, attn_mask)
+            return self.out_proj(out.transpose(1, 2).reshape(B, Lq, d))
+        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d / H)
+        neg = torch.finfo(logits.dtype).min
+        if attn_mask is not None:
+            m = attn_mask[None, None] if attn_mask.dim() == 2 else attn_mask[:, None]
+            logits = logits.masked_fill(m, neg)
+        if key_padding_mask is not None:
+            logits = logits.masked_fill(key_padding_mask[:, None, None, :], neg)
+        w = seeded_dropout(torch.softmax(logits, dim=-1), self.dropout, self.training, rng)
+        out = self.out_proj(torch.matmul(w, v).transpose(1, 2).reshape(B, Lq, d))
+        return (out, w.mean(1)) if need_weight else out
+
+
 class AttentionLayer(nn.Module):
-    """``layers.py:302-349``, in ``feedforward`` mode (the query broadcast
-    against every key, the two concatenated, ``MLPModule([q_dim + k_dim,
-    *mlp_layers])`` and ``mlp_out``, a ``Linear(., 1)`` that always has a
-    bias) and ``scaled-dot-product`` mode; the weights divided by
-    ``sqrt(q_dim)``, padded keys given weight 0 (``softmax=False``, NARM's
-    and STAMP's) or -inf before a softmax, and ``weights @ value``
-    returned. ``multi-head`` is not ported yet."""
+    """``layers.py:302-349``: ``multi-head`` mode is a ``MultiHeadAttention``
+    (``attn``); ``feedforward`` mode broadcasts the query against every
+    key, concatenates the two, and scores them with ``MLPModule([q_dim +
+    k_dim, *mlp_layers])`` and ``mlp_out``, a ``Linear(., 1)`` that always
+    has a bias; ``scaled-dot-product`` mode scores ``query key^T``. In
+    those two the weights are divided by ``sqrt(q_dim)``, padded keys get
+    weight 0 (``softmax=False``, NARM's and STAMP's) or -inf before a
+    softmax, and ``weights @ value`` is returned."""
 
     def __init__(self, q_dim: int, k_dim: Optional[int] = None, mlp_layers: Sequence[int] = (),
                  activation: str = "sigmoid", bias: bool = True,
-                 attention_type: str = "feedforward"):
+                 attention_type: str = "feedforward", n_head: int = 1, dropout: float = 0.0,
+                 v_dim: Optional[int] = None):
         super().__init__()
-        if attention_type not in ("feedforward", "scaled-dot-product"):
-            raise NotImplementedError(f"attention_type {attention_type!r} is not ported yet")
+        if attention_type not in ("feedforward", "scaled-dot-product", "multi-head"):
+            raise ValueError(f"unknown attention_type {attention_type!r}")
         self.attention_type = attention_type
-        if attention_type == "feedforward":
+        if attention_type == "multi-head":
+            self.attn = MultiHeadAttention(q_dim, n_head, dropout, bias, k_dim, v_dim)
+        elif attention_type == "feedforward":
             k_dim = q_dim if k_dim is None else k_dim
             self.mlp = MLPModule([q_dim + k_dim, *mlp_layers], activation, bias=bias)
             self.mlp_out = nn.Linear(([q_dim + k_dim] + list(mlp_layers))[-1], 1)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None,
-                softmax: bool = False) -> torch.Tensor:
+                softmax: bool = False, need_weight: bool = False,
+                attn_mask: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None):
+        if self.attention_type == "multi-head":
+            return self.attn(query, key, value, key_padding_mask=key_padding_mask,
+                             attn_mask=attn_mask, need_weight=need_weight, rng=rng)
         if self.attention_type == "feedforward":
             B, Lq, S = query.shape[0], query.shape[1], key.shape[1]
             h = torch.cat([query[:, :, None, :].expand(B, Lq, S, query.shape[-1]),
@@ -262,7 +404,8 @@ class AttentionLayer(nn.Module):
             w = w.masked_fill(key_padding_mask[:, None, :], float("-inf") if softmax else 0.0)
         if softmax:
             w = torch.softmax(w, dim=-1)
-        return torch.matmul(w, value)
+        out = torch.matmul(w, value)
+        return (out, w) if need_weight else out
 
 
 class SeqPoolingLayer(nn.Module):

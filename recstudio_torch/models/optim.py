@@ -1,6 +1,6 @@
 """Lazy Adam (``learner: sparse_adam``), dense and row-sparse.
 
-Counterpart of ``recstudio_tpu/models/optim.py:32-125``. Adam's moments are
+Counterpart of ``recstudio_tpu/models/optim.py:32-221``. Adam's moments are
 updated only for the rows a step touches: a row (a slice along the first
 dimension) is touched when its gradient has a nonzero entry. An untouched
 row keeps its moments and takes no step. The step count is global, and the
@@ -14,14 +14,19 @@ needs ``sparse=True`` embeddings.
 - ``LazyAdam``: the optimizer over dense gradients (``lazy_adam``);
 - ``row_lazy_adam``: the same update applied to the touched rows alone,
   from per-lookup row gradients with duplicate ids (``row_lazy_adam``),
-  which the row-sparse step of ``BaseRetriever`` calls.
+  which the row-sparse step of ``BaseRetriever`` calls;
+- ``fused_table_lazy_adam_packed``: the same update on a ranker's fused
+  token table packed as ``[N, 3D]`` rows of (params | mu | nu), from the
+  per-lookup gradients of its ``[B, T]`` offset ids: one gather of the
+  candidate rows and one write back (``BaseRanker``'s packed row-sparse
+  CTR step).
 
-Both compute in the JAX package's order of operations, so one step of
-either agrees with the other to float32 rounding.
+All compute in the JAX package's order of operations, so one step of
+either agrees with the others to float32 rounding.
 """
 from __future__ import annotations
 
-from typing import Iterable, Tuple
+from typing import Iterable, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -139,3 +144,72 @@ def row_lazy_adam(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     table[read] = torch.where(v, p_r + step, p_r)
     mu[read] = torch.where(v, mu2, mu_r)
     nu[read] = torch.where(v, nu2, nu_r)
+
+
+def _blocked_dedup(ids: torch.Tensor, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sum duplicate lookups of pre-blocked ids ``ids [F, B]``, ``g [F, B,
+    D]`` whose F blocks index disjoint id ranges (the fused token table's
+    per-field offset slabs), so duplicates occur only inside a block
+    (``optim.py:127-153``): each block is sorted on its own (one batched
+    stable sort), and one segment sum runs over the blocks' sorted rows in
+    order. Returns ``(ids [F*B], agg [F*B, D])``: slot s holds the s-th
+    segment's id and summed row; the slots past the last segment hold id
+    0 and a zero row, which callers treat as untouched."""
+    F, B = ids.shape
+    K, D = F * B, g.shape[-1]
+    sid, order = torch.sort(ids, dim=-1, stable=True)
+    sg = torch.gather(g, 1, order[..., None].expand(F, B, D)).reshape(K, D)
+    head = torch.ones((F, B), dtype=torch.bool, device=ids.device)
+    head[:, 1:] = sid[:, 1:] != sid[:, :-1]
+    fh, sid = head.reshape(-1), sid.reshape(-1)
+    seg = torch.cumsum(fh, 0) - 1                         # globally contiguous segments
+    slots = torch.arange(K, device=ids.device)
+    starts = torch.searchsorted(seg, slots)
+    lengths = torch.searchsorted(seg, slots, right=True) - starts
+    agg = torch.segment_reduce(sg, "sum", lengths=lengths, axis=0, unsafe=True)
+    live = slots < fh.sum()
+    return torch.where(live, sid[starts.clamp_max(K - 1)], torch.zeros_like(sid)), agg
+
+
+def _fused_table_candidates(sizes: Sequence[int], ids2: torch.Tensor, g: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Candidate update rows ``(ids [K], agg [K, D])`` of the per-lookup
+    gradients ``g [B, T, D]`` at offset ids ``ids2 [B, T]`` of a fused
+    table of ``sizes`` (``optim.py:156-182``). Every field goes through
+    ``_blocked_dedup``: the JAX package sums the fields of at most 1024
+    values by one-hot products instead, a device of the TPU's layout that
+    gives the same sums up to float32 order."""
+    if ids2.shape[-1] != len(sizes):
+        raise ValueError(f"{ids2.shape[-1]} id columns for {len(sizes)} fields")
+    return _blocked_dedup(ids2.t(), g.transpose(0, 1))
+
+
+def unpack_table_params(packed: torch.Tensor) -> torch.Tensor:
+    """The first D columns of a packed ``[N, 3D]`` buffer: the parameters."""
+    return packed[:, :packed.shape[-1] // 3]
+
+
+@torch.no_grad()
+def fused_table_lazy_adam_packed(sizes: Sequence[int], packed: torch.Tensor,
+                                 ids2: torch.Tensor, g: torch.Tensor, count: int, lr: float,
+                                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> None:
+    """Lazy Adam on a packed ``[N, 3D]`` table of (params | mu | nu) rows,
+    in place (``optim.py:190-221``): the per-lookup gradients ``g [B, T,
+    D]`` at offset ids ``ids2 [B, T]`` are summed by id
+    (``_fused_table_candidates``), then one gather reads the candidate rows
+    and one write puts them back. Rows with id 0 and rows whose summed
+    gradient is all zero are left untouched; the bias correction uses the
+    global step ``count``. Every slot writes its row back; an untouched
+    slot reads and writes row 0 unchanged, so the writes never disagree
+    and the step repeats bit for bit."""
+    D = g.shape[-1]
+    ids, agg = _fused_table_candidates(sizes, ids2, g)
+    valid = (ids > 0) & (agg.abs() > 0).any(-1)
+    read = torch.where(valid, ids, torch.zeros_like(ids))
+    rows = packed[read]                                     # [K, 3D]
+    p_r, mu_r, nu_r = rows[:, :D], rows[:, D:2 * D], rows[:, 2 * D:]
+    bc1, bc2 = bias_corrections(count, b1, b2)
+    mu2 = mu_r + (1.0 - b1) * (agg - mu_r)
+    nu2 = nu_r + (1.0 - b2) * (agg * agg - nu_r)
+    step = -lr * (mu2 / bc1) / (torch.sqrt(nu2 / bc2) + eps)
+    packed[read] = torch.where(valid[:, None], torch.cat([p_r + step, mu2, nu2], dim=-1), rows)

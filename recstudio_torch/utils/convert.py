@@ -24,12 +24,18 @@ for one layer) gives the JAX package's gradient tree, which is how the
 parity tests compare the two packages' gradients.
 
 ``ranker_params_from_jax`` and ``ranker_params_to_jax`` do the same for a
-ranker's tree (DeepFM, FM, LR): token tables ``{name}_embedding`` and
-``token_embedding`` become ``nn.Embedding`` weights (a packed ``[N, 3D]``
-table of the JAX row-sparse fit gives its first D columns), the float
-kernel ``dense_embedding`` and the biases keep their names, and
-``{name}_dense/weight/kernel`` and ``mlp/dense_{i}/kernel`` are ``Linear``
-weights, transposed.
+ranker's tree (DeepFM, FM, LR, WideDeep, DCN, NFM, AutoInt): token tables
+``{name}_embedding`` and ``token_embedding`` become ``nn.Embedding``
+weights (a packed ``[N, 3D]`` table of the JAX row-sparse fit is kept
+whole for a packed port model, or gives its first D columns and, through
+``ranker_moments_from_jax``, the dense ``LazyAdam``'s moments), the float
+kernel ``dense_embedding``, the biases, ``CrossNetwork``'s ``w_{i}`` and
+``b_{i}`` and a batch norm's ``scale`` keep their names, and every
+``Dense`` kernel (``{name}_dense/weight``, ``mlp/dense_{i}``, the
+attention's ``q_proj``, ``k_proj``, ``v_proj`` and ``out_proj``, ``res``,
+``att_proj``, ``attn_fc``, ``fc``) is a ``Linear`` weight, transposed.
+The flax ``batch_stats`` collection is the batch norms' ``mean``, ``var``
+and ``count`` buffers (``ranker_batch_stats_to_jax`` the reverse).
 
 ``graph_params_from_jax`` and ``graph_params_to_jax`` do the same for a
 graph model's tree (LightGCN, NGCF, SimGCL): the tables ``user_embedding``
@@ -157,9 +163,21 @@ def _is_token_table(leaf: str) -> bool:
     return leaf.endswith("_embedding") and leaf != "dense_embedding"
 
 
-def ranker_params_from_jax(tree: Dict[str, Any], embed_dim: int) -> Dict[str, torch.Tensor]:
+# the batch-norm statistics (flax ``batch_stats`` leaves, the port's buffers)
+_BN_STATS = ("mean", "var", "count")
+
+
+def ranker_params_from_jax(tree: Dict[str, Any], embed_dim: int,
+                           batch_stats: Dict[str, Any] = None,
+                           packed: bool = False) -> Dict[str, torch.Tensor]:
     """A JAX ranker's params -> the port's ``state_dict``. ``embed_dim`` is
-    the model's D (the ``linear`` tree's tables are 1 wide)."""
+    the model's D (the ``linear`` tree's tables are 1 wide). A packed ``[N,
+    3D]`` table of the JAX row-sparse fit (params | mu | nu) is kept whole
+    for a port model whose tables are packed (``packed``), else it gives
+    its first D columns (its moments: ``ranker_moments_from_jax``).
+    ``batch_stats``, the flax collection of the net's batch norms, gives
+    their ``mean``, ``var`` and ``count`` buffers; a LayerNorm's ``ln/scale``
+    is its ``ln.weight``."""
     sd = {}
     for path, value in _leaves(tree):
         if path[-1] == "kernel":
@@ -167,23 +185,51 @@ def ranker_params_from_jax(tree: Dict[str, Any], embed_dim: int) -> Dict[str, to
         elif _is_token_table(path[-1]):
             d = 1 if path[0] == "linear" else embed_dim
             a = np.asarray(value, np.float32)
-            if a.shape[-1] == 3 * d:               # packed: params | mu | nu
+            if a.shape[-1] == 3 * d and not packed:
                 a = a[:, :d]
             sd[".".join(path) + ".weight"] = _tensor(a)
+        elif path[-2:-1] == ("ln",) and path[-1] == "scale":
+            sd[".".join(path[:-1]) + ".weight"] = _tensor(value)
         else:
             sd[".".join(path)] = _tensor(value)
+    for path, value in _leaves(batch_stats or {}):
+        sd[".".join(path)] = _tensor(value)
     return sd
 
 
+def ranker_moments_from_jax(tree: Dict[str, Any], embed_dim: int
+                            ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """The moments a JAX row-sparse fit keeps in its packed ``[N, 3D]``
+    tables: ``{port name: (mu, nu)}``, columns D to 2D and 2D to 3D, the
+    dense ``LazyAdam``'s moments of the unpacked table."""
+    out = {}
+    for path, value in _leaves(tree):
+        d = 1 if path[0] == "linear" else embed_dim
+        a = np.asarray(value, np.float32)
+        if _is_token_table(path[-1]) and a.shape[-1] == 3 * d:
+            out[".".join(path) + ".weight"] = (_tensor(a[:, d:2 * d]), _tensor(a[:, 2 * d:]))
+    return out
+
+
+def _is_bn_stat(key: str) -> bool:
+    return key.rsplit(".", 1)[-1] in _BN_STATS
+
+
 def ranker_params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """``ranker_params_from_jax``'s inverse, for parameters or gradients."""
+    """``ranker_params_from_jax``'s inverse, for parameters or gradients
+    (a packed table stays ``[N, 3D]``); the batch-norm buffers are left
+    out (``ranker_batch_stats_to_jax``)."""
     out: Dict[str, Any] = {}
     for key, value in state_dict.items():
+        if _is_bn_stat(key):
+            continue
         parts = tuple(key.split("."))
         tr = False
         if parts[-1] == "weight":
             if _is_token_table(parts[-2]):
                 parts = parts[:-1]
+            elif parts[-2] == "ln" and value.dim() == 1:
+                parts = parts[:-1] + ("scale",)
             else:
                 parts, tr = parts[:-1] + ("kernel",), True
         node = out
@@ -191,6 +237,21 @@ def ranker_params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         a = value.detach().cpu().numpy().astype(np.float32)
         node[parts[-1]] = a.T.copy() if tr else a
+    return out
+
+
+def ranker_batch_stats_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The batch norms' ``mean``, ``var`` and ``count`` buffers of a
+    ranker's ``state_dict`` -> the flax ``batch_stats`` tree."""
+    out: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        if not _is_bn_stat(key):
+            continue
+        parts = key.split(".")
+        node = out
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value.detach().cpu().numpy().astype(np.float32)
     return out
 
 

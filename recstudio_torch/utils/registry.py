@@ -2,8 +2,9 @@
 
 The subset of ``recstudio_tpu/utils/registry.py`` this port implements:
 SASRec, BERT4Rec, GRU4Rec, NARM and STAMP (``seq``), BPR (``mf``),
-MultiDAE and MultiVAE (``ae``), DeepFM, FM and LR (``fm``), LightGCN, NGCF
-and SimGCL (``graph``), and the dataset configs they run on.
+MultiDAE and MultiVAE (``ae``), DeepFM, FM, LR, WideDeep, DCN, NFM and
+AutoInt (``fm``), LightGCN, NGCF and SimGCL (``graph``), and the dataset
+configs they run on.
 """
 from __future__ import annotations
 
@@ -25,6 +26,10 @@ _MODELS = {"sasrec": ("seq", "SASRec", ("seq_all", "sasrec")),
            "deepfm": ("fm", "DeepFM", ("fm_all", "deepfm")),
            "fm": ("fm", "FM", ("fm_all", "fm")),
            "lr": ("fm", "LR", ("fm_all", "lr")),
+           "widedeep": ("fm", "WideDeep", ("fm_all", "widedeep")),
+           "dcn": ("fm", "DCN", ("fm_all", "dcn")),
+           "nfm": ("fm", "NFM", ("fm_all", "nfm")),
+           "autoint": ("fm", "AutoInt", ("fm_all", "autoint")),
            "lightgcn": ("graph", "LightGCN", ("lightgcn",)),
            "ngcf": ("graph", "NGCF", ("ngcf",)),
            "simgcl": ("graph", "SimGCL", ("simgcl",))}

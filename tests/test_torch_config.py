@@ -39,7 +39,7 @@ def test_autoencoder_model_configs_equal_jax(name):
     assert got["eval"]["batch_size"] == 200 and got["train"]["weight_decay"] == 1e-5
 
 
-@pytest.mark.parametrize("name", ["DeepFM", "FM", "LR"])
+@pytest.mark.parametrize("name", ["DeepFM", "FM", "LR", "WideDeep", "DCN", "NFM", "AutoInt"])
 def test_ranker_model_configs_equal_jax(name):
     _, want = jax_get_model(name)
     cls, got = get_model(name)
@@ -69,7 +69,8 @@ def test_registry_lists_what_is_ported():
     assert list_models() == {"sasrec": "seq", "bert4rec": "seq", "gru4rec": "seq",
                              "narm": "seq", "stamp": "seq", "bpr": "mf",
                              "multidae": "ae", "multivae": "ae",
-                             "deepfm": "fm", "fm": "fm", "lr": "fm",
+                             "deepfm": "fm", "fm": "fm", "lr": "fm", "widedeep": "fm",
+                             "dcn": "fm", "nfm": "fm", "autoint": "fm",
                              "lightgcn": "graph", "ngcf": "graph", "simgcl": "graph"}
 
 

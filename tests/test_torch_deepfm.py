@@ -426,8 +426,7 @@ def test_unported_ranker_cases_raise(splits):
     with pytest.raises(NotImplementedError, match="retriever"):
         cls(conf, device="cpu", retriever=object())
     conf["train"].update(learner="sparse_adam", sparse_rows="true")
-    with pytest.raises(NotImplementedError, match="row-sparse"):
-        cls(conf, device="cpu")
+    assert cls(conf, device="cpu")._ctr_sparse_config_ok()   # the packed step, ported
     _, model = _models("DeepFM", splits)
     with pytest.raises(NotImplementedError, match="rank metrics"):
         model._eval_epoch(splits[0][1], ["auc", "ndcg"], [10])

@@ -131,11 +131,14 @@ def test_get_act_matches_jax(name):
 
 
 def test_get_act_refuses_dice_and_unknown_names():
+    """``dice`` needs its width (a ``Dice`` module a layer, ported with
+    ``SimpleBatchNorm``); unknown names raise."""
     from recstudio_torch.models.module import MLPModule, get_act
-    with pytest.raises(NotImplementedError, match="SimpleBatchNorm"):
+    from recstudio_torch.models.module.layers import Dice, SimpleBatchNorm
+    with pytest.raises(ValueError, match="dimension"):
         get_act("dice")
-    with pytest.raises(NotImplementedError, match="SimpleBatchNorm"):
-        MLPModule([4, 4], batch_norm=True)
+    assert isinstance(get_act("dice", 4), Dice)
+    assert isinstance(MLPModule([4, 4], batch_norm=True).bn_0, SimpleBatchNorm)
     with pytest.raises(ValueError):
         get_act("swishy")
     assert get_act(None)(torch.ones(2)).tolist() == [1.0, 1.0]
@@ -273,9 +276,14 @@ def test_attention_layer_matches_jax(case):
 
 
 def test_multi_head_attention_is_not_ported():
+    """``multi-head`` is ported (a ``MultiHeadAttention``, held to the JAX
+    module in ``test_torch_rankers_bn_autoint.py``); an unknown type
+    raises."""
     from recstudio_torch.models.module import AttentionLayer
-    with pytest.raises(NotImplementedError, match="multi-head"):
-        AttentionLayer(D, attention_type="multi-head")
+    from recstudio_torch.models.module.layers import MultiHeadAttention
+    assert isinstance(AttentionLayer(D, attention_type="multi-head").attn, MultiHeadAttention)
+    with pytest.raises(ValueError, match="attention_type"):
+        AttentionLayer(D, attention_type="additive")
 
 
 # ---------------------------------------------------------------------------

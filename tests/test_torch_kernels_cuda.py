@@ -749,3 +749,30 @@ def test_gru_layer_refuses_what_cudnn_cannot_take(dev):
                                                                   (24,))]
     with pytest.raises(RuntimeError, match="cuDNN"):
         gru_layer(torch.zeros((2, 3, 4), device=dev, dtype=torch.float64), *w)
+
+
+@pytest.mark.parametrize("B,L", [(8192, 39), (64, 7)], ids=["criteo-fields", "ml100k-fields"])
+def test_autoint_attention_goes_through_k3(dev, B, L):
+    """AutoInt's path: ``MultiHeadAttention`` over the fields (Dh 32, no
+    mask) launches K3 once a call in evaluation, its output within K3's
+    tolerance of the plain softmax (``plain = True``) on the same weights
+    and bitwise repeatable; in training with dropout it launches nothing."""
+    from recstudio_torch.models.module.layers import MultiHeadAttention
+    torch.manual_seed(L)
+    mha = MultiHeadAttention(64, 2, dropout=0.5).to(dev).eval()
+    x = torch.randn(B, L, 64, device=dev)
+    before = fused_mha.launches
+    with torch.no_grad():
+        got = mha(x, x, x)
+        again = mha(x, x, x)
+        mha.plain = True
+        want = mha(x, x, x)
+    torch.cuda.synchronize()
+    assert fused_mha.launches == before + 2
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-5)
+    assert torch.equal(got, again)
+    mha.plain = False
+    mha.train()
+    gen = torch.Generator().manual_seed(0)
+    mha(x, x, x, rng=gen).sum().backward()
+    assert fused_mha.launches == before + 2

@@ -117,7 +117,37 @@ def test_graph_models_need_cuda_unless_cpu_is_asked(monkeypatch, name):
     assert cls(conf, device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("name", ["DeepFM", "FM", "LR"])
+CTR_CORE_MODULES = ("recstudio_torch.models.fm.widedeep", "recstudio_torch.models.fm.dcn",
+                    "recstudio_torch.models.fm.nfm", "recstudio_torch.models.fm.autoint",
+                    "recstudio_torch.models.module.layers", "recstudio_torch.models.optim",
+                    "recstudio_torch.models.basemodel.recommender")
+
+
+def test_ctr_core_modules_import_with_jax_blocked():
+    """The packed step's, the batch norm's and the four new rankers'
+    modules, named one by one, import where jax, flax, pandas and yaml
+    cannot, and load nothing of recstudio_tpu."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'yaml'):\n"
+        "    sys.modules[m] = None\n"
+        f"for name in {CTR_CORE_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from recstudio_torch.models.module.layers import (Dice, MultiHeadAttention,\n"
+        "                                                  SimpleBatchNorm)\n"
+        "from recstudio_torch.models.module.ctr import CrossNetwork, packed_tables\n"
+        "from recstudio_torch.models.optim import fused_table_lazy_adam_packed\n"
+        "from recstudio_torch.utils import get_model\n"
+        "assert [get_model(n)[0].__name__ for n in ('WideDeep', 'DCN', 'NFM', 'AutoInt')] == "
+        "['WideDeep', 'DCN', 'NFM', 'AutoInt']\n"
+        "assert not [m for m in sys.modules if m.startswith('recstudio_tpu')]\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("name", ["DeepFM", "FM", "LR", "WideDeep", "DCN", "NFM", "AutoInt"])
 def test_rankers_need_cuda_unless_cpu_is_asked(monkeypatch, name):
     from recstudio_torch.utils import get_model
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
