@@ -140,8 +140,8 @@ then:
   and to a bitwise repeat, one layer's forward on the ELL and edge-list
   routes beside ``torch.sparse.mm`` of the same CSR matrix, one epoch and
   its busy share, every test user evaluated. No kernel;
-- phase U: ``quickstart.run`` of LightGCN (to its early stop), NGCF and
-  SimGCL (for the epochs of their references) on ml-100k at the repo's
+- phase U: ``quickstart.run`` of LightGCN, NGCF and SimGCL (for the
+  epochs of their references: 40, 40 and 20) on ml-100k at the repo's
   configs, held to the JAX seeds' bands (``recstudio_torch/assets/
   {lightgcn,ngcf,simgcl}_ml100k_train_reference.json``): LightGCN's and
   NGCF's test NDCG@10, whose bands clear the untrained models' by
@@ -167,12 +167,35 @@ then:
   20 timed steps, one step held to the CPU copy with the same dropout
   seeds, the evaluation's probabilities held to the plain route's;
 - phase X: ``quickstart.run`` of WideDeep, DCN, NFM and AutoInt on
-  ml-100k at the repo's configs to their early stop, test AUC held to
-  the JAX seeds' bands (``recstudio_torch/assets/{widedeep,dcn,nfm,
+  ml-100k at the repo's configs for at most the epochs of their
+  references (10, 8, 8 and 12; early stopping may end them sooner), test
+  AUC held to the JAX seeds' bands (``recstudio_torch/assets/{widedeep,dcn,nfm,
   autoint}_ml100k_train_reference.json``), whose AUC band must clear the
   untrained AUC by ``AUC_MARGIN``; the batch norms calibrated; every test
   row served through ``ScorePredictor`` against ``evaluate`` and
   ``predict``; AutoInt launches K3;
+- phase Y: BPR (d 64) on phase T's amazon-book-shape splits with
+  ``SampledSoftmaxLoss`` under the ``midx-pop`` proposal (32 clusters a
+  half-space, 1,024 buckets, 100 negatives, batch 2048): the refresh's ms
+  (catalog encode, two k-means runs, index and CDFs) and its bitwise
+  repeat, the state built on the card against a CPU copy from the same
+  k-means result, two epochs (step and sample ms, examples/s, peak
+  memory), the busy share of 100 profiled steps, the test NDCG@10; then
+  each other proposal (``uniform``, ``pop``, ``midx-uni``,
+  ``cluster-uni``, ``cluster-pop``, ``lsh``) and mining method (``dns``,
+  ``sir``, ``brute``, ``toprand``, ``top&rand``, ``negative_count [200,
+  100]``) for ``SAMPLER_MODE_STEPS`` steps; every proposal's 2^20 draws
+  for four queries held to its proposal (total variation), its
+  ``log_neg_prob`` to ``compute_item_p`` of its draws. No kernel;
+- phase Y2: SASRec at phase D's setup (L 200, d 128, batch 256) with
+  ``SampledSoftmaxLoss`` under ``midx-uni`` over ``[B, L, D]`` queries (20
+  negatives): ``Y2_STEPS`` steps through K1 and K2 with the loss falling,
+  the sampler gates, two requests served through K1;
+- phase Z: ``quickstart.run`` of PMF, CML, NCF, LogisticMF and BPR under
+  ``midx-pop`` on ml-100k, held to the JAX seeds' bands
+  (``recstudio_torch/assets/{pmf,cml,ncf,logisticmf,bpr_midx_pop}_
+  ml100k_train_reference.json``), every test user served through
+  ``Predictor``, whose lists give ``evaluate``'s metrics. No kernel;
 - each kernel against its plain PyTorch version on the phases' shapes,
   with its time, the plain version's, PyTorch's own call where one exists,
   and the card's bound for the same work.
@@ -552,10 +575,12 @@ def grad_errors(got, want, zero=()):
     return max_abs, ok
 
 
-def training_model(device, model_name, batch_size, L=200, **model_conf):
+def training_model(device, model_name, batch_size, L=200, train=None, parts=None,
+                   **model_conf):
     """``model_name`` on the synthetic ml-1m shape at ``max_seq_len`` L,
     seed 7, ready for optimizer steps on device-resident batches: (model,
-    conf, dataset, test split, dataset name, ETL seconds)."""
+    conf, dataset, test split, dataset name, ETL seconds). ``train``
+    overrides ``train`` keys; ``parts`` go to the constructor (``loss=``)."""
     from recstudio_torch.data.synthetic import SHAPES, generate
     from recstudio_torch.utils import get_model
     t0 = time.perf_counter()
@@ -563,10 +588,10 @@ def training_model(device, model_name, batch_size, L=200, **model_conf):
     config["max_seq_len"] = L
     cls, conf = get_model(model_name)
     conf["model"].update(model_conf)
-    conf["train"].update(batch_size=batch_size, seed=7)
+    conf["train"].update(batch_size=batch_size, seed=7, **(train or {}))
     ds = cls._get_dataset_class()(name, config=config)
     trn, _, tst = ds.build(**conf["data"])
-    model = cls(conf, device=device)
+    model = cls(conf, device=device, **(parts or {}))
     model._init_model(trn)
     model._init_parameter(trn)
     model.optimizer = model._get_optimizer()
@@ -708,9 +733,11 @@ TRANSFORMER_KEYS = {"hidden": "hidden_size", "heads": "head_num", "layers": "lay
 
 
 def fit_phase(device, tag, model_name, reference, model_keys, expected, kernels,
-              quickstart=False, cpu_lists=False):
+              quickstart=False, cpu_lists=False, overrides=None):
     """fit + evaluate on ml-100k at the repo's config for the reference's
-    epochs (through ``quickstart.run`` with ``quickstart``), test NDCG@10
+    epochs (through ``quickstart.run`` with ``quickstart``; ``overrides``,
+    config groups layered over the repo's config as the reference's runs
+    were), test NDCG@10
     held to the JAX seeds' band, then every test user served from the
     trained weights in requests of the eval batch (8 of 128 at ml-100k).
     ``model_keys`` names the ``model`` config keys checked against
@@ -743,9 +770,11 @@ def fit_phase(device, tag, model_name, reference, model_keys, expected, kernels,
     def drive():
         t0 = time.perf_counter()
         if quickstart:
-            model, (trn, _, tst), result = run(
-                model_name, "ml-100k", verbose=False, device=device,
-                model_config={"train": {"epochs": ref["epochs"]}, "eval": {"save_path": SAVE_DIR}})
+            conf = {"train": {"epochs": ref["epochs"]}, "eval": {"save_path": SAVE_DIR}}
+            for group, values in (overrides or {}).items():
+                conf.setdefault(group, {}).update(values)
+            model, (trn, _, tst), result = run(model_name, "ml-100k", verbose=False,
+                                               device=device, model_config=conf)
         else:
             cls, conf = get_model(model_name)
             conf["train"]["epochs"] = ref["epochs"]
@@ -771,7 +800,8 @@ def fit_phase(device, tag, model_name, reference, model_keys, expected, kernels,
                  batch=tc["batch_size"], epochs=tc["epochs"])
     if hasattr(model, "max_seq_len"):
         shape["L"] = model.max_seq_len
-    shape.update({k: tc[k] for k in ("mask_ratio", "weight_decay") if k in expected})
+    shape.update({k: tc[k] for k in ("mask_ratio", "weight_decay", "learner", "sampler",
+                                     "negative_count") if k in expected})
     check(shape == dict(expected, epochs=ref["epochs"]), f"phase {tag} config {shape}")
     served = rank_metrics(ids, targets)
     lo, hi = ref["ndcg@10_band"]
@@ -800,6 +830,7 @@ def fit_phase(device, tag, model_name, reference, model_keys, expected, kernels,
     if quickstart:              # the card's busy share of one more epoch, profiled
         train_s = sorted(e["train_s"] for e in model.epoch_log)
         epoch_s = train_s[len(train_s) // 2]
+        model._epoch_refresh(0)         # what the epoch reads (a sampler's index)
         host_ms, busy_ms = busy_share(lambda: model.training_epoch(0))
         steps = -(-model._epoch_rows // tc["batch_size"])
         out.update(epoch_s_p50=epoch_s, steps_per_epoch=steps, step_ms_p50=epoch_s / steps * 1e3,
@@ -1811,7 +1842,8 @@ def phase_r(device):
 
 def ranker_fit_phase(device, tag, model_name, expected, kernels=(), profile=True):
     """A ranker the way users start it, ``quickstart.run(model_name,
-    "ml-100k")`` at the repo's config to its early stop, test AUC held to
+    "ml-100k")`` at the repo's config for at most its reference's epochs
+    (early stopping may end it sooner), test AUC held to
     its JAX band (which must clear the untrained AUC by ``AUC_MARGIN``),
     one epoch profiled (``profile``), every test row served through
     ``ScorePredictor(max_batch=256)``, whose probabilities must be
@@ -1909,6 +1941,10 @@ def phase_s(device):
 
 
 # ---------------------------------------------------------------------------
+# phase T's amazon-book-shape dataset and splits, which phase Y trains on
+_AMAZON = {}
+
+
 def phase_t(device):
     """LightGCN at amazon-book-shape on the ELL route (the JAX bench's
     ``graph_scale``): graph build, 20 timed steps, one step held to the
@@ -1928,6 +1964,7 @@ def phase_t(device):
     ds = cls._get_dataset_class()(name, config=config)
     trn, _, tst = ds.build(**conf["data"])
     etl_s = time.perf_counter() - t0
+    _AMAZON.update(name=name, ds=ds, splits=(trn, tst), etl_s=etl_s)   # phase Y's too
     # 6 of the shape's 91,599 item ids are never drawn (seed 7)
     check((ds.num_users - 1, ds.num_items - 1, ds.num_inters) == (52643, 91593, 2_984_108),
           f"phase T dataset {ds.num_users - 1} x {ds.num_items - 1} x {ds.num_inters}")
@@ -2045,8 +2082,8 @@ def phase_t(device):
 
 def phase_u(device):
     """LightGCN, NGCF and SimGCL the way users start them, ``quickstart.run``
-    on ml-100k at the repo's configs (LightGCN to its early stop, NGCF and
-    SimGCL for the epochs of their references), held to their JAX bands;
+    on ml-100k at the repo's configs for the epochs of their references,
+    held to their JAX bands;
     LightGCN's served lists held to the CPU copy's."""
     graph = {"LightGCN": (dict(n_layers="n_layers", l2="l2_reg_weight",
                                prop_dtype="prop_dtype"),
@@ -2497,6 +2534,427 @@ def phase_x(device):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phases Y, Y2, Z: the sampler layer
+# ---------------------------------------------------------------------------
+# the proposals and mining methods of train.sampler and train.sampling_method
+# that phase Y runs for SAMPLER_MODE_STEPS steps each beside its midx-pop fit
+PROPOSALS = ("uniform", "pop", "midx-uni", "cluster-uni", "cluster-pop", "lsh")
+MINING = ("dns", "sir", "brute", "toprand", "top&rand")
+SAMPLER_MODE_STEPS = 50
+# phase Y2's timed SASRec steps (the loss must fall from the first 50 to the last 50)
+Y2_STEPS = 300
+# draws a sampler makes for one fixed batch of queries in its distribution gate
+SAMPLER_DRAWS = 2 ** 20
+# the gate: total variation of the draws' frequencies from the proposal (over
+# buckets, or items grouped by id where the support is large) at most twice
+# its expected value under the proposal itself plus this slack
+TV_SLACK = 0.005
+# id groups of the item-level gates on a large support
+ID_GROUPS = 1024
+# log_neg_prob against compute_item_p of the draws: the same float32 dot
+# products of O(1) vectors, taken by a product and by an einsum
+TOL_ITEM_P = 1e-4
+# a sampler state built on the card against its CPU copy from the same
+# k-means result: floats (rtol, atol), the bucket weights being sums of up
+# to ~3,300 float32 weights (a cluster's items) that the two devices add in
+# other orders, n eps at most 2e-4; the in-bucket CDF cp, running sums of
+# up to a bucket's weights over their total
+TOL_STATE = (2e-4, 1e-6)
+TOL_CP = 2e-3
+
+
+def tv_and_noise(counts, probs):
+    """Total variation of ``counts``' frequencies from ``probs`` and its
+    expected value when the draws follow ``probs`` (numpy float64)."""
+    import numpy as np
+    n = counts.sum()
+    tv = 0.5 * float(np.abs(counts / n - probs).sum())
+    noise = 0.5 * float(np.sum(np.sqrt(2.0 * probs * (1.0 - probs) / (np.pi * n))))
+    return tv, noise
+
+
+def proposal_groups(sampler, state, queries, num_items):
+    """The sampler's proposal for each of ``queries`` [Q, D], from its
+    definition in float64 (not the sampler's code): ``(group of each item
+    id [num_items], the mean over the queries of the proposal over the
+    groups, name of the level)``. MIDX: its K^2 buckets; cluster: its K
+    clusters; popularity, uniform and LSH: items grouped by id range."""
+    import torch
+    from recstudio_torch.ann import sampler as S
+    q = queries.double()
+    ids = torch.arange(num_items, device=q.device)
+    by_id = torch.clamp_max(ids * ID_GROUPS // num_items, ID_GROUPS - 1)
+
+    def grouped(p_items):                      # [Q, num_items] -> [ID_GROUPS]
+        out = torch.zeros(ID_GROUPS, dtype=torch.float64, device=q.device)
+        return out.index_add(0, by_id, p_items.mean(0))
+
+    if isinstance(sampler, S.MIDXSamplerUniform) and not isinstance(
+            sampler, S.ClusterSamplerUniform):
+        K = sampler.K
+        half = q.shape[-1] // 2
+        r0s = torch.softmax(q[:, :half] @ state["c0"].double().t(), -1)
+        r1s = torch.softmax(q[:, half:] @ state["c1"].double().t(), -1)
+        wkk = state["wkk"].double()
+        s0 = (r1s @ wkk.t()) * r0s + 1e-12
+        s1 = wkk[None] * r1s[:, None, :] + 1e-12
+        p = (s0 / s0.sum(-1, keepdim=True))[:, :, None] * s1 / s1.sum(-1, keepdim=True)
+        group = (state["cd0"] - 1) * K + state["cd1"] - 1
+        return group, p.reshape(len(q), -1).mean(0), "bucket"
+    if isinstance(sampler, S.ClusterSamplerUniform):
+        p = torch.softmax(q @ state["c"].double().t(), -1)
+        return state["cd"] - 1, p.mean(0), "cluster"
+    if isinstance(sampler, S.PopularSamplerModel):
+        return by_id, grouped(state["pop_prob"].double()[None]), "item_id_group"
+    if isinstance(sampler, S.LSHSampler):
+        code_q = sampler._hash(queries)                                   # [Q, L]
+        code_i = sampler._hash(state["item_embs"])                        # [N - 1, L]
+        share = (code_i[None] == code_q[:, None]).sum(-1).double()        # [Q, N - 1]
+        share = torch.cat([share.new_zeros(len(q), 1), share], 1)
+        return by_id, grouped(share / share.sum(-1, keepdim=True)), "item_id_group"
+    p = torch.full((1, num_items), 1.0 / (num_items - 1), dtype=torch.float64, device=q.device)
+    p[:, 0] = 0.0
+    return by_id, grouped(p), "item_id_group"
+
+
+def sampler_gates(model, queries, tag):
+    """The sampler's gates for one fixed batch of ``queries`` [Q, D]:
+    ``SAMPLER_DRAWS`` draws against its proposal (and, for MIDX, the items
+    of its likeliest bucket against the in-bucket law), and its
+    ``log_neg_prob`` against ``compute_item_p`` of the draws. Returns the
+    report; fails the run on a gate."""
+    import torch
+    from recstudio_torch.ann import sampler as S
+    sampler, state = model.sampler, model.states.get("sampler")
+    n = model.num_items
+    per_query = SAMPLER_DRAWS // len(queries)
+    gen = torch.Generator(device=queries.device)
+    gen.manual_seed(2040)
+    with torch.no_grad():
+        _, neg, lnp = sampler(queries, per_query, gen, state=state)
+        group, probs, level = proposal_groups(sampler, state, queries, n)
+        drawn = group[neg.reshape(-1)]
+        counts = torch.bincount(drawn, minlength=len(probs)).double()
+        tv, noise = tv_and_noise(counts.cpu().numpy(), probs.cpu().numpy())
+        out = {"sampler": type(sampler).__name__, "draws": int(neg.numel()), "level": level,
+               "cells": len(probs), "tv": tv, "tv_expected_noise": noise,
+               "tv_bound": 2 * noise + TV_SLACK}
+        check(tv <= 2 * noise + TV_SLACK,
+              f"phase {tag} {out['sampler']}: draws off the proposal, TV {tv} (noise {noise})")
+        if isinstance(sampler, S.MIDXSamplerUniform) and level == "bucket":
+            top = int(torch.argmax(probs))
+            members = state["indices"][state["indptr"][top]:state["indptr"][top + 1]] + 1
+            w = state["p"][members].double() if "p" in state else \
+                torch.ones(len(members), dtype=torch.float64, device=members.device)
+            inside = neg.reshape(-1)[drawn == top]
+            c = (inside[:, None] == members[None, :]).sum(0).double()
+            itv, inoise = tv_and_noise(c.cpu().numpy(), (w / w.sum()).cpu().numpy())
+            out.update(in_bucket_items=len(members), in_bucket_draws=int(inside.numel()),
+                       in_bucket_tv=itv, in_bucket_tv_bound=2 * inoise + TV_SLACK)
+            check(itv <= 2 * inoise + TV_SLACK,
+                  f"phase {tag} {out['sampler']}: in-bucket draws off, TV {itv} ({inoise})")
+        if not isinstance(sampler, (S.LSHSampler, S.UniformSampler)):
+            q = sampler._queries(queries) if hasattr(sampler, "_queries") else queries
+            want = sampler.compute_item_p(q, neg, state)
+            diff = (lnp - want).abs()
+            bad = int((diff > TOL_ITEM_P * torch.clamp_min(want.abs(), 1.0)).sum())
+            out.update(log_prob_max_abs_diff=float(diff.max()), log_prob_mismatches=bad,
+                       log_prob_tol=TOL_ITEM_P)
+            check(bad == 0, f"phase {tag} {out['sampler']}: {bad} log_neg_prob differ from "
+                            "compute_item_p of the draws")
+    return out
+
+
+def state_cpu_copy(model, tag):
+    """The card's sampler state against a CPU copy built from the same
+    k-means result: integer arrays bit for bit, floats to ``TOL_STATE``
+    (``cp`` to ``TOL_CP``)."""
+    import torch
+    from recstudio_torch.ann import sampler as S
+    sampler, state = model.sampler, model.states["sampler"]
+    x = model.states["item_vector"].cpu()
+    cpu = {k: v.cpu() for k, v in state.items()}
+    if isinstance(sampler, S.ClusterSamplerUniform):
+        copy = sampler.build_state(x, cpu["c"], cpu["cd"][1:] - 1)
+    else:
+        copy = sampler.build_state(x, cpu["c0"], cpu["cd0"][1:] - 1, cpu["c1"], cpu["cd1"][1:] - 1)
+    worst, ok = {}, sorted(copy) == sorted(cpu)
+    for key, want in copy.items():
+        got = cpu[key]
+        if not torch.is_floating_point(want):
+            same = torch.equal(got, want)
+            worst[key] = 0.0 if same else float((got - want).abs().max())
+            ok &= same
+            continue
+        worst[key] = float((got - want).abs().max())
+        if key == "cp":
+            ok &= worst[key] <= TOL_CP
+        else:
+            ok &= bool(torch.allclose(got, want, rtol=TOL_STATE[0], atol=TOL_STATE[1]))
+    check(ok, f"phase {tag}: the card's sampler state differs from the CPU copy's: {worst}")
+    return {"max_abs_diff": worst, "tol": TOL_STATE, "cp_tol": TOL_CP}
+
+
+def refresh_repeats(model):
+    """``_epoch_refresh(0)`` twice from the same generator state: whether
+    every state tensor repeats bit for bit, and the second's ms."""
+    import torch
+    gen = model.device_generator.get_state()
+    model._epoch_refresh(0)
+    first = {k: v.clone() for k, v in model.states["sampler"].items()}
+    first["item_vector"] = model.states["item_vector"].clone()
+    model.device_generator.set_state(gen)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model._epoch_refresh(0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    again = dict(model.states["sampler"], item_vector=model.states["item_vector"])
+    return all(torch.equal(first[k], again[k]) for k in first) and sorted(first) == \
+        sorted(again), ms
+
+
+def sample_ms(model, batch):
+    """Card time of one batch's ``sampling`` (the train config's method),
+    its query encoded in eval mode."""
+    import torch
+    tc = model.config["train"]
+    was = model.net.training
+    model.net.eval()
+    with torch.no_grad():
+        q = model.net.encode_query(model._get_query_feat(batch))
+    model.net.train(was)
+    return time_ms(lambda: model.sampling(batch, model.neg_count, q,
+                                          method=tc.get("sampling_method", "none"),
+                                          excluding_hist=tc.get("excluding_hist", False)),
+                   iters=10)
+
+
+def phase_y(device):
+    """BPR at amazon-book-shape with ``SampledSoftmaxLoss`` under the
+    ``midx-pop`` proposal (32 clusters a half-space, 100 negatives, batch
+    2048): two epochs, each after the sampler's refresh, and the test
+    NDCG@10; then each other proposal and mining method for
+    ``SAMPLER_MODE_STEPS`` steps; the sampler gates."""
+    import numpy as np
+    import torch
+    from recstudio_torch.data.synthetic import SHAPES, generate
+    from recstudio_torch.models.loss_func import SampledSoftmaxLoss
+    from recstudio_torch.ops.kmeans import kmeans
+    from recstudio_torch.utils import get_model, seed_everything
+    cls, conf = get_model("BPR")
+    t0 = time.perf_counter()
+    name, config = generate("amazon-book-shape", *SHAPES["amazon-book-shape"], seed=7)
+    if _AMAZON.get("name") == name:                   # phase T's splits (same data config)
+        ds, (trn, tst) = _AMAZON["ds"], _AMAZON["splits"]
+    else:
+        seed_everything(2022)
+        ds = cls._get_dataset_class()(name, config=config)
+        trn, _, tst = ds.build(**conf["data"])
+    etl_s = time.perf_counter() - t0
+    conf["train"].update(batch_size=2048, sampler="midx-pop", sampler_num_clusters=32,
+                         negative_count=100, epochs=2)
+    conf["eval"].update(batch_size=512, cutoff=[10], test_metrics=["ndcg", "recall"],
+                        topk=100, save_path=SAVE_DIR)
+    tc = conf["train"]
+    model = cls(conf, device=device, loss=SampledSoftmaxLoss())
+    model._init_model(trn)
+    model._init_parameter(trn)
+    model.optimizer = model._get_optimizer()
+    model._setup_scan_epoch(trn)
+    shape = dict(embed_dim=model.embed_dim, batch=tc["batch_size"], lr=tc["learning_rate"],
+                 learner=tc["learner"], sampler=tc["sampler"],
+                 clusters=tc["sampler_num_clusters"], negatives=tc["negative_count"],
+                 loss=type(model.loss_fn).__name__, users=ds.num_users - 1,
+                 items=ds.num_items - 1, inters=int(ds.num_inters))
+    check(shape == dict(embed_dim=64, batch=2048, lr=1e-3, learner="adam", sampler="midx-pop",
+                        clusters=32, negatives=100, loss="SampledSoftmaxLoss", users=52643,
+                        items=91593, inters=2_984_108), f"phase Y config {shape}")
+    steps_per_epoch = -(-model._epoch_rows // tc["batch_size"])
+
+    # the refresh: the catalog encode, two k-means runs, the index and CDFs
+    model._epoch_refresh(0)                               # warm
+    bitwise, refresh_ms = refresh_repeats(model)
+    half = model.states["item_vector"][:, :32].contiguous()
+    kmeans_ms = time_ms(lambda: kmeans(half, 32, 30, model.device_generator), iters=3, warmup=1)
+    state_y = state_cpu_copy(model, "Y")
+
+    def fit_two_epochs():
+        epochs = []
+        for ep in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model._epoch_refresh(ep)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = model.training_epoch(ep)
+            torch.cuda.synchronize()
+            epochs.append({"epoch": ep, "refresh_ms": (t1 - t) * 1e3,
+                           "train_s": time.perf_counter() - t1, "train_loss": loss})
+        return epochs
+
+    torch.cuda.reset_peak_memory_stats()
+    epochs, fit_counts = counted(fit_two_epochs)
+    fit_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ev = model._eval_epoch(tst, ["ndcg", "recall"], [10])
+    eval_s = time.perf_counter() - t
+    model._epoch_refresh(2)
+    batches = [b for b, _ in zip(epoch_stream(model), range(100))]
+    host_ms, busy_ms = busy_share(lambda: [model._grad_step(b) for b in batches])
+    base_sample_ms = sample_ms(model, batches[0])
+    gates = [sampler_gates(model, model.net.encode_query(batches[0][model.fuid][:4]).detach(),
+                           "Y")]
+
+    # each other proposal and mining method, SAMPLER_MODE_STEPS steps each
+    modes = []
+    for mode in PROPOSALS + MINING:
+        if mode in PROPOSALS:
+            tc.update(sampler=mode, sampling_method="none", negative_count=100)
+        else:
+            tc.update(sampler="midx-pop", sampling_method=mode, negative_count=[200, 100])
+        model.neg_count = tc["negative_count"]
+        model.sampler = model._get_sampler(trn)
+        model.states.pop("sampler", None)
+        model._epoch_refresh(3)
+        torch.cuda.reset_peak_memory_stats()
+        _, times, losses, counts = timed_steps(model, epoch_stream(model),
+                                               n=SAMPLER_MODE_STEPS)
+        row = {"mode": mode, "sampler": type(model.sampler).__name__,
+               "sampling_method": tc["sampling_method"], "negatives": tc["negative_count"],
+               "sample_ms": sample_ms(model, batches[0]), "step_ms_p50": times[len(times) // 2],
+               "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+               "losses_finite": bool(torch.isfinite(losses).all()),
+               "launches": sum(counts.values()),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if mode in PROPOSALS:
+            row["gate"] = sampler_gates(
+                model, model.net.encode_query(batches[0][model.fuid][:4]).detach(), "Y")
+        if mode in ("cluster-pop",):
+            row["state_vs_cpu"] = state_cpu_copy(model, "Y")
+        modes.append(row)
+        emit("SAMPLER_MODE", {"phase": "Y", **row})
+    model.states.clear()
+    train_s = [e["train_s"] for e in epochs]
+    step_ms = sum(train_s) / (2 * steps_per_epoch) * 1e3
+    out = {"phase": "Y", "model": "BPR", "dataset": name, "config": shape, "etl_s": etl_s,
+           "train_rows": model._epoch_rows, "steps_per_epoch": steps_per_epoch,
+           "refresh_ms": refresh_ms, "kmeans_ms_one_run": kmeans_ms,
+           "refresh_bitwise_repeat": bitwise, "state_vs_cpu": state_y, "epochs": epochs,
+           "launches": fit_counts, "step_ms_mean": step_ms, "sample_ms": base_sample_ms,
+           "examples_per_s": tc["batch_size"] / (step_ms / 1e3), "peak_mem_gb": fit_peak,
+           "profiled_steps": len(batches), "profiled_host_ms": host_ms,
+           "profiled_busy_ms": busy_ms,
+           "busy_share": None if busy_ms is None else busy_ms / host_ms,
+           "eval_users": len(tst.data_index), "eval_s": eval_s, **ev,
+           "gates": gates, "modes": modes}
+    emit("PHASE", out)
+    check(bitwise, "phase Y: the sampler refresh does not repeat bit for bit")
+    check(not any(fit_counts.values()), f"phase Y launched a kernel: {fit_counts}")
+    check(all(np.isfinite(e["train_loss"]) for e in epochs), "phase Y loss")
+    check(all(m["losses_finite"] for m in modes),
+          f"phase Y: a mode's loss is not finite: {[m['mode'] for m in modes]}")
+    check(not any(m["launches"] for m in modes), "phase Y: a mode launched a kernel")
+    check(np.isfinite(ev["ndcg@10"]) and ev["ndcg@10"] > 0, f"phase Y test NDCG@10 {ev}")
+    return out
+
+
+def phase_y2(device):
+    """SASRec at phase D's ml-1m-shape setup (hidden 128, 2 layers, 2 heads,
+    dropout 0.5, L 200) with ``SampledSoftmaxLoss`` under the ``midx-uni``
+    proposal over ``[B, L, D]`` queries (32 clusters, 20 negatives, batch
+    256): ``Y2_STEPS`` steps through K1 and K2, the loss falling; the
+    sampler gates; requests served through K1."""
+    import torch
+    from recstudio_torch.models.loss_func import SampledSoftmaxLoss
+    from recstudio_torch.serving import Predictor
+    model, conf, ds, tst, name, etl_s = training_model(
+        device, "SASRec", 256, embed_dim=128,
+        train=dict(sampler="midx-uni", sampler_num_clusters=32, negative_count=20),
+        parts=dict(loss=SampledSoftmaxLoss()))
+    mc, tc = conf["model"], conf["train"]
+    shape = dict(B=tc["batch_size"], L=ds.max_seq_len, D=model.embed_dim, F=mc["hidden_size"],
+                 H=mc["head_num"], layers=mc["layer_num"], dropout=mc["dropout_rate"],
+                 sampler=tc["sampler"], clusters=tc["sampler_num_clusters"],
+                 negatives=tc["negative_count"], loss=type(model.loss_fn).__name__)
+    check(shape == dict(B=256, L=200, D=128, F=128, H=2, layers=2, dropout=0.5,
+                        sampler="midx-uni", clusters=32, negatives=20,
+                        loss="SampledSoftmaxLoss"), f"phase Y2 config {shape}")
+    model._epoch_refresh(0)
+    bitwise, refresh_ms = refresh_repeats(model)
+    state_y2 = state_cpu_copy(model, "Y2")
+    torch.cuda.reset_peak_memory_stats()
+    steps, times, losses, counts = timed_steps(model, epoch_stream(model), n=Y2_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+    batch = steps[-1]
+    model.net.eval()
+    s_ms = sample_ms(model, batch)
+    # four position queries [L, D] of the last batch's first sequence, as
+    # training encodes them (the per-position queries the sampler draws for)
+    model.net.train()
+    with torch.no_grad():
+        q = model.net.encode_query(model._get_query_feat(batch), model.generator)
+    model.net.eval()
+    gates = [sampler_gates(model, q[0][batch[model.fiid][0] > 0][:4].contiguous(), "Y2")]
+    model.states.pop("item_vector", None)
+
+    def serve():
+        pred = Predictor(model, max_batch=256, k=20, train_data=tst).warm()
+        reqs = list(itertools.islice(tst.eval_loader(256), 2))
+        for b in reqs:
+            pred({f: b[f][:int(b["_size"])] for f in sorted(model.query_fields)})
+        return pred
+
+    pred, serve_counts = counted(serve)
+    out = {"phase": "Y2", "model": "SASRec", "dataset": name, "config": shape, "etl_s": etl_s,
+           "refresh_ms": refresh_ms, "refresh_bitwise_repeat": bitwise,
+           "state_vs_cpu": state_y2, "steps": len(times), "launches": counts,
+           "step_ms_p50": times[len(times) // 2], "step_ms_max": times[-1],
+           "sample_ms": s_ms, "examples_per_s": 256 / (times[len(times) // 2] / 1e3),
+           "loss_first_50_mean": first, "loss_last_50_mean": last, "peak_mem_gb": peak,
+           "gates": gates, "serve_launches": serve_counts,
+           **{"serve_" + k: v for k, v in pred.stats().items()}}
+    emit("PHASE", out)
+    check(bitwise, "phase Y2: the sampler refresh does not repeat bit for bit")
+    check(counts["fused_transformer_layer"] > 0 and counts["fused_transformer_layer_bwd"] > 0,
+          f"phase Y2 launched no K1 or no K2 in training: {counts}")
+    check(serve_counts["fused_transformer_layer"] > 0, f"phase Y2 served without K1: "
+                                                       f"{serve_counts}")
+    check(bool(torch.isfinite(losses).all()), "phase Y2 loss not finite")
+    check(last < first, f"phase Y2: the loss did not fall ({first} -> {last})")
+    return out
+
+
+def phase_z(device):
+    """PMF, CML, NCF (fusion), LogisticMF and BPR under ``midx-pop`` the way
+    users start them (``quickstart.run`` on ml-100k at the repo's configs,
+    for the epochs of their JAX references), each held to its JAX seeds'
+    band (``recstudio_torch/assets/{pmf,cml,ncf,logisticmf,bpr_midx_pop}_
+    ml100k_train_reference.json``, written by ``scripts/torch_mf_seeds.py``)
+    and every test user served through ``Predictor``, whose lists give
+    ``evaluate``'s metrics."""
+    runs = (
+        ("PMF", "pmf", {}, dict(embed_dim=64, batch=512, learner="adam")),
+        ("CML", "cml", dict(margin="margin"), dict(embed_dim=64, margin=1, batch=512,
+                                                   negative_count=5)),
+        ("NCF", "ncf", dict(score_mode="score_mode", mlp="mlp_hidden_size"),
+         dict(embed_dim=64, score_mode="fusion", mlp=[128, 64], batch=512, negative_count=1)),
+        ("LogisticMF", "logisticmf", {}, dict(embed_dim=64, batch=512, learner="adagrad",
+                                              negative_count=10)),
+        ("BPR", "bpr_midx_pop", {}, dict(embed_dim=64, batch=512, sampler="midx-pop",
+                                         negative_count=1)))
+    out = []
+    for model_name, ref_name, keys, expected in runs:
+        with open(ML100K_TRAIN_REFERENCE.format(ref_name)) as f:
+            overrides = json.load(f).get("overrides") or None
+        out.append(fit_phase(device, "Z", model_name, ML100K_TRAIN_REFERENCE.format(ref_name),
+                             keys, expected, (), quickstart=True, overrides=overrides))
+    return out
+
+
 def causal_mask(L, device, causal=True):
     """The causal attention mask (True = disallow), or None (bidirectional)."""
     import torch
@@ -2976,8 +3434,8 @@ def _main(device, v_data) -> int:
     phases = []
     for fn in (phase_a, phase_b, phase_c, phase_d, phase_e, phase_f, phase_g, phase_h,
                phase_i, phase_j, phase_k, phase_l, phase_m, phase_n, phase_o, phase_p,
-               phase_q, phase_r, phase_s, phase_t, phase_u, phase_w, phase_x,
-               lambda d: phase_v(d, prepared=v_data)):
+               phase_q, phase_r, phase_s, phase_t, phase_u, phase_w, phase_x, phase_y,
+               phase_y2, phase_z, lambda d: phase_v(d, prepared=v_data)):
         t = time.perf_counter()
         out = fn(device)
         phases += out if isinstance(out, list) else [out]

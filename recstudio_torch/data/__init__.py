@@ -1,3 +1,4 @@
+from .advance_dataset import ALSDataset
 from .dataset import SeqDataset, TripletDataset, UserDataset
 
-__all__ = ["SeqDataset", "TripletDataset", "UserDataset"]
+__all__ = ["ALSDataset", "SeqDataset", "TripletDataset", "UserDataset"]

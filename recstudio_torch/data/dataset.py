@@ -25,6 +25,10 @@ need, in numpy and plain Python (no pandas):
   (the criteo layout) has no ``user_hist``;
 - ``UserDataset`` gives one row per user: the training items as the
   history window, the split's items as the target window;
+  ``advance_dataset.ALSDataset`` one training row per user with all of
+  that user's training items;
+- ``item_freq`` counts the items of a split (the popularity samplers'
+  weights);
 - ``SeqDataset.device_epoch_arrays`` and ``UserDataset.device_epoch_arrays``
   stage a split's raw columns for a device-resident epoch, with a
   ``batch_fn`` that gathers the windows of a batch on the device.
@@ -600,6 +604,13 @@ class TripletDataset:
         pos = np.arange(len(key_s)) - offs[key_s]
         hist[key_s, pos] = val_s
         return hist, counts.astype(np.int64)
+
+    @property
+    def item_freq(self) -> np.ndarray:
+        """Each item's count among this split's rows, ``[num_items]``
+        (``dataset.py:791-795``), read by the popularity samplers."""
+        items = self.inter_feat.get_col(self.fiid)[self.inter_feat_subset]
+        return np.bincount(items, minlength=self.num_items).astype(np.int64)
 
     # ------------------------------------------------------------------
     # batching

@@ -3,23 +3,33 @@
 Counterpart of ``recstudio_tpu/models/basemodel/baseretriever.py``: the
 two-tower net (``TwoTowerNet``, a query tower and an item tower of their
 own, as BPR's two embedding tables) and the shared-item-tower net of
-sequence models; training (``forward``: positive
-and sampled negative scores, ``sampling`` with method ``none``, or with
-no sampler the positive scores and, for a full-score loss, the
-differentiable scores on the whole catalog; ``training_step``: the loss,
-through ``_fused_softmax_step`` for a softmax loss when
-``train.fused_softmax`` allows it); the catalog encoding cached in
-``states["item_vector"]`` (``_epoch_refresh(-1)``), dropped whenever the
-weights change (``fit``, ``load_state_dict``); full-catalog top-k with the
-user's history masked inside the score matrix (``baseretriever.py:
-493-543``), which is exactly the reference's ``topk(k + len(hist))``-then-
-filter; and evaluation of the rank metrics over served top-k lists
-(``_make_eval_step``, ``baseretriever.py:726-752``); and the row-sparse
-step of pure-embedding two-tower models under ``learner: sparse_adam``
-(``_sparse_rows_enabled``, ``_sparse_grad_step``), which differentiates
-with respect to the gathered rows and updates only those rows
-(``optim.row_lazy_adam``). The other mining methods, approximate and
-sharded retrieval are not ported yet.
+sequence models, with the score function registered in the net when it
+has parameters (NCF's); the slots ``item_encoder``, ``query_encoder``,
+``scorer``, ``sampler`` and ``loss`` can be given to the constructor
+(compositional building, ``baseretriever.py:83-95``). Training
+(``forward``: positive and sampled negative scores; ``sampling``: the
+sampler named by ``train.sampler``, or a mining method of
+``train.sampling_method``, ``toprand``, ``top&rand``, ``brute``, ``sir``
+or ``dns``, ``baseretriever.py:391-488``; with no sampler the positive
+scores and, for a full-score loss, the differentiable scores on the whole
+catalog; ``training_step``: the loss, through ``_fused_softmax_step`` for
+a softmax loss when ``train.fused_softmax`` allows it). Before each
+training epoch that reads them (``_epoch_refresh``), the catalog encoding
+is cached in ``states["item_vector"]`` and a stateful sampler re-indexed
+into ``states["sampler"]`` (``baseretriever.py:274-327``); evaluation
+caches the encoding of the current weights (``_epoch_refresh(-1)``),
+dropped whenever the weights change (``fit``, ``load_state_dict``).
+Full-catalog top-k masks the user's history inside the score matrix
+(``baseretriever.py:493-543``), which is exactly the reference's
+``topk(k + len(hist))``-then-filter; evaluation gives the rank metrics of
+the served top-k lists (``_make_eval_step``, ``baseretriever.py:
+726-752``). Pure-embedding two-tower models under ``learner:
+sparse_adam`` take the row-sparse step (``_sparse_rows_enabled``,
+``_sparse_grad_step``), which differentiates with respect to the gathered
+rows and updates only those rows (``optim.row_lazy_adam``). A retriever
+freezes itself into another model's proposal with
+``make_sampling_state`` and ``sampling_from_state`` (``ann.sampler.
+RetrieverSampler``). Approximate and sharded retrieval are not ported.
 """
 from __future__ import annotations
 
@@ -30,7 +40,8 @@ import torch
 from torch import nn
 
 from ... import eval as eval_mod
-from ...ann.sampler import MaskedUniformSampler, UniformSampler
+from ...ann.sampler import (MaskedUniformSampler, PopularSamplerModel, RetrieverSampler,
+                            Sampler, UniformSampler)
 from ...ops.topk import topk as topk_op
 from ...ops.softmax_z import catalog_logsumexp
 from ..loss_func import FullScoreLoss, PairwiseLoss, SoftmaxLoss, softmax_loss_from_logz
@@ -75,24 +86,57 @@ class SharedItemTowerNet(nn.Module):
         return self.query_encoder.item_encoder(item_feat)
 
 
+# train.sampling_method values (baseretriever.py:406-483)
+SAMPLING_METHODS = ("none", "toprand", "top&rand", "brute", "sir", "dns")
+
+
+def _is_stateful(sampler) -> bool:
+    """Whether ``sampler`` keeps an index that ``update`` builds."""
+    return isinstance(sampler, Sampler) and type(sampler).update is not Sampler.update
+
+
 class BaseRetriever(Recommender):
-    def __init__(self, config: Dict = None, device="cuda"):
-        super().__init__(config, device)
+    def __init__(self, config: Dict = None, device="cuda", **kwargs):
+        super().__init__(config, device, **kwargs)
         self.query_fields = None
         self.sampler = None
         self._sparse_rows_flag: Optional[bool] = None
         for key in ("ann", "mesh"):
             if self.config["train"].get(key):
                 raise NotImplementedError(f"train.{key} is not ported yet")
+        method = self.config["train"].get("sampling_method", "none")
+        if method not in SAMPLING_METHODS:
+            raise ValueError(f"unknown train.sampling_method {method!r}: {SAMPLING_METHODS}")
 
     def _get_sampler(self, train_data):
-        """The sampler named by ``train.sampler`` (``baseretriever.py:105-131``)."""
-        name = str(self.config["train"].get("sampler") or "uniform").lower()
+        """The sampler named by ``train.sampler`` (``baseretriever.py:105-131``):
+        ``uniform``, ``masked_uniform``, ``pop``, ``midx-uni``, ``midx-pop``,
+        ``cluster-uni``, ``cluster-pop`` or ``lsh`` (``train.lsh_bits``,
+        default 4, and ``train.lsh_tables``, default 8); k-means samplers
+        take ``train.sampler_num_clusters`` (default 32). An unknown name
+        raises."""
+        from ...ann import sampler as S
+        tc = self.config["train"]
+        name = str(tc.get("sampler") or "uniform").lower()
+        n, k = train_data.num_items, int(tc.get("sampler_num_clusters", 32))
         if name in ("uniform", "none"):
-            return UniformSampler(train_data.num_items)
+            return S.UniformSampler(n)
         if name == "masked_uniform":
-            return MaskedUniformSampler(train_data.num_items)
-        raise NotImplementedError(f"train.sampler {name!r} is not ported yet")
+            return S.MaskedUniformSampler(n)
+        if name == "pop":
+            return S.PopularSamplerModel(train_data.item_freq)
+        if name == "midx-uni":
+            return S.MIDXSamplerUniform(n, k)
+        if name == "midx-pop":
+            return S.MIDXSamplerPop(train_data.item_freq, k)
+        if name == "cluster-uni":
+            return S.ClusterSamplerUniform(n, k)
+        if name == "cluster-pop":
+            return S.ClusterSamplerPop(train_data.item_freq, k)
+        if name == "lsh":
+            return S.LSHSampler(n, self.embed_dim, n_bits=int(tc.get("lsh_bits", 4)),
+                                n_table=int(tc.get("lsh_tables", 8)))
+        raise ValueError(f"unknown train.sampler: {name}")
 
     def _get_item_encoder(self, train_data):
         return Embedding(train_data.num_items, self.embed_dim)
@@ -108,10 +152,16 @@ class BaseRetriever(Recommender):
         self._sparse_rows_flag = None                  # gate again on a new fit
         self.num_items = train_data.num_items
         self.num_users = train_data.num_users
-        self.item_encoder = self._get_item_encoder(train_data)
-        self.query_encoder = self._get_query_encoder(train_data)  # shares item_encoder
-        self.score_func = self._get_score_func()
-        self.sampler = self._get_sampler(train_data)
+        given = self._kwargs_modules
+
+        def part(name, build):                             # a constructor part, or the model's
+            return given[name] if given.get(name) is not None else build()
+
+        self.item_encoder = part("item_encoder", lambda: self._get_item_encoder(train_data))
+        self.query_encoder = part("query_encoder",         # may share item_encoder
+                                  lambda: self._get_query_encoder(train_data))
+        self.score_func = part("scorer", self._get_score_func)
+        self.sampler = part("sampler", lambda: self._get_sampler(train_data))
         if getattr(self.query_encoder, "item_encoder", None) is self.item_encoder:
             self.net = SharedItemTowerNet(self.query_encoder, self.score_func)
         else:
@@ -148,29 +198,150 @@ class BaseRetriever(Recommender):
         """The catalog encoding for inference."""
         return self._item_vectors()
 
+    def _train_needs_item_vector(self) -> bool:
+        """Whether the training step reads ``states["item_vector"]``: the
+        mining methods, which score the catalog (``baseretriever.py:
+        274-279``). The port's full-score step encodes its catalog itself,
+        differentiably, and reads no cache."""
+        return self.config["train"].get("sampling_method", "none") != "none"
+
+    def _sampler_is_stateful(self) -> bool:
+        return _is_stateful(self.sampler)
+
+    @torch.no_grad()
     def _epoch_refresh(self, nepoch: int):
-        """Snapshot the catalog encoding from the current parameters into
-        ``states["item_vector"]`` for inference (``nepoch = -1``). In training
-        the JAX package refreshes it only when the training step reads it
-        (``baseretriever.py:313-327``), which no ported loss or sampling
-        method does."""
-        if nepoch < 0:
-            self.states["item_vector"] = self._compute_item_vector()
+        """Before a training epoch (``nepoch >= 0``, ``baseretriever.py:
+        313-327``): when the step reads them, encode the catalog into
+        ``states["item_vector"]`` and rebuild a stateful sampler's index
+        into ``states["sampler"]`` from it, its draws from the device
+        generator. For inference (``nepoch = -1``): the catalog encoding of
+        the current weights; the sampler, which inference does not read, is
+        left as it is."""
+        if nepoch >= 0 and not (self._train_needs_item_vector() or self._sampler_is_stateful()):
+            return
+        item_vector = self._compute_item_vector()
+        self.states["item_vector"] = item_vector
+        if nepoch >= 0 and self._sampler_is_stateful():
+            state = self.sampler.update(item_vector, self.device_generator)
+            if state is not None:
+                self.states["sampler"] = state
 
     # ------------------------------------------------------------------
-    def sampling(self, batch: Dict[str, torch.Tensor], num_neg: int, query: torch.Tensor,
-                 method: str = "none", excluding_hist: bool = False):
-        """Negatives for a batch (``baseretriever.py:391-421``, method
-        ``none``): ``(log_pos_prob, neg_ids, log_neg_prob)``."""
-        if method != "none":
-            raise NotImplementedError(f"sampling method {method!r} is not ported yet")
+    def sampling(self, batch: Dict[str, torch.Tensor], num_neg, query: torch.Tensor,
+                 method: str = "none", excluding_hist: bool = False, t: float = 1.0,
+                 states: Optional[Dict] = None, net: Optional[nn.Module] = None,
+                 generator: Optional[torch.Generator] = None):
+        """Negatives for a batch (``baseretriever.py:391-488``):
+        ``(log_pos_prob, neg_ids, log_neg_prob)``. ``num_neg`` is ``n`` or
+        ``[pool, n]``. ``method``:
+
+        - ``none``: the sampler's draw (``MaskedUniformSampler`` when
+          ``excluding_hist`` asks for it and the sampler is another);
+        - ``toprand``: ``n`` uniform picks among the ``pool`` best-scored
+          catalog items; ``top&rand``: the ``n // 2`` best and uniform ids;
+        - ``brute``: ``n`` draws a positive from the softmax of the catalog
+          scores over ``t``, with their log probabilities (the positives'
+          from the softmax with no history mask, as there);
+        - ``dns``: the ``n`` best-scored of a ``pool`` from the sampler;
+          ``sir``: ``n`` draws from the softmax of the pool's scores, whose
+          scores are the log probabilities, the positives' their scores.
+
+        The catalog is ``states["item_vector"]`` and the pool is encoded by
+        ``net`` (this model's by default; a frozen snapshot's from
+        ``sampling_from_state``). Draws come from ``generator``, the device
+        generator by default."""
+        states = self.states if states is None else states
+        net = self.net if net is None else net
+        gen = self.device_generator if generator is None else generator
         pos_items = batch.get(self.fiid)
+        pos_2d = pos_items[:, None] if pos_items is not None and pos_items.dim() == 1 \
+            else pos_items
         user_hist = batch.get("user_hist", pos_items)
-        sampler = self.sampler
-        if excluding_hist and not isinstance(sampler, MaskedUniformSampler):
-            sampler = MaskedUniformSampler(self.num_items)
-        kwargs = {"user_hist": user_hist} if isinstance(sampler, MaskedUniformSampler) else {}
-        return sampler(query, num_neg, self.device_generator, pos_items=pos_items, **kwargs)
+        if isinstance(num_neg, int):
+            num_neg = [num_neg, num_neg]
+        n_pool, n = int(num_neg[0]), int(num_neg[1])
+        hist = user_hist if excluding_hist else None
+        zeros_like_pos = None if pos_items is None else \
+            torch.zeros(pos_items.shape, dtype=torch.float32, device=query.device)
+        if method not in ("none", "dns") and query.dim() != 2:
+            raise ValueError(f"sampling method {method!r} takes queries [B, D] "
+                             "(as the JAX package does)")
+
+        if method == "none":
+            sampler = self.sampler
+            if excluding_hist and not isinstance(sampler, MaskedUniformSampler):
+                sampler = MaskedUniformSampler(self.num_items)
+            kwargs = {"user_hist": user_hist} if isinstance(sampler, MaskedUniformSampler) else {}
+            if isinstance(sampler, RetrieverSampler):
+                kwargs["batch"] = batch        # the proposal encodes its own query
+            state = states.get("sampler")
+            if state is None and _is_stateful(sampler):
+                raise RuntimeError(f"{type(sampler).__name__} has no index: a training epoch "
+                                   "builds it (_epoch_refresh(nepoch >= 0))")
+            log_pos_prob, neg_id, log_neg_prob = sampler(
+                query, n, gen, pos_items=pos_items, state=state, **kwargs)
+        elif method in ("toprand", "top&rand", "brute"):
+            scores = net.score_func.catalog(query, states["item_vector"])
+            if method == "toprand":
+                _, top = self._topk_from_scores(scores, n_pool, hist)
+                ridx = torch.randint(0, n_pool, (top.shape[0], n), generator=gen,
+                                     device=query.device)
+                neg_id = torch.gather(top, 1, ridx)
+                log_neg_prob, log_pos_prob = torch.zeros(neg_id.shape, device=query.device), \
+                    zeros_like_pos
+            elif method == "top&rand":
+                k0 = n // 2
+                _, top = self._topk_from_scores(scores, max(k0, 1), hist)
+                rand = torch.randint(1, self.num_items, (top.shape[0], n - k0), generator=gen,
+                                     device=query.device)
+                neg_id = torch.cat([top[:, :k0], rand], dim=-1)
+                log_neg_prob, log_pos_prob = torch.zeros(neg_id.shape, device=query.device), \
+                    zeros_like_pos
+            else:
+                all_score = scores / t
+                logits = self._mask_hist_scores(all_score, hist)
+                num_pos = pos_2d.shape[-1] if pos_2d is not None else 1
+                draws = torch.multinomial(torch.softmax(logits, dim=-1), n * num_pos,
+                                          replacement=True, generator=gen)
+                neg_id, log_neg_prob, log_pos_prob = self._brute_log_probs(
+                    all_score, logits, draws, pos_2d)
+        else:                                              # sir, dns
+            log_pos_prob, pool_ids, _ = self.sampling(
+                batch, [n_pool, n_pool], query, method="none", excluding_hist=excluding_hist,
+                states=states, net=net, generator=gen)
+            pool_scores = net.score_func(query, net.encode_item(pool_ids))
+            if method == "dns":
+                top_idx = torch.topk(pool_scores, n, dim=-1).indices
+                neg_id = torch.gather(pool_ids, -1, top_idx)
+                log_neg_prob, log_pos_prob = torch.zeros(neg_id.shape, device=query.device), \
+                    zeros_like_pos
+            else:
+                if pos_items is not None:
+                    log_pos_prob = net.score_func(query, net.encode_item(pos_items))
+                resampled = torch.multinomial(torch.softmax(pool_scores, dim=-1), n,
+                                              replacement=True, generator=gen)
+                neg_id = torch.gather(pool_ids, 1, resampled)
+                log_neg_prob = torch.gather(pool_scores, 1, resampled)
+
+        if pos_items is not None and log_pos_prob is not None:
+            log_pos_prob = log_pos_prob.reshape(pos_items.shape).detach()
+        return log_pos_prob, neg_id, log_neg_prob.detach()
+
+    @staticmethod
+    def _brute_log_probs(all_score: torch.Tensor, logits: torch.Tensor, draws: torch.Tensor,
+                         pos_2d: Optional[torch.Tensor]):
+        """``brute``'s ids and log probabilities from its draws (catalog
+        columns ``[B, n P]``): the draws' from the masked softmax, the
+        positives' from the unmasked one, ``-inf`` at padded positives."""
+        neg_id = draws + 1
+        log_neg_prob = torch.gather(torch.log_softmax(logits, dim=-1), 1, draws)
+        log_pos_prob = None
+        if pos_2d is not None:
+            log_prob_all = torch.log_softmax(all_score, dim=-1)
+            col = torch.clamp_min(pos_2d.long() - 1, 0)
+            log_pos_prob = torch.where(pos_2d > 0, torch.gather(log_prob_all, 1, col),
+                                       float("-inf"))
+        return neg_id, log_neg_prob, log_pos_prob
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 full_score: bool = False) -> Dict[str, torch.Tensor]:
@@ -192,9 +363,11 @@ class BaseRetriever(Recommender):
         tc = self.config["train"]
         if not self.neg_count:
             raise ValueError("`negative_count` is required when a sampler is used")
-        log_pos_prob, neg_ids, log_neg_prob = self.sampling(
-            batch, self.neg_count, query.detach(), method=tc.get("sampling_method", "none"),
-            excluding_hist=tc.get("excluding_hist", False))
+        with torch.no_grad():
+            log_pos_prob, neg_ids, log_neg_prob = self.sampling(
+                batch, self.neg_count, query.detach(),
+                method=tc.get("sampling_method", "none"),
+                excluding_hist=tc.get("excluding_hist", False))
         neg_score = self.score_func(query, self.net.encode_item(neg_ids))
         return {"pos_score": pos_score, "log_pos_prob": log_pos_prob,
                 "neg_score": neg_score, "log_neg_prob": log_neg_prob}
@@ -216,7 +389,7 @@ class BaseRetriever(Recommender):
     def _sparse_rows_enabled(self) -> bool:
         """The row-sparse step's gate (``baseretriever.py:599-636``): lazy
         Adam with nothing that touches every row (weight decay, clipping, a
-        schedule), a pairwise loss on uniform negatives, inner products of
+        schedule), a pairwise loss on uniform or popularity negatives, inner products of
         two plain embedding towers keyed by the user id and the item id, and
         ``train.sparse_rows`` not ``false``. It only changes how the update
         is executed: the trajectory is dense lazy Adam's."""
@@ -230,7 +403,8 @@ class BaseRetriever(Recommender):
               and not tc.get("scheduler")
               and str(tc.get("sampling_method", "none")) == "none"
               and isinstance(self.loss_fn, PairwiseLoss)
-              and isinstance(self.sampler, (UniformSampler, MaskedUniformSampler))
+              and isinstance(self.sampler, (UniformSampler, MaskedUniformSampler,
+                                            PopularSamplerModel))
               and type(self.net) is TwoTowerNet
               and type(self.item_encoder) is Embedding
               and type(self.query_encoder) is Embedding
@@ -365,6 +539,43 @@ class BaseRetriever(Recommender):
         if return_query:
             return score_k, topk_items, query
         return score_k, topk_items
+
+    # ------------------------------------------------------------------
+    # the proposal protocol of ann.sampler.RetrieverSampler
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def make_sampling_state(self) -> Dict[str, object]:
+        """A frozen snapshot of this retriever as a proposal
+        (``baseretriever.py:766-775``): a copy of its net and the catalog
+        encoding of its current weights."""
+        import copy
+        net = copy.deepcopy(self.net).eval()
+        for p in net.parameters():
+            p.requires_grad_(False)
+        return {"net": net, "item_vector": self._compute_item_vector()}
+
+    @torch.no_grad()
+    def sampling_from_state(self, state, generator, batch_or_query, num_neg,
+                            method: str = "brute", t: float = 1.0, pos_items=None,
+                            user_hist=None):
+        """Negatives from a snapshot of ``make_sampling_state``
+        (``baseretriever.py:777-796``): ``batch_or_query`` is a batch (its
+        query encoded by the snapshot) or a query; ``user_hist`` given
+        excludes the history. Draws come from ``generator``."""
+        net = state["net"]
+        if isinstance(batch_or_query, dict):
+            batch = dict(batch_or_query)
+            query = net.encode_query(self._get_query_feat(batch))
+        else:
+            batch, query = {}, batch_or_query
+        if pos_items is not None:
+            batch.setdefault(self.fiid, pos_items)
+        if user_hist is not None:
+            batch.setdefault("user_hist", user_hist)
+        return self.sampling(batch, num_neg, query, method=method, t=t,
+                             excluding_hist=user_hist is not None,
+                             states={"item_vector": state["item_vector"]}, net=net,
+                             generator=generator)
 
     def predict(self, batch: Dict[str, np.ndarray], k: int) -> Tuple[np.ndarray, np.ndarray]:
         """numpy batch in, numpy ``(scores, item ids)`` out; ``batch`` may

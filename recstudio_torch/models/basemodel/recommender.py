@@ -23,14 +23,20 @@ training batches, in order, go through the net in eval mode with no
 gradient, the statistics reset first. They are part of ``state_dict``,
 so they travel with checkpoints, snapshots and the best epoch's restore.
 
+Learners: ``adam`` (``adamw`` with a weight decay), ``sgd``,
+``sparse_adam`` (lazy Adam), and ``adagrad`` and ``rmsprop`` with optax's
+formulas (``models/optim.py``). Checkpoints carry the parameters, the
+optimizer, both generators and ``states`` (the catalog encoding, a
+sampler's index), as the JAX checkpoint carries its ``states``.
+
 Not ported yet: the host-loader epoch (``train.epoch_scan: false``), the
 TPU dispatch strategies (``_setup_chunked_epoch``, ``_fit_loop_blocks``),
-config overrides passed to ``fit``, adagrad and rmsprop, learning-rate
-schedules, orbax checkpoints and
-``load_for_serving`` from a JAX checkpoint.
+config overrides passed to ``fit``, learning-rate schedules, orbax
+checkpoints and ``load_for_serving`` from a JAX checkpoint.
 """
 from __future__ import annotations
 
+import inspect
 import itertools
 import logging
 import os
@@ -45,7 +51,7 @@ from ...utils import get_base_model_config, make_generator, resolve_device, seed
 from ...utils.callbacks import EarlyStopping, SaveLastCallback
 from ..init import init_parameters, zero_pad_rows_in_grads
 from ..module.layers import SimpleBatchNorm
-from ..optim import LazyAdam
+from ..optim import LazyAdam, OptaxAdagrad, OptaxRMSprop
 
 logger = logging.getLogger("recstudio_torch")
 
@@ -94,7 +100,10 @@ class Recommender:
     _weight_caches = ("item_vector",)
 
     def __init__(self, config: Optional[Dict] = None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", **kwargs):
+        """``kwargs`` give parts instead of the model's own
+        (``recommender.py:62``): ``loss``, and for a retriever
+        ``item_encoder``, ``query_encoder``, ``scorer`` and ``sampler``."""
         self.config = config if config is not None else get_base_model_config()
         check_train_config(self.config["train"])
         self.device = resolve_device(device)
@@ -114,6 +123,7 @@ class Recommender:
         self.val_check = False
         self._train_data = None
         self._calib_batches: Optional[List[Dict[str, torch.Tensor]]] = None
+        self._kwargs_modules: Dict[str, Any] = kwargs
 
     @staticmethod
     def _get_dataset_class():
@@ -133,7 +143,12 @@ class Recommender:
         else:
             self.item_fields = {self.fiid}
         self.neg_count = self.config["train"].get("negative_count")
-        self.loss_fn = self._get_loss_func()
+        if self._kwargs_modules.get("loss") is not None:
+            self.loss_fn = self._kwargs_modules["loss"]
+        elif "train_data" in inspect.signature(self._get_loss_func).parameters:
+            self.loss_fn = self._get_loss_func(train_data)
+        else:
+            self.loss_fn = self._get_loss_func()
 
     def _init_parameter(self, train_data=None):
         """Initialise ``self.net``'s parameters by role (``train.init_method``,
@@ -157,7 +172,10 @@ class Recommender:
         """``_make_optax`` (``recommender.py:187-225``) in ``torch.optim``,
         with optax's hyperparameters: Adam's eps 1e-8, weight decay
         decoupled (optax.adamw), plain SGD; ``sparse_adam`` is lazy Adam
-        (``models/optim.py``), which takes no weight decay there either."""
+        (``models/optim.py``), which takes no weight decay there either;
+        ``adagrad`` and ``rmsprop`` are optax's (``OptaxAdagrad``,
+        ``OptaxRMSprop``), which take none there either. An unknown name
+        raises."""
         params = list(self.net.parameters())
         name = (name or "adam").lower()
         if name == "adam" and not weight_decay:
@@ -170,8 +188,10 @@ class Recommender:
             return torch.optim.SGD(params, lr=lr)
         if name == "sparse_adam":
             return LazyAdam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
-        if name in ("adagrad", "rmsprop"):
-            raise NotImplementedError(f"learner {name!r} is not ported yet")
+        if name == "adagrad":
+            return OptaxAdagrad(params, lr=lr)
+        if name == "rmsprop":
+            return OptaxRMSprop(params, lr=lr)
         raise ValueError(f"unknown learner {name}")
 
     def _get_optimizer(self) -> torch.optim.Optimizer:
@@ -377,13 +397,16 @@ class Recommender:
         self.states.clear()
 
     def save_checkpoint(self, path: str, epoch: int = -1, metric: Optional[Dict] = None) -> None:
-        """Parameters, optimizer state, both generators' states and the
-        epoch (``recommender.py:1218-1247``, pickle backend), in
-        ``torch.save``'s format."""
+        """Parameters, ``states``, optimizer state, both generators' states
+        and the epoch (``recommender.py:1218-1247``, pickle backend), in
+        ``torch.save``'s format. ``states`` keeps its tensors and numbers
+        (a retriever's snapshot net, a ``RetrieverSampler``'s state, is
+        left out)."""
         payload = {
             "config": self.config, "model": type(self).__name__, "epoch": int(epoch),
             "metric": {k: float(v) for k, v in (metric or {}).items()},
             "params": {k: v.detach().cpu() for k, v in self.net.state_dict().items()},
+            "states": _portable(self.states),
             "optimizer": self.optimizer.state_dict() if self.optimizer is not None else None,
             "generator": self.generator.get_state(),
             "device_generator": self.device_generator.get_state(),
@@ -392,13 +415,34 @@ class Recommender:
         torch.save(payload, path)
 
     def load_checkpoint(self, path: str, restore_optimizer: bool = False) -> Dict[str, Any]:
-        """Load a checkpoint of ``save_checkpoint``; with ``restore_optimizer``
-        also the optimizer and generator states, so a fit resumes exactly."""
+        """Load a checkpoint of ``save_checkpoint`` (its ``states`` too); with
+        ``restore_optimizer`` also the optimizer and generator states, so a
+        fit resumes exactly."""
         payload = torch.load(path, map_location="cpu", weights_only=True)
         self.net.load_state_dict(payload["params"])
         self.states.clear()
+        self.states.update(_to_device(payload.get("states") or {}, self.device))
         if restore_optimizer and self.optimizer is not None and payload.get("optimizer"):
             self.optimizer.load_state_dict(payload["optimizer"])
             self.generator.set_state(payload["generator"])
             self.device_generator.set_state(payload["device_generator"])
         return payload
+
+
+def _portable(tree):
+    """``states`` with its tensors on the CPU, keeping only tensors,
+    numbers and dicts of them."""
+    if isinstance(tree, dict):
+        out = {k: _portable(v) for k, v in tree.items()}
+        return {k: v for k, v in out.items() if v is not None}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, (int, float)):
+        return tree
+    return None
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree

@@ -124,6 +124,9 @@ class BaseGraphRetriever(BaseRetriever):
         self.net = self._get_net()
         self.score_func = InnerProductScorer()
         self.sampler = self._get_sampler(train_data)
+        if self.config["train"].get("sampling_method", "none") != "none":
+            raise NotImplementedError("mining methods (train.sampling_method) are not ported "
+                                      "for graph models")
         self._build_graph(train_data)
 
     # ------------------------------------------------------------------
@@ -261,12 +264,16 @@ class BaseGraphRetriever(BaseRetriever):
 
     @torch.no_grad()
     def _epoch_refresh(self, nepoch: int):
-        """Propagate once and cache both towers: ``item_vector`` (items
-        1..N-1) and ``user_all`` (``base.py:210-217``)."""
+        """For inference, propagate once and cache both towers:
+        ``item_vector`` (items 1..N-1) and ``user_all`` (``base.py:
+        210-217``); before a training epoch, ``BaseRetriever``'s refresh
+        (a stateful sampler re-indexed from the propagated items)."""
         if nepoch < 0:
             user_all, item_all = self.propagate()
             self.states["item_vector"] = item_all[1:]
             self.states["user_all"] = user_all
+        else:                       # a stateful sampler indexes the propagated items
+            super()._epoch_refresh(nepoch)
 
     def _encode_query_from(self, user_all: torch.Tensor,
                            batch: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Lazy Adam (``learner: sparse_adam``), dense and row-sparse.
+"""Lazy Adam (``learner: sparse_adam``), dense and row-sparse; optax's
+Adagrad and RMSprop (``learner: adagrad``, ``rmsprop``).
 
 Counterpart of ``recstudio_tpu/models/optim.py:32-221``. Adam's moments are
 updated only for the rows a step touches: a row (a slice along the first
@@ -23,6 +24,12 @@ needs ``sparse=True`` embeddings.
 
 All compute in the JAX package's order of operations, so one step of
 either agrees with the others to float32 rounding.
+
+``OptaxAdagrad`` and ``OptaxRMSprop`` are ``optax.adagrad(lr)`` and
+``optax.rmsprop(lr)`` of optax 0.2.6, whose defaults are not
+``torch.optim``'s: Adagrad's accumulator starts at 0.1 and its step is
+``g / sqrt(sum + 1e-7)`` (0 where the sum is 0); RMSprop decays by 0.9
+from a scale of 0 and its step is ``g / sqrt(nu + 1e-8)``.
 """
 from __future__ import annotations
 
@@ -213,3 +220,49 @@ def fused_table_lazy_adam_packed(sizes: Sequence[int], packed: torch.Tensor,
     nu2 = nu_r + (1.0 - b2) * (agg * agg - nu_r)
     step = -lr * (mu2 / bc1) / (torch.sqrt(nu2 / bc2) + eps)
     packed[read] = torch.where(valid[:, None], torch.cat([p_r + step, mu2, nu2], dim=-1), rows)
+
+
+class OptaxAdagrad(torch.optim.Optimizer):
+    """``optax.adagrad(lr)`` (``scale_by_rss(0.1, 1e-7)`` then ``-lr``):
+    ``sum += g^2``, ``p += -lr * g * rsqrt(sum + eps)`` where ``sum > 0``."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float = 1e-3,
+                 initial_accumulator_value: float = 0.1, eps: float = 1e-7):
+        super().__init__(params, dict(lr=lr, initial_accumulator_value=initial_accumulator_value,
+                                      eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                state = self.state[p]
+                if "sum" not in state:
+                    state["sum"] = torch.full_like(p, group["initial_accumulator_value"])
+                g = p.grad if p.grad is not None else torch.zeros_like(p)  # optax's zeros
+                acc = state["sum"]
+                acc.copy_(g * g + acc)
+                inv = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]),
+                                  torch.zeros_like(acc))
+                p.add_((inv * g) * (-group["lr"]))
+
+
+class OptaxRMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop(lr)`` (``scale_by_rms(0.9, 1e-8)`` then ``-lr``):
+    ``nu = 0.1 g^2 + 0.9 nu`` from ``nu = 0``, ``p += -lr * g * rsqrt(nu +
+    eps)``."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float = 1e-3,
+                 decay: float = 0.9, eps: float = 1e-8, initial_scale: float = 0.0):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps, initial_scale=initial_scale))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                state = self.state[p]
+                if "nu" not in state:
+                    state["nu"] = torch.full_like(p, group["initial_scale"])
+                g = p.grad if p.grad is not None else torch.zeros_like(p)  # optax's zeros
+                nu = state["nu"]
+                nu.copy_((1.0 - group["decay"]) * (g * g) + group["decay"] * nu)
+                p.add_((torch.rsqrt(nu + group["eps"]) * g) * (-group["lr"]))

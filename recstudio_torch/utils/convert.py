@@ -43,6 +43,16 @@ and ``item_embedding`` are ``GraphNet``'s ``nn.Embedding`` weights, and
 NGCF's ``layer_{i}/W1`` and ``W2`` ``Dense`` kernels are ``Linear``
 weights, transposed.
 
+A retriever whose score function has parameters (NCF's ``MLPScorer``,
+``GMFScorer``, ``FusionMFMLPScorer``) keeps them under ``score_func``
+in both layouts: ``W`` and the MLP's ``dense_{i}`` kernels ``[in, out]``
+are ``Linear`` weights ``[out, in]``. ``sampler_state_from_jax`` turns a
+sampler state built by the JAX package (``update``'s dict) into the
+port's (integer arrays as int64), and ``lsh_weight_vectors_from_jax``
+gives a port ``LSHSampler`` the JAX sampler's hyperplanes (the port draws
+its own from a ``torch.Generator``; ``jax.random.PRNGKey(seed)``'s stream
+cannot be reproduced).
+
 ``random_sasrec_params`` draws a JAX-layout tree from a numpy seed, so the
 tests and ``chip_smoke.py`` can feed the same weights to both packages
 without JAX on the card.
@@ -134,10 +144,11 @@ def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX SASRec, BERT4Rec, GRU4Rec, NARM, STAMP, BPR, MultiDAE or
-    MultiVAE params -> the port's ``state_dict`` (float32 CPU tensors)."""
+    """JAX SASRec, BERT4Rec, GRU4Rec, NARM, STAMP, BPR, PMF, CML, NCF,
+    LogisticMF, MultiDAE or MultiVAE params -> the port's ``state_dict``
+    (float32 CPU tensors)."""
     sd = {}
-    for tower in ("item_encoder", "query_encoder"):
+    for tower in ("item_encoder", "query_encoder", "score_func"):
         for path, value in _leaves(tree.get(tower, {})):
             name, tr = _port_name(path)
             sd[f"{tower}.{name}"] = _tensor(value, tr)
@@ -301,6 +312,22 @@ def lazy_adam_state_from_jax(net: torch.nn.Module, optimizer, state) -> None:
             optimizer.state[params[name]][key] = value.to(params[name].device)
     for group in optimizer.param_groups:
         group["count"] = int(np.asarray(state.count))
+
+
+def sampler_state_from_jax(state: Dict[str, Any], device="cpu") -> Dict[str, torch.Tensor]:
+    """A JAX sampler's ``update`` state -> the port's: floats as float32,
+    integers as int64, on ``device``."""
+    out = {}
+    for key, value in state.items():
+        a = np.asarray(value)
+        a = a.astype(np.int64) if np.issubdtype(a.dtype, np.integer) else a.astype(np.float32)
+        out[key] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return out
+
+
+def lsh_weight_vectors_from_jax(sampler, jax_sampler) -> None:
+    """Give the port's ``LSHSampler`` the JAX sampler's hyperplanes."""
+    sampler.weight_vectors = _tensor(jax_sampler.weight_vectors)
 
 
 def _as_numpy(tree):

@@ -1,7 +1,8 @@
 """Model registry: name -> (model class, layered default config).
 
 The subset of ``recstudio_tpu/utils/registry.py`` this port implements:
-SASRec, BERT4Rec, GRU4Rec, NARM and STAMP (``seq``), BPR (``mf``),
+SASRec, BERT4Rec, GRU4Rec, NARM and STAMP (``seq``), BPR, PMF, CML, NCF
+and LogisticMF (``mf``),
 MultiDAE and MultiVAE (``ae``), DeepFM, FM, LR, WideDeep, DCN, NFM and
 AutoInt (``fm``), LightGCN, NGCF and SimGCL (``graph``), and the dataset
 configs they run on.
@@ -21,6 +22,10 @@ _MODELS = {"sasrec": ("seq", "SASRec", ("seq_all", "sasrec")),
            "narm": ("seq", "NARM", ("seq_all", "narm")),
            "stamp": ("seq", "STAMP", ("seq_all", "stamp")),
            "bpr": ("mf", "BPR", ("mf_all", "bpr")),
+           "pmf": ("mf", "PMF", ("mf_all", "pmf")),
+           "cml": ("mf", "CML", ("mf_all", "cml")),
+           "ncf": ("mf", "NCF", ("mf_all", "ncf")),
+           "logisticmf": ("mf", "LogisticMF", ("mf_all", "logisticmf")),
            "multidae": ("ae", "MultiDAE", ("multidae",)),
            "multivae": ("ae", "MultiVAE", ("multivae",)),
            "deepfm": ("fm", "DeepFM", ("fm_all", "deepfm")),

@@ -17,10 +17,11 @@ after a given number of epochs, which is what phase R's band is read at.
 One JSON line a seed, then one line with each epoch's AUCs over the seeds.
 
 ``--jax-ml100k`` runs ``SEEDS`` of the JAX package's
-``quickstart.run(<model>, "ml-100k")`` at the repo's config on the CPU,
-``PARALLEL`` processes at a time (each a ``--one`` run: the fit to its
-early stop on validation AUC, then the test AUC and logloss of the best
-epoch, and the test AUC of the same seed's untrained model), and writes
+``quickstart.run(<model>, "ml-100k")`` at the repo's config for at most
+``ML100K_EPOCHS`` epochs on the CPU, ``PARALLEL`` processes at a time
+(each a ``--one`` run: the fit, stopped early on validation AUC with the
+config's patience, then the test AUC and logloss of the best epoch, and
+the test AUC of the same seed's untrained model), and writes
 ``recstudio_torch/assets/<model>_ml100k_train_reference.json``: the runs,
 the AUC band (the seeds' range widened by their spread) and the largest
 untrained AUC. ``--port`` runs the port's ``quickstart.run`` on the card
@@ -40,6 +41,11 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "recstudio_torch", "assets")
 ML100K_MODELS = ("WideDeep", "DCN", "NFM", "AutoInt")
+# the epoch cap of each ml-100k run, phase X's depth: the JAX fits' best
+# validation epochs at the config's own cap (1000, patience 10) were 3–10
+# (WideDeep), 2–7 (DCN), 3–8 (NFM) and 7–25 (AutoInt), and the ten epochs
+# of patience after them took most of phase X's time
+ML100K_EPOCHS = {"WideDeep": 10, "DCN": 8, "NFM": 8, "AutoInt": 12}
 SEEDS = (2022, 2023, 2024, 2025, 2026, 2027)
 PARALLEL = 6
 ABOUT = {
@@ -104,15 +110,17 @@ def band(values):
 
 
 def jax_run(name: str, seed: int) -> dict:
-    """One JAX ``quickstart.run(name, "ml-100k")`` at the repo's config, and
-    the test AUC of the same seed's untrained model."""
+    """One JAX ``quickstart.run(name, "ml-100k")`` at the repo's config for
+    at most ``ML100K_EPOCHS[name]`` epochs, and the test AUC of the same
+    seed's untrained model."""
     from recstudio_tpu.quickstart import run
     from recstudio_tpu.utils import get_model
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
-        model, (trn, _, tst), out = run(name, "ml-100k", verbose=False,
-                                        model_config={"train": {"seed": seed},
-                                                      "eval": {"save_path": tmp}})
+        model, (trn, _, tst), out = run(
+            name, "ml-100k", verbose=False,
+            model_config={"train": {"seed": seed, "epochs": ML100K_EPOCHS[name]},
+                          "eval": {"save_path": tmp}})
         fit_s = time.time() - t0
         cls, conf = get_model(name)
         conf["train"].update(seed=seed)
@@ -130,7 +138,7 @@ def jax_run(name: str, seed: int) -> dict:
 
 def write(name: str, runs) -> None:
     from recstudio_tpu.utils import get_model
-    tc = get_model(name)[1]["train"]
+    tc = dict(get_model(name)[1]["train"], epochs=ML100K_EPOCHS[name])
     untrained = max(r["untrained_auc"] for r in runs)
     ref = {"about": f"recstudio_tpu {name} on ml-100k at the repo's config ({ABOUT[name]}; "
                     "fm family: fmeval, ratings binarized at 3.0, low_rating_thres 0.0, ratio "
@@ -172,7 +180,7 @@ def jax_bands(names) -> int:
 
 def port_runs(name: str, seeds) -> int:
     """The port's ``quickstart.run(name, "ml-100k")`` on the card, seed by
-    seed, at the repo's config."""
+    seed, at the repo's config and the JAX runs' epoch cap."""
     import torch
     from recstudio_torch.models.module.layers import SimpleBatchNorm
     from recstudio_torch.quickstart import run
@@ -182,7 +190,8 @@ def port_runs(name: str, seeds) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             model, _, out = run(name, "ml-100k", verbose=False, device="cuda",
-                                model_config={"train": {"seed": seed},
+                                model_config={"train": {"seed": seed,
+                                                        "epochs": ML100K_EPOCHS[name]},
                                               "eval": {"save_path": tmp}})
         counts = [float(m.count) for m in model.net.modules() if isinstance(m, SimpleBatchNorm)]
         print(json.dumps({"model": name, "seed": seed, "run_s": time.perf_counter() - t0,

@@ -65,9 +65,18 @@ def test_unknown_dataset_falls_back_to_defaults():
     assert get_dataset_default_config("no-such-set") == jax_dataset_config("no-such-set")
 
 
+@pytest.mark.parametrize("name", ["BPR", "PMF", "CML", "NCF", "LogisticMF"])
+def test_mf_model_configs_equal_jax(name):
+    _, want = jax_get_model(name)
+    cls, got = get_model(name)
+    assert got == want and cls.__name__ == name
+    assert get_model(name.lower())[1] == want
+
+
 def test_registry_lists_what_is_ported():
     assert list_models() == {"sasrec": "seq", "bert4rec": "seq", "gru4rec": "seq",
-                             "narm": "seq", "stamp": "seq", "bpr": "mf",
+                             "narm": "seq", "stamp": "seq", "bpr": "mf", "pmf": "mf",
+                             "cml": "mf", "ncf": "mf", "logisticmf": "mf",
                              "multidae": "ae", "multivae": "ae",
                              "deepfm": "fm", "fm": "fm", "lr": "fm", "widedeep": "fm",
                              "dcn": "fm", "nfm": "fm", "autoint": "fm",

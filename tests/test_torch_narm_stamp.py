@@ -23,10 +23,11 @@ orders:
 ``narm_ml100k_train_reference.json`` and ``stamp_ml100k_train_reference.json``
 hold the JAX package's test NDCG@10 and Recall@10 after
 ``quickstart.run(<model>, "ml-100k")`` for ``EPOCHS`` epochs at the repo's
-config, over three seeds, and the test NDCG@10 of each seed's untrained
-model; ``chip_smoke.py`` (phase N) holds the card's run of the port to the
-band those seeds span. Rewrite both (six JAX fits in parallel, a few
-minutes on a CPU) with ``JAX_PLATFORMS=cpu python tests/test_torch_narm_stamp.py``.
+config (12, phase N's depth, cut from 20 for the script's time limit),
+over six seeds, and the test NDCG@10 of each seed's untrained model;
+``chip_smoke.py`` (phase N) holds the card's run of the port to the band
+those seeds span. Rewrite both (twelve JAX fits in parallel, a few minutes
+on a CPU) with ``JAX_PLATFORMS=cpu python tests/test_torch_narm_stamp.py``.
 """
 import json
 import os
@@ -40,8 +41,8 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "recstudio_torch", "assets")
-EPOCHS = 20
-REF_SEEDS = (2022, 2023, 2024)
+EPOCHS = 12
+REF_SEEDS = (2022, 2023, 2024, 2025, 2026, 2027)
 MODELS = ("NARM", "STAMP")
 D_TEST, HIDDEN_TEST, ROWS, WEIGHT_SEED, K = 16, 32, 64, 5, 20
 # model overrides of the parity tests: narrow, dropout off

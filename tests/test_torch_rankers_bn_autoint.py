@@ -29,7 +29,8 @@ numpy weights and batch-norm statistics (``ranker_params_from_jax`` with
 
 ``{widedeep,dcn,nfm,autoint}_ml100k_train_reference.json`` hold the JAX
 package's test AUC after ``quickstart.run(name, "ml-100k")`` at the
-repo's config for six seeds (``scripts/torch_ctr_seeds.py --jax-ml100k``).
+repo's config, for at most ``ML100K_EPOCHS`` epochs, for six seeds
+(``scripts/torch_ctr_seeds.py --jax-ml100k``).
 """
 import json
 import os
@@ -488,12 +489,18 @@ def test_quickstart_one_epoch_learns_on_cpu(name, tmp_path):
 @pytest.mark.parametrize("name", MODELS)
 def test_training_reference_file(name):
     """Phase X's bands can fail: each clears the untrained AUC by
-    ``AUC_MARGIN``, from six JAX seeds at the repo's config."""
+    ``AUC_MARGIN``, from six JAX seeds at the repo's config, for at most
+    the epochs ``scripts/torch_ctr_seeds.py`` caps the runs at."""
+    import importlib.util
     from recstudio_torch.utils import get_model
+    spec = importlib.util.spec_from_file_location(
+        "torch_ctr_seeds", os.path.join(REPO, "scripts", "torch_ctr_seeds.py"))
+    seeds_script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(seeds_script)
     with open(os.path.join(ASSETS, f"{name.lower()}_ml100k_train_reference.json")) as f:
         ref = json.load(f)
     tc = get_model(name)[1]["train"]
-    assert (ref["epochs"], ref["early_stop_patience"]) == (tc["epochs"],
+    assert (ref["epochs"], ref["early_stop_patience"]) == (seeds_script.ML100K_EPOCHS[name],
                                                           tc["early_stop_patience"])
     assert ref["metric"] == "auc" and [r["seed"] for r in ref["runs"]] == list(SEEDS)
     aucs = [r["auc"] for r in ref["runs"]]
