@@ -114,7 +114,8 @@ then:
   256], tanh, dropout 0.3) on ``generate_ctr("criteo-1m-shape")`` (1,000,000
   rows, 13 float and 26 token fields; 499,331 table rows, the ids the
   Zipf draws reach of 660,208 vocabulary slots; the JAX
-  bench's ``ctr_scale`` setup), batch 8192, Adam 1e-3: ``fit(train,
+  bench's ``ctr_scale`` setup; its data built by a process of this
+  script's own beside the earlier phases), batch 8192, Adam 1e-3: ``fit(train,
   None)`` for one epoch, then four more, the test split evaluated after
   each; the test AUC and logloss after the fifth held to the JAX seeds'
   bands (``recstudio_torch/assets/deepfm_criteo1m_train_reference.json``),
@@ -125,14 +126,16 @@ then:
   rows through ``ScorePredictor`` held to ``predict``. No kernel;
 - phase S: ``quickstart.run`` of DeepFM, FM and LR on ml-100k at the
   repo's config (fm family: ``fmeval``, ratings binarized at 3.0; early
-  stopping on validation AUC, patience 10), test AUC held to each model's
+  stopping on validation AUC, patience 10) for at most the epochs of
+  their references (5, 8 and 20), test AUC held to each model's
   JAX band (``recstudio_torch/assets/{deepfm,fm,lr}_ml100k_train_
   reference.json``), one epoch profiled, every test row served through
   ``ScorePredictor(max_batch=256)``, whose probabilities must be
   ``evaluate``'s. No kernel;
 - phase T: LightGCN at the JAX bench's ``graph_scale`` setup
   (``amazon-book-shape``: 52,643 users, 91,599 items, 2,984,108
-  interactions, seed 7; ratio split [0.8, 0.1, 0.1]; d 64, 3 layers, batch
+  interactions, seed 7, built beside the earlier phases; ratio split
+  [0.8, 0.1, 0.1]; d 64, 3 layers, batch
   8192, one uniform negative, Adam 1e-3, l2 1e-4) on the ELL route (the
   graph past the dense budget): generation, ETL and graph-build seconds,
   padded ELL slots against edges and the tables' bytes, 20 timed steps,
@@ -141,7 +144,7 @@ then:
   routes beside ``torch.sparse.mm`` of the same CSR matrix, one epoch and
   its busy share, every test user evaluated. No kernel;
 - phase U: ``quickstart.run`` of LightGCN, NGCF and SimGCL (for the
-  epochs of their references: 40, 40 and 20) on ml-100k at the repo's
+  epochs of their references: 20, 40 and 20) on ml-100k at the repo's
   configs, held to the JAX seeds' bands (``recstudio_torch/assets/
   {lightgcn,ngcf,simgcl}_ml100k_train_reference.json``): LightGCN's and
   NGCF's test NDCG@10, whose bands clear the untrained models' by
@@ -156,7 +159,7 @@ then:
   limit; its data built by a process of this script's own while the
   earlier phases run), batch 8192: gen and ETL seconds, the table's rows,
   a one-epoch fit and its test AUC, 20 timed steps, the card's busy share
-  over 200 profiled steps; one packed step held to one dense lazy-Adam
+  over 100 profiled steps; one packed step held to one dense lazy-Adam
   step from the same state (parameters and moments), rows no lookup
   touched held unchanged bit for bit, and the step to a bitwise repeat;
   20 steps of the dense ``LazyAdam`` beside. No kernel;
@@ -168,7 +171,7 @@ then:
   seeds, the evaluation's probabilities held to the plain route's;
 - phase X: ``quickstart.run`` of WideDeep, DCN, NFM and AutoInt on
   ml-100k at the repo's configs for at most the epochs of their
-  references (10, 8, 8 and 12; early stopping may end them sooner), test
+  references (4 each; early stopping may end them sooner), test
   AUC held to the JAX seeds' bands (``recstudio_torch/assets/{widedeep,dcn,nfm,
   autoint}_ml100k_train_reference.json``), whose AUC band must clear the
   untrained AUC by ``AUC_MARGIN``; the batch norms calibrated; every test
@@ -196,6 +199,36 @@ then:
   (``recstudio_torch/assets/{pmf,cml,ncf,logisticmf,bpr_midx_pop}_
   ml100k_train_reference.json``), every test user served through
   ``Predictor``, whose lists give ``evaluate``'s metrics. No kernel;
+- phase AA: DIN and DIEN at their repo configs (d 128; DIN's attention
+  MLP [128, 64] and fc MLP [128, 64, 64] with Dice, batch norm, dropout
+  0.3; DIEN's GRU and AUGRU hidden 128) on the ml-1m shape as a
+  ``SeqDataset`` at L 200, ratings binarized at 3.0, batch 1024: 20 timed
+  steps, the busy share of 10, DIEN's AUGRU kernels a step, one step held
+  to the CPU copy (same dropout seeds), the batch norms calibrated,
+  evaluation rows/s and every test row through ``ScorePredictor`` held to
+  ``evaluate``'s probabilities. No kernel;
+- phase AB: HardShare, MMoE, PLE and AITM at their repo configs on
+  ``kuairand-pure-shape`` (``scripts/multitask_data.py``: the fields of
+  kuairand-pure.yaml, the public log's 27,285 users, 7,583 videos and
+  1,436,609 rows, a planted signal a task), batch 4096: a one-epoch fit
+  and each of the six ratings' test AUC, 20 timed steps, one step held to
+  the CPU copy, 8 requests of 4096 rows through ``ScorePredictor`` held
+  to ``evaluate``'s; AITM's transfer attention through K3 (counted), held
+  to the plain softmax;
+- phase AC: the cascade on the ml-1m shape, a SASRec retriever at phase
+  B's setup (seeded weights, ``eval.topk`` 100) and DIN at AA's config as
+  the ranker (2 retriever-sampled negatives, ``BinaryCrossEntropyLoss``):
+  20 timed ranker steps, every user served through ``Predictor(cascade,
+  k=20, max_batch=64)`` (K1 in the retriever's query encoding), the first
+  two requests held to the retriever's plain layers and the first 16
+  users to the CPU copy; p50, the largest latency, peak memory;
+- phase AD: ``quickstart.run`` of DIN and DIEN on ml-100k and of the four
+  multitask models on ``kuairand-pure-small``, each rating's test AUC
+  held to the JAX seeds' band where the band can fail
+  (``recstudio_torch/assets/<model>_<dataset>_train_reference.json``,
+  ``scripts/torch_seq_mt_seeds.py``); the SASRec -> DIN cascade on
+  ml-100k, whose served lists give ``evaluate``'s NDCG@5 and agree with
+  the CPU copy's;
 - each kernel against its plain PyTorch version on the phases' shapes,
   with its time, the plain version's, PyTorch's own call where one exists,
   and the card's bound for the same work.
@@ -596,6 +629,7 @@ def training_model(device, model_name, batch_size, L=200, train=None, parts=None
     model._init_parameter(trn)
     model.optimizer = model._get_optimizer()
     model._setup_scan_epoch(trn)
+    model._train_data = trn                  # the batch norms calibrate on it
     return model, conf, ds, tst, name, time.perf_counter() - t0
 
 
@@ -1621,23 +1655,33 @@ def ranker_step(model, batch, gen_state):
 
 def eval_probs(model, split):
     """``evaluate``'s scores of a split (its staged eval batches), as
-    probabilities, true rows only."""
+    probabilities, true rows only: an array, or ``{rating: array}`` for a
+    multitask ranker."""
+    import numpy as np
     import torch
+    out = []
     with torch.no_grad():
-        return torch.cat([torch.sigmoid(model.score(b))[:int(b["_size"])]
-                          for b in model._eval_batches(split)]).cpu().numpy()
+        for b in model._eval_batches(split):
+            s, n = model.score(b), int(b["_size"])
+            out.append({r: torch.sigmoid(v)[:n].cpu().numpy() for r, v in s.items()}
+                       if isinstance(s, dict) else torch.sigmoid(s)[:n].cpu().numpy())
+    if isinstance(out[0], dict):
+        return {r: np.concatenate([o[r] for o in out]) for r in out[0]}
+    return np.concatenate(out)
 
 
 _CRITEO = {}
 
 
-def criteo_setup():
+def criteo_setup(prepared=None):
     """Phase R's data and DeepFM config (the JAX bench's ``ctr_scale``):
     ``(reference, dataset, (train, val, test), DeepFM class, config, gen s,
-    ETL s)``; built once a process (phase W trains AutoInt on it), a fresh
-    copy of the config each call."""
+    ETL s)``; set up once a process from ``prepared`` (``start_data("R")``,
+    given by phase R; phase W trains AutoInt on it), a fresh copy of the
+    config each call."""
     if "setup" not in _CRITEO:
-        _CRITEO["setup"] = _criteo_setup()
+        check(prepared is not None, "phase W trains on phase R's data: run phase R first")
+        _CRITEO["setup"] = _criteo_setup(prepared)
     ref, ds, splits, cls, conf, gen_s, etl_s = _CRITEO["setup"]
     return ref, ds, splits, cls, json.loads(json.dumps(conf)), gen_s, etl_s
 
@@ -1663,11 +1707,16 @@ def ctr_dataset(shape_name, rows):
     return ds, splits, gen_s, etl_s
 
 
-def _criteo_setup():
+def criteo_rows() -> int:
+    with open(CRITEO_TRAIN_REFERENCE) as f:
+        return int(json.load(f)["rows"])
+
+
+def _criteo_setup(prepared):
     from recstudio_torch.utils import get_model
     with open(CRITEO_TRAIN_REFERENCE) as f:
         ref = json.load(f)
-    ds, splits, gen_s, etl_s = ctr_dataset("criteo-1m-shape", ref["rows"])
+    ds, splits, gen_s, etl_s, _ = load_data(prepared)
     B = ref["batch_size"]
     cls, conf = get_model("DeepFM")
     conf["train"].update(epochs=1, batch_size=B, learner="adam", learning_rate=1e-3,
@@ -1677,7 +1726,7 @@ def _criteo_setup():
     return ref, ds, splits, cls, conf, gen_s, etl_s
 
 
-def phase_r(device):
+def phase_r(device, prepared):
     """DeepFM at criteo-1m-shape (the JAX bench's ``ctr_scale``): a one-epoch
     fit and four more epochs, the test AUC and logloss after the fifth held
     to the JAX bands, 20 timed steps, one step held to the CPU copy, the
@@ -1687,7 +1736,7 @@ def phase_r(device):
     import torch
     from recstudio_torch.ops.dropout import SITE_HIDDEN, keep_scale
     from recstudio_torch.serving import ScorePredictor
-    ref, ds, (trn, val, tst), cls, conf, gen_s, etl_s = criteo_setup()
+    ref, ds, (trn, val, tst), cls, conf, gen_s, etl_s = criteo_setup(prepared)
     name, rows, B = ds.name, ref["rows"], ref["batch_size"]
     emb_rows = sum(ds.num_values(f) for f, t in ds.field2type.items() if t == "token")
 
@@ -1945,14 +1994,10 @@ def phase_s(device):
 _AMAZON = {}
 
 
-def phase_t(device):
-    """LightGCN at amazon-book-shape on the ELL route (the JAX bench's
-    ``graph_scale``): graph build, 20 timed steps, one step held to the
-    edge-list route and to a bitwise repeat, one layer's forward against
-    ``torch.sparse.mm`` of the same CSR matrix, an epoch and its busy
-    share, every test user evaluated."""
-    import numpy as np
-    import torch
+def amazon_dataset():
+    """Phase T's data: ``generate("amazon-book-shape")`` (seed 7) built as
+    LightGCN's dataset after ``seed_everything(2022)``: ``(dataset, (train,
+    test), gen s, ETL s)``."""
     from recstudio_torch.data.synthetic import SHAPES, generate
     from recstudio_torch.utils import get_model, seed_everything
     t0 = time.perf_counter()
@@ -1963,7 +2008,22 @@ def phase_t(device):
     t0 = time.perf_counter()
     ds = cls._get_dataset_class()(name, config=config)
     trn, _, tst = ds.build(**conf["data"])
-    etl_s = time.perf_counter() - t0
+    return ds, (trn, tst), gen_s, time.perf_counter() - t0
+
+
+def phase_t(device, prepared):
+    """LightGCN at amazon-book-shape on the ELL route (the JAX bench's
+    ``graph_scale``): graph build, 20 timed steps, one step held to the
+    edge-list route and to a bitwise repeat, one layer's forward against
+    ``torch.sparse.mm`` of the same CSR matrix, an epoch and its busy
+    share, every test user evaluated. Its data comes from ``prepared``
+    (``start_data("T")``'s process)."""
+    import numpy as np
+    import torch
+    from recstudio_torch.utils import get_model
+    ds, (trn, tst), gen_s, etl_s, _ = load_data(prepared)
+    name = ds.name
+    cls, conf = get_model("LightGCN")
     _AMAZON.update(name=name, ds=ds, splits=(trn, tst), etl_s=etl_s)   # phase Y's too
     # 6 of the shape's 91,599 item ids are never drawn (seed 7)
     check((ds.num_users - 1, ds.num_items - 1, ds.num_inters) == (52643, 91593, 2_984_108),
@@ -2110,47 +2170,9 @@ V_SHAPE = "criteo-10m-hugevocab-shape"
 V_ROWS = 6_000_000
 V_MIN_TABLE_ROWS = 13_000_000
 # the epoch's steps run under the profiler for the card's busy share
-V_PROFILE_STEPS = 200
+V_PROFILE_STEPS = 100
 # one packed step against one dense lazy-Adam step (tests/test_sparse_rows.py)
 TOL_PACKED = (2e-4, 1e-6)  # (rtol, atol)
-
-
-def start_ctr_data(shape_name, rows):
-    """Build ``ctr_dataset(shape_name, rows)`` in a process of its own (its
-    generation and ETL are host work, minutes at 10,000,000 rows), while
-    the card's earlier phases run: ``(process, pickle path)``."""
-    path = os.path.join(REPO, "build", "recstudio_torch", f"{shape_name}-{rows}.pkl")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ctr-data",
-                             shape_name, str(rows), path], cwd=REPO)
-    return proc, path
-
-
-def write_ctr_data(shape_name, rows, path):
-    """``--ctr-data``: pickle ``ctr_dataset(shape_name, rows)`` to ``path``,
-    at a low priority beside the phases that run meanwhile."""
-    import pickle
-    os.nice(10)
-    sys.path.insert(0, REPO)
-    data = ctr_dataset(shape_name, rows)
-    with open(path + ".part", "wb") as f:
-        pickle.dump(data, f, protocol=pickle.HIGHEST_PROTOCOL)
-    os.replace(path + ".part", path)
-
-
-def load_ctr_data(prepared):
-    """Wait for ``start_ctr_data``'s process and load its dataset:
-    ``(dataset, splits, gen s, ETL s, s waited)``."""
-    import pickle
-    proc, path = prepared
-    t0 = time.perf_counter()
-    rc = proc.wait()
-    wait_s = time.perf_counter() - t0
-    check(rc == 0 and os.path.isfile(path), f"the CTR data process failed ({rc})")
-    with open(path, "rb") as f:
-        ds, splits, gen_s, etl_s = pickle.load(f)
-    os.remove(path)
-    return ds, splits, gen_s, etl_s, wait_s
 
 
 def net_state(model):
@@ -2230,10 +2252,10 @@ def packed_versus_dense(model, dense, state, after, tables):
     return errs, ok
 
 
-def phase_v(device, rows=V_ROWS, prepared=None):
+def phase_v(device, prepared):
     """DeepFM at criteo-10m-hugevocab-shape through the packed row-sparse
     step (the JAX bench's ``ctr_bigvocab_sparse_adam``): gen and ETL
-    seconds (in ``start_ctr_data``'s process when ``prepared``), the
+    seconds (in ``start_data("V")``'s process), the
     table's rows, one epoch by ``fit`` and its test AUC, 20 timed steps,
     the card's busy share over ``V_PROFILE_STEPS`` profiled steps; one packed step held to one
     dense lazy-Adam step from the same state, to a bitwise repeat, and
@@ -2243,11 +2265,8 @@ def phase_v(device, rows=V_ROWS, prepared=None):
     import torch
     from recstudio_torch.data.synthetic import ctr_shape_vocabs
     from recstudio_torch.utils import get_model
-    if prepared is None:
-        ds, (trn, val, tst), gen_s, etl_s = ctr_dataset(V_SHAPE, rows)
-        wait_s = None
-    else:
-        ds, (trn, val, tst), gen_s, etl_s, wait_s = load_ctr_data(prepared)
+    rows = V_ROWS
+    ds, (trn, val, tst), gen_s, etl_s, wait_s = load_data(prepared)
     check(ds.num_inters == rows, f"phase V dataset {ds.num_inters} rows, not {rows}")
     vocab_rows = sum(ds.num_values(f) for f, t in ds.field2type.items() if t == "token")
     B = 8192
@@ -2274,7 +2293,7 @@ def phase_v(device, rows=V_ROWS, prepared=None):
                  dropout=mc["dropout"], fields=len(model.net.embedding.field_specs), batch=B)
     check(shape == dict(embed_dim=10, mlp=[256, 256, 256], activation="tanh", dropout=0.3,
                         fields=39, batch=8192), f"phase V config {shape}")
-    check(rows < V_ROWS or vocab_rows > V_MIN_TABLE_ROWS,
+    check(vocab_rows > V_MIN_TABLE_ROWS,
           f"phase V table {vocab_rows} rows, not past {V_MIN_TABLE_ROWS}")
     check(engaged and sorted(tables) == ["embedding.token_embedding.weight",
                                          "linear.embedding.token_embedding.weight"],
@@ -2955,6 +2974,563 @@ def phase_z(device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases AA-AD: the sequence-aware, multitask and two-stage rankers
+# ---------------------------------------------------------------------------
+SEQ_MT_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets", "{}_{}_train_reference.json")
+SYNTH_DIR = os.path.join(REPO, "build", "recstudio_torch", "synthetic")
+# phase AB's data: the public KuaiRand-Pure log's counts (scripts/multitask_data.py);
+# phase AD's multitask runs: the small file of the JAX bands
+MT_SHAPE, MT_SMALL, MT_SEED = "kuairand-pure-shape", "kuairand-pure-small", 7
+MT_BATCH = 4096
+# phase AB's optimizer steps before the test AUCs (the timed 20 among
+# them): the plain dropout masks of a dozen 2,752-wide expert inputs make a
+# step 50-250 ms, so a whole epoch (268 steps) does not fit the limit; the
+# CPU copy's step takes the first rows of a batch
+AB_STEPS = 30
+AB_CPU_ROWS = 1024
+# phase AA: rows of the batch whose step is held to the CPU copy (DIEN's
+# AUGRU loop over L 200 on the CPU)
+AA_CPU_ROWS = 256
+# phase AC: users a served request. A candidate row of DIN's activation unit
+# is [L, 4d] floats (200 x 512 x 4 bytes = 410 kB), 100 candidates a user:
+# 41 MB a user for the unit's input alone, about 2.6 GB a request
+AC_MAX_BATCH = 64
+AC_CPU_ROWS = 16
+
+
+def kuairand(name):
+    """``scripts/multitask_data.write_kuairand(name)`` (seed ``MT_SEED``,
+    under ``build/``): ``(dataset name, data config)``."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from multitask_data import write_kuairand
+    return write_kuairand(name, SYNTH_DIR, seed=MT_SEED)
+
+
+def mt_dataset():
+    """Phase AB's data: ``kuairand(MT_SHAPE)`` built as a ``TripletDataset``
+    with the multitask family's split (``np.random.seed(MT_SEED)`` first):
+    ``(dataset, splits, gen s, ETL s)``."""
+    import numpy as np
+    from recstudio_torch.data import TripletDataset
+    from recstudio_torch.utils import get_model
+    t0 = time.perf_counter()
+    dname, config = kuairand(MT_SHAPE)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np.random.seed(MT_SEED)
+    ds = TripletDataset(dname, config=config)
+    splits = ds.build(**get_model("MMoE")[1]["data"])
+    return ds, splits, gen_s, time.perf_counter() - t0
+
+
+def device_kernels(fn) -> int:
+    """Kernels the card ran for ``fn`` (``torch.profiler``'s raw events,
+    copies and fills left out)."""
+    import torch
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    raw = prof.profiler.kineto_results
+    return sum(1 for e in raw.events() if e.device_type() == DeviceType.CUDA
+               and not e.name().startswith(("Memcpy", "Memset")))
+
+
+def card_vs_cpu_step(model, cpu, batch, zero=()):
+    """One training step on the card and on its CPU copy from the same
+    dropout generator state: (card loss, CPU loss, max gradient error,
+    gradients ok, the three tensors with the largest error over their
+    tolerance)."""
+    gen = model.generator.get_state()
+    loss_k, grads_k = ranker_step(model, batch, gen)
+    loss_c, grads_c = ranker_step(cpu, {k: v.cpu() for k, v in batch.items()}, gen)
+    grads_k = {k: v.cpu() for k, v in grads_k.items()}
+    max_abs, ok = grad_errors(grads_k, grads_c, zero)
+    over = sorted((float(((grads_k[k] - w).abs() / (
+        TOL_GRAD[0] * float(w.abs().max()) + TOL_GRAD[1] * w.abs() + 1e-30)).max()), k)
+        for k, w in grads_c.items() if k not in zero)[-3:]
+    return (loss_k, loss_c, max_abs, ok and abs(loss_k - loss_c) <= TOL_LOSS * abs(loss_c),
+            {k: v for v, k in over})
+
+
+def max_prob_diff(a, b):
+    import numpy as np
+    if isinstance(a, dict):
+        return max(float(np.abs(a[r] - b[r]).max()) for r in a)
+    return float(np.abs(a - b).max())
+
+
+def seq_ranker_phase(device, name, expected):
+    """``name`` (DIN or DIEN) at its repo config on the ml-1m shape as a
+    ``SeqDataset`` at L 200 (ratings binarized at 3.0), batch 1024: 20
+    timed steps, the busy share of 10, one step held to the CPU copy,
+    DIEN's gated GRU kernels a step, the batch norms calibrated, evaluation
+    rows/s, every test row through ``ScorePredictor(max_batch=256)`` held
+    to ``evaluate``'s probabilities."""
+    import numpy as np
+    import torch
+    from recstudio_torch.serving import ScorePredictor
+    model, conf, ds, tst, dname, etl_s = training_model(device, name, 1024)
+    model.config["eval"]["batch_size"] = 256     # the config's 32: one AUGRU loop a 32 rows
+    mc = conf["model"]
+    shape = dict(embed_dim=model.embed_dim, **{k: mc[k] for k in expected if k != "embed_dim"},
+                 L=ds.max_seq_len, batch=conf["train"]["batch_size"])
+    check(shape == dict(expected, L=200, batch=1024), f"phase AA {name} config {shape}")
+    torch.cuda.reset_peak_memory_stats(device)
+    steps, times, losses, counts = timed_steps(model, epoch_stream(model))
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    n_prof = 10 if name == "DIN" else 3              # DIEN: 10,000 launches a step
+    host_ms, busy_ms = busy_share(lambda: [model._grad_step(b) for b in steps[:n_prof]])
+    step_kernels = device_kernels(lambda: model._grad_step(steps[0]))
+    gru = {}
+    if name == "DIEN":
+        H = mc["hidden_size"]
+        x = torch.randn(1024, 200, H, device=device, requires_grad=True)
+        att = torch.rand(1024, 200, device=device, requires_grad=True)
+
+        def augru():
+            out, last = model.net.evolution(x, att)
+            (out.sum() + last.sum()).backward()
+        gru = {"augru_kernels_a_step": device_kernels(augru),
+               "augru_fwd_bwd_ms": time_ms(augru, iters=5, warmup=1),
+               "augru_fwd_ms": time_ms(lambda: model.net.evolution(x.detach(), att.detach()),
+                                       iters=5, warmup=1)}
+        del x, att
+    model.net.eval()
+    cpu = cpu_copy(model, tst)
+    zero = [f"dense_mlp.dense_{i}.bias" for i in range(len(mc["fc_mlp"]))] \
+        if mc.get("batch_norm") else []
+    loss_k, loss_c, grad_err, step_ok, over = card_vs_cpu_step(
+        model, cpu, {k: v[:AA_CPU_ROWS] for k, v in steps[-1].items()}, zero)
+    del cpu
+    model._refresh_net_state()
+    metrics = ["auc", "logloss"]
+    result = model._eval_epoch(tst, metrics, [None])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model._eval_epoch(tst, metrics, [None])
+    eval_s = time.perf_counter() - t
+    want = eval_probs(model, tst)
+    pred = ScorePredictor(model, max_batch=256, train_data=model._train_data)
+    fields = ("user_id", "item_id", "in_item_id", "seqlen")
+    requests = [{f: b[f][:int(b["_size"])] for f in fields} for b in tst.eval_loader(256)]
+    pred.warm(requests[0])
+    served, serve_counts = counted(lambda: np.concatenate([pred(r) for r in requests]))
+    served_diff = max_prob_diff(served, want)
+    p50 = times[len(times) // 2]
+    out = {"phase": "AA", "model": name, "dataset": dname, "etl_s": etl_s, "config": shape,
+           "launches": counts, "serve_launches": serve_counts, "steps": len(times),
+           "step_ms_p50": p50, "step_ms_max": times[-1], "examples_per_s": 1024 / p50 * 1e3,
+           "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+           "peak_mem_gb": peak_gb, "profiled_steps": n_prof, "profiled_host_ms": host_ms,
+           "profiled_busy_ms": busy_ms,
+           "busy_share": None if busy_ms is None else busy_ms / host_ms,
+           "kernels_a_step": step_kernels, **gru, "cpu_rows": AA_CPU_ROWS,
+           "card_loss": loss_k, "cpu_loss": loss_c,
+           "grad_max_abs_err": grad_err, "grad_err_over_tol_largest": over,
+           "grad_tol": TOL_GRAD, "loss_tol": TOL_LOSS,
+           "zero_gradients": zero, "bn_counts": [float(m.count) for m in model.net.modules()
+                                                 if hasattr(m, "calibrating")],
+           "test_rows": len(tst.data_index), "test_auc_after_steps": result["auc"],
+           "eval_batch": 256, "eval_s": eval_s, "eval_rows_per_s": len(tst.data_index) / eval_s,
+           "served_rows": len(served), "served_max_abs_diff_vs_evaluate": served_diff,
+           **{"serve_" + k: v for k, v in pred.stats().items()}}
+    emit("PHASE", out)
+    gru_ok = (counts["gru_layer_cudnn"] > 0 and serve_counts["gru_layer_cudnn"] > 0) \
+        if name == "DIEN" else True                  # DIEN's extractor: cuDNN
+    check(gru_ok and not any(v for k, v in {**counts, **serve_counts}.items()
+                             if k != "gru_layer_cudnn"),
+          f"phase AA {name} launched {counts} {serve_counts}")
+    check(bool(torch.isfinite(losses).all()), f"phase AA {name} losses")
+    check(step_ok, f"phase AA {name}: the step disagrees with the CPU copy's: loss {loss_k} "
+                   f"vs {loss_c}, gradients {grad_err}")
+    check(len(served) == len(tst.data_index) and served_diff <= TOL_PROB,
+          f"phase AA {name}: served probabilities differ from evaluate's by {served_diff}")
+    return out
+
+
+def phase_aa(device):
+    """DIN and DIEN at their repo configs (``seq_ranker_phase``). No kernel:
+    the JAX package's are MLPs, a GRU scan and gathers."""
+    return [seq_ranker_phase(device, "DIN", dict(
+                embed_dim=128, attention_mlp=[128, 64], fc_mlp=[128, 64, 64],
+                activation="dice", batch_norm=True, dropout=0.3)),
+            seq_ranker_phase(device, "DIEN", dict(
+                embed_dim=128, hidden_size=128, fc_mlp=[128, 64, 64], activation="sigmoid",
+                dropout=0.3))]
+
+
+def phase_ab(device, prepared):
+    """HardShare, MMoE, PLE and AITM at their repo configs on
+    ``kuairand-pure-shape`` (27,285 users, 7,583 videos, 1,436,609 rows; the
+    fields of kuairand-pure.yaml, six ``is_*`` ratings), batch 4096:
+    ``AB_STEPS`` optimizer steps (20 of them timed) and each rating's test
+    AUC after them, one step held to the CPU copy, 8 requests of 4096 rows
+    through ``ScorePredictor`` held to ``evaluate``'s probabilities;
+    AITM's transfer attention through K3 in evaluation and serving, held
+    to the plain softmax."""
+    import numpy as np
+    import torch
+    from recstudio_torch.models.module.layers import MultiHeadAttention
+    from recstudio_torch.serving import ScorePredictor
+    from recstudio_torch.utils import get_model
+    ds, (trn, _, tst), gen_s, etl_s, wait_s = load_data(prepared)
+    dname = ds.name
+    check((ds.num_users - 1, ds.num_items - 1) == (27285, 7583) and len(ds.frating) == 6,
+          f"phase AB data: {ds.num_users - 1} users, {ds.num_items - 1} videos")
+    out = []
+    for name in ("HardShare", "MMoE", "PLE", "AITM"):
+        cls, conf = get_model(name)
+        conf["train"].update(batch_size=MT_BATCH, seed=2022)
+        conf["eval"].update(batch_size=MT_BATCH, save_path=SAVE_DIR)
+        t = time.perf_counter()
+        model = cls(conf, device=device)
+        model._init_model(trn)
+        model._init_parameter(trn)
+        model.optimizer = model._get_optimizer()
+        model._setup_scan_epoch(trn)
+        stage_s = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats(device)
+        steps, times, losses, counts = timed_steps(model, epoch_stream(model))
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        model.net.train()
+        batches = itertools.islice(epoch_stream(model), AB_STEPS - 23)
+        _, more_counts = counted(lambda: [model._grad_step(b) for b in batches])
+        model.net.eval()
+        step_p50 = times[len(times) // 2]
+        result, eval_counts = counted(lambda: model._eval_epoch(
+            tst, ["auc", "logloss"], [None]))
+        cpu = cpu_copy(model, trn)
+        zero = [f"att_{r}.k_proj.bias" for r in model.frating[1:]] if name == "AITM" else []
+        loss_k, loss_c, grad_err, step_ok, over = card_vs_cpu_step(
+            model, cpu, {k: v[:AB_CPU_ROWS] for k, v in steps[-1].items()}, zero)
+        del cpu
+        probs = eval_probs(model, tst)
+        attn = [m for m in model.net.modules() if isinstance(m, MultiHeadAttention)]
+        for m in attn:
+            m.plain = True
+        plain_diff = max_prob_diff(probs, eval_probs(model, tst))
+        for m in attn:
+            m.plain = False
+        pred = ScorePredictor(model, max_batch=MT_BATCH, train_data=trn)
+        fields = [f for f in tst.inter_feat.fields if f not in model.frating]
+        requests = [{f: tst.inter_feat.get_col(f)[tst.data_index[i:i + MT_BATCH]]
+                     for f in fields} for i in range(0, 8 * MT_BATCH, MT_BATCH)]
+        pred.warm(requests[0])
+        served, serve_counts = counted(lambda: [pred(r) for r in requests])
+        served = {r: np.concatenate([s[r] for s in served]) for r in model.frating}
+        served_diff = max_prob_diff(served, {r: p[:8 * MT_BATCH] for r, p in probs.items()})
+        aucs = {r: result[f"{r}_auc"] for r in model.frating}
+        ph = {"phase": "AB", "model": name, "dataset": dname, "gen_s": gen_s, "etl_s": etl_s,
+              "data_wait_s": wait_s,
+              "rows": int(ds.num_inters), "train_rows": len(trn.data_index),
+              "test_rows": len(tst.data_index), "fields": len(model.fields) - 6,
+              "config": {k: v for k, v in model.config["model"].items()},
+              "batch": MT_BATCH, "stage_s": stage_s, "launches": counts,
+              "later_steps_launches": more_counts, "eval_launches": eval_counts,
+              "serve_launches": serve_counts, "steps": AB_STEPS, "timed_steps": len(times),
+              "steps_per_epoch": -(-len(trn.data_index) // MT_BATCH),
+              "step_ms_p50": step_p50, "step_ms_max": times[-1],
+              "examples_per_s": MT_BATCH / step_p50 * 1e3,
+              "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+              "peak_mem_gb": peak_gb, "test_auc": aucs,
+              "test_logloss": {r: result[f"{r}_logloss"] for r in model.frating},
+              "cpu_rows": AB_CPU_ROWS, "card_loss": loss_k, "cpu_loss": loss_c,
+              "grad_max_abs_err": grad_err, "grad_err_over_tol_largest": over,
+              "zero_gradients": zero, "k3_vs_plain_route_max_abs_diff": plain_diff,
+              "served_max_abs_diff_vs_evaluate": served_diff,
+              **{"serve_" + k: v for k, v in pred.stats().items()}}
+        emit("PHASE", ph)
+        out.append(ph)
+        kernels = ("fused_mha",) if name == "AITM" else ()
+        check(not {k: v for k, v in counts.items() if k not in kernels and v},
+              f"phase AB {name} launched {counts}")
+        if name == "AITM":
+            check(eval_counts["fused_mha"] > 0 and serve_counts["fused_mha"] > 0,
+                  f"phase AB AITM: K3 launches evaluation {eval_counts}, serving {serve_counts}")
+        check(bool(torch.isfinite(losses).all()) and all(0.5 < a < 1 for a in aucs.values()),
+              f"phase AB {name} losses {losses}, AUCs {aucs}")
+        check(step_ok, f"phase AB {name}: the step disagrees with the CPU copy's: loss "
+                       f"{loss_k} vs {loss_c}, gradients {grad_err}")
+        check(plain_diff <= TOL_PROB, f"phase AB {name}: K3's probabilities differ from the "
+                                      f"plain route's by {plain_diff}")
+        check(served_diff <= TOL_PROB, f"phase AB {name}: served probabilities differ from "
+                                       f"evaluate's by {served_diff}")
+        del model, steps
+    return out
+
+
+def cascade_cpu_copy(ranker, train_split):
+    """A cascade on the CPU holding the card's weights: the retriever and
+    the ranker copied."""
+    retr = ranker.retriever
+    cpu_retr = type(retr)(retr.config, device="cpu")
+    cpu_retr._init_model(train_split)
+    cpu_retr.load_state_dict({k: v.cpu() for k, v in retr.net.state_dict().items()})
+    cpu = type(ranker)(ranker.config, device="cpu", retriever=cpu_retr, loss=ranker.loss_fn)
+    cpu._init_model(train_split)
+    cpu.load_state_dict({k: v.cpu() for k, v in ranker.net.state_dict().items()})
+    return cpu
+
+
+def cascade_checks(ranker, pred, tst, requests, n_plain=2):
+    """The first ``n_plain`` requests served again with the frozen
+    retriever's layers on their plain path, and the first ``AC_CPU_ROWS``
+    users of the first through the CPU copy: (rows compared and
+    disagreeing, largest score difference) of each."""
+    import numpy as np
+    import torch
+    from recstudio_torch.utils.parity import topk_mismatches
+    layers = [m for m in ranker.states["retriever"]["net"].modules() if hasattr(m, "plain")]
+    bad = n_cmp = 0
+    max_diff = 0.0
+    for req in requests[:n_plain]:
+        s_k, i_k = pred(req)
+        for m in layers:
+            m.plain = True
+        s_p, i_p = pred(req)
+        for m in layers:
+            m.plain = False
+        bad += topk_mismatches(i_k, s_k, i_p, s_p, TOL_SCORES)
+        max_diff = max(max_diff, float(np.abs(s_k - s_p).max()))
+        n_cmp += len(i_k)
+    cpu = cascade_cpu_copy(ranker, ranker._train_data)
+    req = {k: v[:AC_CPU_ROWS] for k, v in requests[0].items()}
+    s_k, i_k = pred(req)
+    hist = torch.from_numpy(np.asarray(tst.user_hist, np.int32)[req[ranker.fuid]])
+    s_c, i_c = cpu.topk({k: torch.from_numpy(np.asarray(v)) for k, v in req.items()},
+                        pred.k, hist)
+    cpu_bad = topk_mismatches(i_k, s_k, i_c.numpy(), s_c.numpy(), TOL_SCORES)
+    cpu_diff = float(np.abs(s_k - s_c.numpy()).max())
+    return {"plain_rows": n_cmp, "plain_rows_disagreeing": bad,
+            "plain_max_score_diff": max_diff, "cpu_rows": len(i_k),
+            "cpu_rows_disagreeing": cpu_bad, "cpu_max_score_diff": cpu_diff,
+            "tol": TOL_SCORES}
+
+
+def serve_requests(pred, tst, batch_size):
+    """Every test user's request (its ``pred._fields``) in requests of
+    ``batch_size``, and each request's targets."""
+    reqs, targets = [], []
+    for b in tst.eval_loader(batch_size):
+        n = int(b["_size"])
+        reqs.append({f: b[f][:n] for f in sorted(pred._fields)})
+        targets.append(b["item_id"][:n])
+    return reqs, targets
+
+
+def phase_ac(device):
+    """The cascade on the ml-1m shape: a SASRec retriever at phase B's setup
+    (L 200, d 128, 2 layers, seeded weights, ``eval.topk`` 100) and DIN at
+    its repo config as the ranker (``BinaryCrossEntropyLoss``, 2
+    retriever-sampled negatives): 20 timed ranker steps, then every user
+    served through ``Predictor(cascade, k=20, max_batch=AC_MAX_BATCH)``
+    (K1 in the retriever's query encoding), the first two requests held
+    to the retriever on its plain layers, the first ``AC_CPU_ROWS`` users
+    to the CPU copy."""
+    import numpy as np
+    import torch
+    from recstudio_torch.data import SeqDataset
+    from recstudio_torch.data.synthetic import SHAPES, generate
+    from recstudio_torch.models.loss_func import BinaryCrossEntropyLoss
+    from recstudio_torch.serving import Predictor
+    from recstudio_torch.utils import get_model
+    from recstudio_torch.utils.convert import params_from_jax, random_sasrec_params
+    t0 = time.perf_counter()
+    dname, config = generate("ml-1m-shape", *SHAPES["ml-1m-shape"], seed=7)
+    config["max_seq_len"] = 200
+    din_cls, din_conf = get_model("DIN")
+    din_conf["data"].update(binarized_rating_thres=0.0)       # every interaction a positive
+    din_conf["train"].update(batch_size=1024, negative_count=2, seed=7)
+    din_conf["eval"].update(topk=20, cutoff=[20], save_path=SAVE_DIR)
+    ds = SeqDataset(dname, config=config)
+    trn, _, tst = ds.build(**din_conf["data"])
+    etl_s = time.perf_counter() - t0
+    sas_cls, sas_conf = get_model("SASRec")
+    sas_conf["model"]["embed_dim"] = 128
+    sas_conf["eval"]["topk"] = 100
+    retr = sas_cls(sas_conf, device=device)
+    retr._init_model(trn)
+    retr._init_parameter(trn)
+    mc = sas_conf["model"]
+    retr.load_state_dict(params_from_jax(random_sasrec_params(
+        7, ds.num_items, 128, 200, mc["hidden_size"], mc["layer_num"])))
+    model = din_cls(din_conf, device=device, retriever=retr, loss=BinaryCrossEntropyLoss())
+    model._init_model(trn)
+    model._init_parameter(trn)
+    model.optimizer = model._get_optimizer()
+    model._setup_scan_epoch(trn)
+    model._train_data = trn
+    model._epoch_refresh(0)
+    torch.cuda.reset_peak_memory_stats(device)
+    steps, times, losses, train_counts = timed_steps(model, epoch_stream(model))
+    train_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    model.net.eval()
+    model._refresh_net_state()
+    pred = Predictor(model, max_batch=AC_MAX_BATCH, k=20, train_data=tst).warm()
+    requests, targets = serve_requests(pred, tst, AC_MAX_BATCH)
+    torch.cuda.reset_peak_memory_stats(device)
+    served, serve_counts = counted(lambda: [pred(r) for r in requests])
+    serve_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    ids = np.concatenate([i for _, i in served])
+    scores = np.concatenate([s for s, _ in served])
+    held = cascade_checks(model, pred, tst, requests)
+    stats = pred.stats()
+    p50 = times[len(times) // 2]
+    out = {"phase": "AC", "model": "SASRec->DIN", "dataset": dname, "etl_s": etl_s,
+           "retriever": {"embed_dim": 128, "layers": mc["layer_num"], "L": 200,
+                         "eval_topk": 100, "weights": "random_sasrec_params(7)"},
+           "ranker": {k: din_conf["model"][k] for k in ("embed_dim", "attention_mlp",
+                                                       "fc_mlp", "activation", "batch_norm",
+                                                       "dropout")},
+           "negatives": 2, "batch": 1024, "launches": train_counts,
+           "serve_launches": serve_counts, "steps": len(times), "step_ms_p50": p50,
+           "step_ms_max": times[-1], "examples_per_s": 1024 / p50 * 1e3,
+           "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+           "train_peak_mem_gb": train_peak, "max_batch": AC_MAX_BATCH,
+           "candidates_a_user": 100, "served": len(ids), "serve_peak_mem_gb": serve_peak,
+           **{"serve_" + k: v for k, v in stats.items()},
+           "serve_max_ms": max(pred._lat_ms), **rank_metrics(ids, np.concatenate(targets)),
+           **held}
+    emit("PHASE", out)
+    check(serve_counts["fused_transformer_layer"] > 0 and train_counts[
+        "fused_transformer_layer"] > 0, f"phase AC: K1 launches {train_counts} {serve_counts}")
+    check(bool(torch.isfinite(losses).all()) and np.isfinite(scores).all()
+          and ids.shape == (len(tst.data_index), 20) and (ids > 0).all(),
+          "phase AC losses or served lists")
+    check(held["plain_rows_disagreeing"] == 0 and held["cpu_rows_disagreeing"] == 0,
+          f"phase AC: served lists differ from the plain path's or the CPU copy's: {held}")
+    return out
+
+
+def seq_mt_band_fit(device, name, dataset, data_config):
+    """``quickstart.run(name, dataset)`` at the repo's config for its JAX
+    reference's epochs: each rating's test AUC held to its band where the
+    band can fail (it clears the untrained AUC by ``AUC_MARGIN`` and lies
+    inside (0, 1)); the others reported. The batch norms calibrated."""
+    from recstudio_torch.quickstart import run
+    with open(SEQ_MT_REFERENCE.format(name.lower(), dataset)) as f:
+        ref = json.load(f)
+
+    def drive():
+        t0 = time.perf_counter()
+        model, splits, result = run(name, dataset, data_config=data_config, verbose=False,
+                                    device=device,
+                                    model_config={"train": {"epochs": ref["epochs"]},
+                                                  "eval": {"save_path": SAVE_DIR}})
+        return model, splits, result, time.perf_counter() - t0
+
+    (model, _, result, run_s), counts = counted(drive)
+    gated, reported = {}, {}
+    for key, (lo, hi) in ref["auc_band"].items():
+        can_fail = lo > ref["untrained_auc"][key] + AUC_MARGIN and 0 < lo and hi < 1
+        (gated if can_fail else reported)[key] = [lo, hi]
+    bn_counts = [float(m.count) for m in model.net.modules() if hasattr(m, "calibrating")]
+    out = {"phase": "AD", "model": name, "dataset": dataset, "entry": "quickstart.run",
+           "launches": counts, "run_s": run_s, "epochs_run": len(model.epoch_log),
+           "best_epoch": model.callback.best_epoch,
+           "epoch_s_p50": sorted(e["train_s"] for e in model.epoch_log)[
+               len(model.epoch_log) // 2],
+           "test": result, "jax_bands_gated": gated, "jax_bands_reported": reported,
+           "jax_untrained_auc": ref["untrained_auc"], "jax_runs": len(ref["runs"]),
+           "bn_counts": bn_counts}
+    emit("PHASE", out)
+    kernels = {"AITM": ("fused_mha",), "DIEN": ("gru_layer_cudnn",)}.get(name, ())
+    check(not {k: v for k, v in counts.items() if k not in kernels and v},
+          f"phase AD {name} launched {counts}")
+    check(all(counts[k] > 0 for k in kernels), f"phase AD {name}: {counts}")
+    check(gated, f"phase AD {name}: no band of {ref['auc_band']} can fail")
+    check(all(c > 0 for c in bn_counts), f"phase AD {name} BN counts {bn_counts}")
+    for key, (lo, hi) in gated.items():
+        check(lo <= result[key] <= hi, f"phase AD {name} test {key} {result[key]} outside "
+                                       f"the JAX band [{lo}, {hi}]")
+    return out
+
+
+def phase_ad(device):
+    """``quickstart.run`` of DIN and DIEN on ml-100k and of HardShare, MMoE,
+    PLE and AITM on the small planted-signal file, held to the JAX seeds'
+    bands (``recstudio_torch/assets/<model>_<dataset>_train_reference.json``,
+    ``scripts/torch_seq_mt_seeds.py``); then the SASRec -> DIN cascade on
+    ml-100k, built as ``tests/test_two_stage.py`` builds BPR -> FM: its
+    test NDCG@5 equal to the NDCG@5 of its served lists, the first request
+    held to the CPU copy."""
+    out = [seq_mt_band_fit(device, name, "ml-100k", None) for name in ("DIN", "DIEN")]
+    dname, config = kuairand(MT_SMALL)
+    out += [seq_mt_band_fit(device, name, dname, config)
+            for name in ("HardShare", "MMoE", "PLE", "AITM")]
+    return out + [cascade_fit(device)]
+
+
+def cascade_fit(device):
+    """The SASRec -> DIN cascade on ml-100k (``tests/test_two_stage.py``'s
+    way: the retriever fitted first, then the ranker with ``retriever=`` and
+    ``loss=``): every test user served at ``evaluate``'s batch size, whose
+    lists must give ``evaluate``'s NDCG@5, the first request held to the
+    CPU copy. K1 in the retriever's query encoding."""
+    import numpy as np
+    import torch
+    from recstudio_torch.data import SeqDataset
+    from recstudio_torch.models.loss_func import BinaryCrossEntropyLoss
+    from recstudio_torch.serving import Predictor
+    from recstudio_torch.utils import get_model, seed_everything
+    from recstudio_torch.utils.parity import topk_mismatches
+
+    def drive():
+        seed_everything(2022)
+        t0 = time.perf_counter()
+        din_cls, din_conf = get_model("DIN")
+        din_conf["data"].update(binarized_rating_thres=0.0)
+        din_conf["train"].update(epochs=1, negative_count=2)
+        din_conf["eval"].update(topk=20, cutoff=[5], val_metrics=["ndcg"],
+                                test_metrics=["ndcg", "recall"], save_path=SAVE_DIR)
+        ds = SeqDataset("ml-100k", config={"low_rating_thres": 0.0})
+        trn, val, tst = ds.build(**din_conf["data"])
+        sas_cls, sas_conf = get_model("SASRec")
+        sas_conf["train"]["epochs"] = 1
+        sas_conf["eval"].update(topk=100, save_path=SAVE_DIR)
+        retr = sas_cls(sas_conf, device=device)
+        retr.fit(trn, None)
+        model = din_cls(din_conf, device=device, retriever=retr, loss=BinaryCrossEntropyLoss())
+        model.fit(trn, val)
+        result = model.evaluate(tst, verbose=False)
+        run_s = time.perf_counter() - t0
+        bs = int(din_conf["eval"]["batch_size"])             # evaluate's shapes
+        pred = Predictor(model, max_batch=bs, k=20, train_data=tst).warm()
+        requests, targets = serve_requests(pred, tst, bs)
+        served = [pred(r) for r in requests]
+        return model, tst, result, run_s, pred, requests, targets, served
+
+    (model, tst, result, run_s, pred, requests, targets, served), counts = counted(drive)
+    ids = np.concatenate([i for _, i in served])
+    tgt = torch.as_tensor(np.concatenate(targets))[:, None]
+    from recstudio_torch import eval as ev
+    hit = ev.hit_matrix(torch.as_tensor(ids), tgt)
+    served_ndcg = float(ev.ndcg(hit, (tgt > 0).float(), 5).mean())
+    cpu = cascade_cpu_copy(model, model._train_data)
+    req = requests[0]
+    hist = torch.from_numpy(np.asarray(tst.user_hist, np.int32)[req["user_id"]])
+    s_c, i_c = cpu.topk({k: torch.from_numpy(np.asarray(v)) for k, v in req.items()}, 20, hist)
+    s_k, i_k = served[0]
+    cpu_bad = topk_mismatches(i_k, s_k, i_c.numpy(), s_c.numpy(), TOL_SCORES)
+    out = {"phase": "AD", "model": "SASRec->DIN", "dataset": "ml-100k",
+           "entry": "fit(retriever), then the ranker with retriever= and loss=",
+           "launches": counts, "run_s": run_s, "epochs_run": len(model.epoch_log),
+           "test": result, "served_users": len(ids), "served_ndcg@5": served_ndcg,
+           "cpu_rows": len(i_k), "cpu_rows_disagreeing": cpu_bad,
+           "cpu_max_score_diff": float(np.abs(s_k - s_c.numpy()).max()),
+           **{"serve_" + k: v for k, v in pred.stats().items()}}
+    emit("PHASE", out)
+    check(counts["fused_transformer_layer"] > 0, f"phase AD cascade: {counts}")
+    check(len(ids) == len(tst.data_index) and abs(served_ndcg - result["ndcg@5"]) <= TOL_METRIC,
+          f"phase AD cascade: served NDCG@5 {served_ndcg} vs evaluate's {result['ndcg@5']}")
+    check(cpu_bad == 0, f"phase AD cascade: {cpu_bad} lists differ from the CPU copy's")
+    return out
+
+
 def causal_mask(L, device, causal=True):
     """The causal attention mask (True = disallow), or None (bidirectional)."""
     import torch
@@ -3393,6 +3969,53 @@ def k5_k6_versus_plain(device, B, H, L, Dh, causal=True, all_masked=False, seed=
             row(err6, ok6, aerr6, aok6, bit6, ms6, plain6, b6, by6, f6))
 
 
+# ---------------------------------------------------------------------------
+# the data of phases V, R, T and AB: host work (minutes at 10,000,000 rows),
+# each built by a process of its own while the card's earlier phases run
+# ---------------------------------------------------------------------------
+PHASE_DATA = {"V": lambda: ctr_dataset(V_SHAPE, V_ROWS),
+              "R": lambda: ctr_dataset("criteo-1m-shape", criteo_rows()),
+              "T": amazon_dataset, "AB": mt_dataset}
+
+
+def start_data(phase):
+    """Build ``PHASE_DATA[phase]()`` in a process of its own: ``(process,
+    pickle path)``."""
+    path = os.path.join(REPO, "build", "recstudio_torch", f"{phase}-data.pkl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--data", phase, path],
+                            cwd=REPO)
+    return proc, path
+
+
+def write_data(phase, path):
+    """``--data``: pickle ``PHASE_DATA[phase]()`` (``(dataset, splits, gen
+    s, ETL s)``) to ``path``, at a low priority beside the phases that run
+    meanwhile."""
+    import pickle
+    os.nice(10)
+    sys.path.insert(0, REPO)
+    data = PHASE_DATA[phase]()
+    with open(path + ".part", "wb") as f:
+        pickle.dump(data, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(path + ".part", path)
+
+
+def load_data(prepared):
+    """Wait for ``start_data``'s process and load its dataset: ``(dataset,
+    splits, gen s, ETL s, s waited)``."""
+    import pickle
+    proc, path = prepared
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    wait_s = time.perf_counter() - t0
+    check(rc == 0 and os.path.isfile(path), f"the data process for {path} failed ({rc})")
+    with open(path, "rb") as f:
+        ds, splits, gen_s, etl_s = pickle.load(f)
+    os.remove(path)
+    return ds, splits, gen_s, etl_s, wait_s
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3408,19 +4031,20 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}",
           flush=True)
 
-    v_data = start_ctr_data(V_SHAPE, V_ROWS)
+    prepared = {phase: start_data(phase) for phase in PHASE_DATA}
     try:
-        return _main(device, v_data)
+        return _main(device, prepared)
     finally:
-        if v_data[0].poll() is None:
-            v_data[0].kill()
-            v_data[0].wait()
-        for path in (v_data[1], v_data[1] + ".part"):
-            if os.path.isfile(path):
-                os.remove(path)
+        for proc, pkl in prepared.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for path in (pkl, pkl + ".part"):
+                if os.path.isfile(path):
+                    os.remove(path)
 
 
-def _main(device, v_data) -> int:
+def _main(device, prepared) -> int:
     import torch
     from recstudio_torch.ops import _native
     gpu = gpu_line()
@@ -3434,8 +4058,10 @@ def _main(device, v_data) -> int:
     phases = []
     for fn in (phase_a, phase_b, phase_c, phase_d, phase_e, phase_f, phase_g, phase_h,
                phase_i, phase_j, phase_k, phase_l, phase_m, phase_n, phase_o, phase_p,
-               phase_q, phase_r, phase_s, phase_t, phase_u, phase_w, phase_x, phase_y,
-               phase_y2, phase_z, lambda d: phase_v(d, prepared=v_data)):
+               phase_q, lambda d: phase_r(d, prepared["R"]), phase_s,
+               lambda d: phase_t(d, prepared["T"]), phase_u, phase_w, phase_x, phase_y,
+               phase_y2, phase_z, phase_aa, lambda d: phase_ab(d, prepared["AB"]), phase_ac,
+               phase_ad, lambda d: phase_v(d, prepared["V"])):
         t = time.perf_counter()
         out = fn(device)
         phases += out if isinstance(out, list) else [out]
@@ -3449,6 +4075,8 @@ def _main(device, v_data) -> int:
     k3_f = k3_versus_plain(device, 256, 2, 200, 32, causal=False)
     # AutoInt's attention over criteo's 39 fields at W's batch: no mask, Dh 32
     k3_autoint = k3_unmasked_versus_plain(device, 8192, 2, 39, 32)
+    # AITM's transfer attention over [info, tower] at AB's evaluation batch
+    k3_aitm = k3_unmasked_versus_plain(device, MT_BATCH, 1, 2, 64)
     k1_d = k1_train_versus_plain(device, 1024, 200, 128, 128, 2)
     k2_d = k2_versus_plain(device, 1024, 200, 128, 128, 2)
     # phase F's shapes: BERT4Rec layers (no attention mask, dropout 0.2), and
@@ -3466,7 +4094,7 @@ def _main(device, v_data) -> int:
     # (the kernels' DK = 16 instantiation), every row with a gradient
     clse_o = clse_versus_plain(device, 256, 3706, 200, seed=2034, g_share=1.0)
     rows = [("K1@A", k1_a), ("K1@B", k1_b), ("K3@B", k3_b), ("K3@C", k3_c),
-            ("K3@F", k3_f), ("K3@autoint", k3_autoint),
+            ("K3@F", k3_f), ("K3@autoint", k3_autoint), ("K3@aitm", k3_aitm),
             ("K1train@D", k1_d), ("K2@D", k2_d), ("K1@F", k1_f), ("K1train@F", k1t_f),
             ("K2@F", k2_f)]
     rows += [(f"{k}@F", clse_f[k]) for k in ("K7", "K8", "K9")]
@@ -3533,8 +4161,8 @@ def _main(device, v_data) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--ctr-data"]:     # start_ctr_data's process
-        write_ctr_data(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--data"]:         # start_data's process
+        write_data(sys.argv[2], sys.argv[3])
         sys.exit(0)
     try:
         sys.exit(main())

@@ -9,7 +9,10 @@ need, in numpy and plain Python (no pandas):
   path interns them (``recstudio_tpu/native/__init__.py:fast_read_csv``);
 - the rating threshold (``low_rating_thres``) and the duplicate-pair drop
   are applied, then float preprocessing; ratings are binarized at
-  ``binarized_rating_thres`` when a split is built;
+  ``binarized_rating_thres`` when a split is built. A list-valued
+  ``rating_field`` (multitask) gives several rating columns, carried by
+  every split and batch; no rating threshold applies to them, and a
+  binarization applies to each;
 - ids are factorized per shared id space by first appearance over the
   columns in file order (inter, user, item), with ``[PAD]`` = 0
   (``dataset.py:388-508``);
@@ -30,8 +33,9 @@ need, in numpy and plain Python (no pandas):
 - ``item_freq`` counts the items of a split (the popularity samplers'
   weights);
 - ``SeqDataset.device_epoch_arrays`` and ``UserDataset.device_epoch_arrays``
-  stage a split's raw columns for a device-resident epoch, with a
-  ``batch_fn`` that gathers the windows of a batch on the device.
+  stage a split's raw columns, and the user and item feature columns in
+  use, for a device-resident epoch, with a ``batch_fn`` that gathers the
+  windows of a batch and their features on the device.
 
 K-core filtering, sequence and network features and dataset-side
 negatives are not ported yet; a build that asks for dataset-side negatives
@@ -222,7 +226,8 @@ class TripletDataset:
         self.eval_mode = False
         self.fmeval = False
         self.data_index: Optional[np.ndarray] = None
-        self._use_field = {f for f in (self.fuid, self.fiid, self.frating) if f is not None}
+        self._use_field = {f for f in (self.fuid, self.fiid, *self._rating_fields())
+                           if f is not None}
 
     # ------------------------------------------------------------------
     def _init_common_field(self):
@@ -233,9 +238,14 @@ class TripletDataset:
         self.fiid = parse_field(c["item_id_field"]).name if c.get("item_id_field") else None
         self.ftime = parse_field(c["time_field"]).name if c.get("time_field") else None
         rf = c.get("rating_field")
-        if isinstance(rf, list):
-            raise NotImplementedError("multiple rating fields are not ported yet")
-        self.frating = parse_field(rf).name if rf else None
+        if isinstance(rf, list):            # multitask: one label a task (dataset.py:154-160)
+            self.frating = [parse_field(r).name for r in rf]
+        else:
+            self.frating = parse_field(rf).name if rf else None
+
+    def _rating_fields(self) -> List[str]:
+        """The rating fields as a list (``dataset.py:866-867``)."""
+        return self.frating if isinstance(self.frating, list) else [self.frating]
 
     @property
     def drop_dup(self) -> bool:
@@ -305,7 +315,8 @@ class TripletDataset:
 
     def _filter(self):
         thres = self.config.get("low_rating_thres")
-        if thres is not None and self.frating is not None:
+        # no rating threshold on several ratings (dataset.py:338)
+        if thres is not None and self.frating is not None and not isinstance(self.frating, list):
             self._keep_inter_rows(self.inter_feat[self.frating] >= thres)
         if self.drop_dup and self.fuid is not None and self.fiid is not None:
             self._keep_inter_rows(self._first_pair())
@@ -474,9 +485,10 @@ class TripletDataset:
 
     def _binarize_rating(self, thres: float) -> None:
         """``dataset.py:581-584``: a rating below ``thres`` becomes 0.0,
-        every other rating (NaN too) 1.0."""
-        col = self.inter_feat[self.frating]
-        self.inter_feat[self.frating] = np.where(col < thres, 0.0, 1.0)
+        every other rating (NaN too) 1.0; each rating column alike when
+        there are several (the JAX package's frame indexing raises there)."""
+        for r in self._rating_fields():
+            self.inter_feat[r] = np.where(self.inter_feat[r] < thres, 0.0, 1.0)
 
     def _take_rows(self, order: np.ndarray) -> None:
         self._keep_inter_rows(order)
@@ -644,9 +656,28 @@ class TripletDataset:
         valid = gather < ends[:, None]
         gather = np.where(valid, gather, 0)
         batch[self.fiid] = np.where(valid, self.inter_feat.get_col(self.fiid)[gather], 0).astype(np.int32)
-        rcol = self.inter_feat.get_col(self.frating)
-        batch[self.frating] = np.where(valid, rcol[gather], 0).astype(np.float32)
+        for r in self._rating_fields():
+            batch[r] = np.where(valid, self.inter_feat.get_col(r)[gather], 0).astype(np.float32)
         return batch
+
+    def _stage_entity_feats(self, compact: Dict[str, np.ndarray]
+                            ) -> List[Tuple[str, str, bool]]:
+        """Stage the user and item feature columns in use for a device epoch
+        (``dataset.py:1114-1121``, ``:1297-1304``): ``compact["_user_" + f]``
+        and ``compact["_item_" + f]`` as int32 words (``_int32_column``,
+        which raises on a column that would not survive). Returns ``(kind,
+        field, is_float)`` of each."""
+        staged = []
+        for kind, frame, key in (("user", self.user_feat, self.fuid),
+                                 ("item", self.item_feat, self.fiid)):
+            if frame is None:
+                continue
+            for f in self._fields_of(frame):
+                if f != key:
+                    col = frame.get_col(f)
+                    compact[f"_{kind}_{f}"] = _int32_column(f, col)
+                    staged.append((kind, f, bool(np.issubdtype(col.dtype, np.floating))))
+        return staged
 
     def _eval_target_width(self) -> int:
         """Targets per row of an eval batch, ``[B, T]`` (``dataset.py:895``):
@@ -729,6 +760,16 @@ def _int32_column(name: str, col: np.ndarray) -> np.ndarray:
     raise TypeError(f"column {name!r} has dtype {col.dtype}, which cannot be staged")
 
 
+def _from_words(words: torch.Tensor, is_float: bool) -> torch.Tensor:
+    """The staged int32 words of a column back in its dtype."""
+    return words.view(torch.float32) if is_float else words
+
+
+def _masked(valid: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x`` where ``valid``, else 0 of ``x``'s dtype."""
+    return torch.where(valid, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class UserDataset(TripletDataset):
     """One row per user (``dataset.py:1024-1163``): the ``in_`` fields are
     the user's training items (the history window), the targets the items
@@ -800,8 +841,9 @@ class UserDataset(TripletDataset):
             iid = np.where(valid, fiid_col[gather], 0).astype(np.int32)
             batch[prefix + self.fiid] = iid
             if self.frating is not None:
-                rcol = self.inter_feat.get_col(self.frating)
-                batch[prefix + self.frating] = np.where(valid, rcol[gather], 0).astype(np.float32)
+                for r in self._rating_fields():
+                    rcol = self.inter_feat.get_col(r)
+                    batch[prefix + r] = np.where(valid, rcol[gather], 0).astype(np.float32)
             for f in self._fields_of(self.item_feat):
                 if f != self.fiid:          # joined by the windowed item ids (0 = pad row)
                     batch[prefix + f] = np.where(valid, self.item_feat.get_col(f)[iid], 0)
@@ -821,34 +863,46 @@ class UserDataset(TripletDataset):
 
     def device_epoch_arrays(self) -> Tuple[Dict[str, np.ndarray], Callable]:
         """Compact staging for device-resident epochs (``dataset.py:
-        1098-1158``): ``data_index`` and the item id (and rating) column,
-        padded with ``max(history width, target width)`` zeros so every
-        window read stays in bounds; ``batch_fn(arrays, sel)`` returns
-        ``_get_pos_batch(sel)``'s batch as tensors, each row's two windows
-        read from the padded columns on the device. User and item feature
-        columns are not ported yet and raise."""
-        fuid, fiid, frating = self.fuid, self.fiid, self.frating
-        if [f for f in self._fields_of(self.user_feat) if f != fuid] or \
-                [f for f in self._fields_of(self.item_feat) if f != fiid]:
-            raise NotImplementedError("staging user or item feature columns is not ported yet")
+        1098-1158``): ``data_index``, the item id column and each rating
+        column, padded with ``max(history width, target width)`` zeros so
+        every window read stays in bounds, and the user and item feature
+        columns in use (``_stage_entity_feats``); ``batch_fn(arrays, sel)``
+        returns ``_get_pos_batch(sel)``'s batch as tensors, each row's two
+        windows read from the padded columns on the device, the user
+        features by the user id and the item features of each window by its
+        item ids (0 at pads)."""
+        fuid, fiid = self.fuid, self.fiid
+        ratings = self._rating_fields() if self.frating is not None else []
         pad = max(self._in_width(), self._eval_target_width())
         compact = {"_rows": _int32_column("data_index", self.data_index),
                    "_fiid": np.concatenate([_int32_column(fiid, self.inter_feat.get_col(fiid)),
                                             np.zeros(pad, np.int32)])}
-        if frating is not None:
-            rcol = self.inter_feat.get_col(frating).astype(np.float32)
-            compact["_rating"] = np.concatenate([rcol, np.zeros(pad, np.float32)])
+        # ``_rating``, or ``_rating_{r}`` a rating of several
+        rkeys = {r: f"_rating_{r}" if isinstance(self.frating, list) else "_rating"
+                 for r in ratings}
+        for r, key in rkeys.items():
+            rcol = self.inter_feat.get_col(r).astype(np.float32)
+            compact[key] = np.concatenate([rcol, np.zeros(pad, np.float32)])
+        feats = self._stage_entity_feats(compact)
         windows = self._windows()
 
         def batch_fn(arrays: Dict[str, torch.Tensor], sel: torch.Tensor) -> Dict[str, torch.Tensor]:
             rows = arrays["_rows"][sel].long()
             batch = {fuid: rows[:, 0].int()}
+            for kind, f, is_float in feats:
+                if kind == "user":
+                    batch[f] = _from_words(arrays["_user_" + f][rows[:, 0]], is_float)
             for prefix, cs, ce, width in windows:
                 pos = rows[:, cs, None] + torch.arange(width, device=sel.device)[None, :]
                 valid = pos < rows[:, ce, None]
-                batch[prefix + fiid] = torch.where(valid, arrays["_fiid"][pos], 0)
-                if frating is not None:
-                    batch[prefix + frating] = torch.where(valid, arrays["_rating"][pos], 0.0)
+                iid = torch.where(valid, arrays["_fiid"][pos], 0)
+                batch[prefix + fiid] = iid
+                for r, key in rkeys.items():
+                    batch[prefix + r] = torch.where(valid, arrays[key][pos], 0.0)
+                for kind, f, is_float in feats:
+                    if kind == "item":
+                        got = _from_words(arrays["_item_" + f][iid.long()], is_float)
+                        batch[prefix + f] = _masked(valid, got)
             return batch
 
         return compact, batch_fn
@@ -937,38 +991,47 @@ class SeqDataset(TripletDataset):
         bounds); ``batch_fn(arrays, sel)`` takes those arrays as tensors on
         the device and a ``[B]`` index tensor and returns
         ``_get_pos_batch(sel)``'s batch as tensors, gathering each row's
-        history window on the device. Columns that would not survive
-        int32/float32, or a split with no interaction column to stage,
-        raise; user and item feature columns are not ported yet.
+        history window on the device. The user and item feature columns in
+        use are staged whole (``_stage_entity_feats``) and read by the user
+        id, the window's item ids (0 at pads) and the target item id.
+        Columns that would not survive int32/float32, or a split with no
+        interaction column to stage, raise.
         """
         L = self.max_seq_len
         fuid, fiid = self.fuid, self.fiid
         fields = [f for f in self._fields_of(self.inter_feat) if f != fuid]
         if not fields:
             raise ValueError("device_epoch_arrays: no interaction column besides the user id")
-        if [f for f in self._fields_of(self.user_feat) if f != fuid] or \
-                [f for f in self._fields_of(self.item_feat) if f != fiid]:
-            raise NotImplementedError("staging user or item feature columns is not ported yet")
         is_float = {f: np.issubdtype(self.inter_feat.get_col(f).dtype, np.floating)
                     for f in fields}
         packed = np.stack([_int32_column(f, self.inter_feat.get_col(f)) for f in fields], axis=1)
         compact = {"_rows": _int32_column("data_index", self.data_index),
                    "_interpack": np.concatenate([packed, np.zeros((L, len(fields)), np.int32)])}
+        feats = self._stage_entity_feats(compact)
 
         def batch_fn(arrays: Dict[str, torch.Tensor], sel: torch.Tensor) -> Dict[str, torch.Tensor]:
             rows = arrays["_rows"][sel].long()
             u, starts, ends = rows[:, 0], rows[:, 1], rows[:, 2]
             batch = {fuid: u.int(), "seqlen": (ends - starts).int()}
+            for kind, f, isf in feats:
+                if kind == "user":
+                    batch[f] = _from_words(arrays["_user_" + f][u], isf)
             pos = starts[:, None] + torch.arange(L, device=sel.device)[None, :]
             valid = pos < ends[:, None]
             wins = arrays["_interpack"][pos]                    # [B, L, C]
             tgt = arrays["_interpack"][ends]                    # [B, C]
             for c, f in enumerate(fields):
-                w = wins[:, :, c].view(torch.float32) if is_float[f] else wins[:, :, c]
-                batch["in_" + f] = torch.where(valid, w, torch.zeros((), dtype=w.dtype,
-                                                                     device=w.device))
+                batch["in_" + f] = _masked(valid, _from_words(wins[:, :, c], is_float[f]))
             for c, f in enumerate(fields):
-                batch[f] = tgt[:, c].view(torch.float32) if is_float[f] else tgt[:, c]
+                batch[f] = _from_words(tgt[:, c], is_float[f])
+            for kind, f, isf in feats:
+                if kind == "item":
+                    col = arrays["_item_" + f]
+                    if "in_" + fiid in batch:
+                        batch["in_" + f] = _masked(
+                            valid, _from_words(col[batch["in_" + fiid].long()], isf))
+                    if fiid in batch:
+                        batch[f] = _from_words(col[batch[fiid].long()], isf)
             return batch
 
         return compact, batch_fn

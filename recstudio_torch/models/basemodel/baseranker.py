@@ -1,18 +1,35 @@
-"""BaseRanker: pointwise CTR / feature-interaction models.
+"""BaseRanker: pointwise CTR / feature-interaction models, multitask
+rankers and the two-stage cascade.
 
-Counterpart of ``recstudio_tpu/models/basemodel/baseranker.py`` without a
-cascaded retriever. A ranker scores one feature row (user, item and
-context fields, or the id-less fields of a criteo-layout dataset)
-pointwise: ``self.net(batch, rng)`` returns logits ``[B]``, trained with
-``BCEWithLogitLoss`` against binarized ratings. Every field of the
-dataset is a feature (``_set_data_field``). Evaluation is per row
-(``fmeval``): ``logloss``, ``mse``, ``mae`` and ``accuracy`` as masked
-per-row sums, and ``auc`` once over the whole split's scores, labels and
-weights, all kept on the device (``recommender.py:1159-1188``).
+Counterpart of ``recstudio_tpu/models/basemodel/baseranker.py``. A ranker
+scores one feature row (user, item and context fields, or the id-less
+fields of a criteo-layout dataset) pointwise: ``self.net(batch, rng)``
+returns logits ``[B]``, trained with ``BCEWithLogitLoss`` against
+binarized ratings. Every field of the dataset is a feature
+(``_set_data_field``). Evaluation is per row (``fmeval``): ``logloss``,
+``mse``, ``mae`` and ``accuracy`` as masked per-row sums, and ``auc`` once
+over the whole split's scores, labels and weights, all kept on the device
+(``recommender.py:1159-1188``).
+
+Several rating fields (multitask, ``baseranker.py:417-434``): the net
+returns a dict of logits, one a rating; the loss is each rating's loss
+weighted by ``softmax(train.weights)`` (equal weights when it is null);
+the metrics are named ``{rating}_{metric}``, one global AUC a rating.
+
+A cascade (``BaseRanker(config, retriever=fitted, loss=...)``,
+``baseranker.py:46-118``): the fitted retriever is frozen into
+``states["retriever"]`` (a copy of its net that takes no gradient, its
+catalog encoding and, for a stateful sampler, its index, refreshed before
+each epoch). In training it proposes ``negative_count`` negatives for each
+positive (``train.sampling_method``, ``excluding_hist``), scored through
+``_multi_item_batch``, and the pairwise loss takes the proposal's log
+probabilities. ``topk`` reranks the retriever's top ``eval.topk`` with the
+ranker's scores, and the rank metrics of such a ranker are computed on
+those lists exactly as a retriever computes them.
 
 The packed row-sparse CTR step (``baseranker.py:150-385``): with
 ``learner: sparse_adam`` and ``train.sparse_rows`` ``auto`` or ``true``,
-no weight decay, no clip, no scheduler and no mesh
+no weight decay, no clip, no scheduler, no mesh and no retriever
 (``_ctr_sparse_config_ok``), the net is built with packed fused token
 tables (``module/ctr.packed_tables``: ``[N, 3D]`` rows of params, mu and
 nu, the moment columns zeroed after initialisation and the tables taking
@@ -23,12 +40,11 @@ table by ``fused_table_lazy_adam_packed``: one gather of the candidate
 rows and one write back, no ``[N, D]`` gradient. ``sparse_rows: false``
 trains the same trajectory with the dense ``LazyAdam``. A net's batch
 norms are calibrated by ``_calibration_forward`` (``baseranker.py:387``).
-A retriever or a two-stage cascade, multitask ratings and the rank
-metrics a cascade serves are not ported yet and raise.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import copy
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,29 +56,89 @@ from ..module.ctr import Embeddings, packed_tables
 from ..optim import fused_table_lazy_adam_packed, unpack_table_params
 from .recommender import Recommender, batch_to_device
 
-_QUEUE = "(ROADMAP.md queue 1, the ranker items)"
-
-
 class BaseRanker(Recommender):
-    def __init__(self, config: Dict = None, device="cuda", retriever=None):
-        if retriever is not None:
-            raise NotImplementedError(f"a ranker with a cascaded retriever (two-stage) is not "
-                                      f"ported yet {_QUEUE}")
-        super().__init__(config, device)
+    def __init__(self, config: Dict = None, device="cuda", retriever=None, **kwargs):
+        """``retriever``: a fitted retriever to cascade (two-stage);
+        ``kwargs``: ``loss`` (a pairwise loss for a cascade)."""
+        super().__init__(config, device, **kwargs)
+        self.retriever = retriever
         self._eval_cache: Dict[Tuple[int, int], Tuple[object, List[Dict[str, torch.Tensor]]]] = {}
+        self._item_feat_cols: Dict[str, torch.Tensor] = {}
 
     def _set_data_field(self, data) -> None:
-        """Every declared field is a feature (``baseranker.py:30-44``)."""
-        data.use_field = set(data.field2type.keys())
+        """Every declared field is a feature (``baseranker.py:30-44``); in a
+        cascade only the id, rating and entity fields, the ones a candidate
+        of the retriever has."""
+        if self.retriever is None:
+            data.use_field = set(data.field2type.keys())
+            return
+        fields = {data.fuid, data.fiid, *data._rating_fields()}
+        for frame in (data.user_feat, data.item_feat):
+            if frame is not None:
+                fields |= set(frame.fields)
+        data.use_field = fields & set(data.field2type.keys())
 
     def _init_model(self, train_data):
         self._set_data_field(train_data)
         super()._init_model(train_data)
-        if isinstance(self.frating, list):
-            raise NotImplementedError(f"multitask ratings are not ported yet {_QUEUE}")
+        if self.retriever is not None:
+            if isinstance(self.frating, list):      # baseranker.py:398-399
+                raise ValueError("a multitask ranker takes no retriever")
+            if getattr(self.retriever, "net", None) is None:
+                raise ValueError("the attached retriever must be fitted (or at least "
+                                 "initialized by fit) before the ranker")
+            # the stored copy: later changes to the live retriever reach
+            # neither the queries nor the catalog (baseranker.py:89-99)
+            self._retriever_net = copy.deepcopy(self.retriever.net).eval()
+            for p in self._retriever_net.parameters():
+                p.requires_grad_(False)
         with packed_tables(self._ctr_sparse_config_ok()):
             self.net = self._get_score_net(train_data)
         self._eval_cache.clear()
+        self._item_feat_cols.clear()
+
+    def _multitask_ratings(self, model_name: str) -> Tuple[str, ...]:
+        """The rating fields of a multitask model, which needs several."""
+        if not isinstance(self.frating, list):
+            raise ValueError(f"{model_name} expects a list-valued rating_field")
+        return tuple(self.frating)
+
+    # ------------------------------------------------------------------
+    # the cascaded retriever (baseranker.py:46-118)
+    # ------------------------------------------------------------------
+    def _retriever_state(self) -> Dict[str, object]:
+        """``states["retriever"]``: the retriever's net as ``_init_model``
+        copied it (eval mode, no gradient) and the catalog encoded by that
+        copy, put back when ``states`` was cleared (new weights, a
+        restore), with the sampler's index when ``_epoch_refresh`` built
+        one."""
+        rs = self.states.get("retriever")
+        if rs is None or "net" not in rs:
+            rs = self.states["retriever"] = {
+                **(rs or {}), "net": self._retriever_net,
+                "item_vector": self._retriever_catalog()}
+        return rs
+
+    @torch.no_grad()
+    def _retriever_catalog(self) -> torch.Tensor:
+        """The catalog encoded by the stored copy of the retriever's net,
+        as JAX encodes it from the stored parameters."""
+        return self.retriever._item_vectors(self._retriever_net)
+
+    @torch.no_grad()
+    def _epoch_refresh(self, nepoch: int) -> None:
+        """Re-encode the retriever's catalog into ``states["retriever"]``
+        and, before a training epoch (``nepoch >= 0``), re-index a stateful
+        sampler from it with the ranker's device generator
+        (``baseranker.py:101-118``)."""
+        if self.retriever is None:
+            return
+        rs = self._retriever_state()
+        rs["item_vector"] = self._retriever_catalog()
+        if nepoch >= 0 and self.retriever._sampler_is_stateful():
+            state = self.retriever.sampler.update(rs["item_vector"], self.device_generator)
+            if state is not None:
+                rs["sampler"] = state
 
     def _init_parameter(self, train_data=None):
         super()._init_parameter(train_data)
@@ -85,7 +161,8 @@ class BaseRanker(Recommender):
         return (str(tc.get("sparse_rows", "auto")).lower() != "false"
                 and str(tc.get("learner", "adam")).lower() == "sparse_adam"
                 and not tc.get("weight_decay") and not tc.get("grad_clip_norm")
-                and not tc.get("scheduler") and not tc.get("mesh"))
+                and not tc.get("scheduler") and not tc.get("mesh")
+                and self.retriever is None)
 
     def _packed_embeddings(self) -> List[Embeddings]:
         return [m for m in self.net.modules() if isinstance(m, Embeddings) and m.packed]
@@ -151,25 +228,126 @@ class BaseRanker(Recommender):
         self.net(batch, self.generator)
 
     # ------------------------------------------------------------------
-    def score(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Logits ``[B]``; dropout (training mode) draws its seeds from
-        ``self.generator``."""
+    def score(self, batch: Dict[str, torch.Tensor]):
+        """Logits ``[B]``, or a dict of them a rating (multitask); dropout
+        (training mode) draws its seeds from ``self.generator``."""
         return self.net(batch, self.generator)
 
     @torch.no_grad()
-    def predict(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
+    def predict(self, batch: Dict[str, np.ndarray]):
         """numpy feature batch in, numpy probabilities out
-        (``baseranker.py:373-385``)."""
+        (``baseranker.py:373-385``); a multitask ranker gives a dict of
+        them, one a rating."""
         self.net.eval()
-        return torch.sigmoid(self.score(batch_to_device(batch, self.device))).cpu().numpy()
+        out = self.score(batch_to_device(batch, self.device))
+        if isinstance(out, dict):
+            return {r: torch.sigmoid(v).cpu().numpy() for r, v in out.items()}
+        return torch.sigmoid(out).cpu().numpy()
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """The pointwise branch of ``baseranker.py:393-422``."""
-        return {"pos_score": self.score(batch), "label": batch[self.frating]}
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
+        """``baseranker.py:393-422``: the positives' scores; in a cascade
+        (training mode) also the retriever's negatives' and the proposal's
+        log probabilities; a multitask ranker's scores and labels a
+        rating."""
+        if self.retriever is not None and self.net.training:
+            return self._cascade_scores(batch)
+        scores = self.score(batch)
+        if isinstance(self.frating, list):
+            return {r: {"pos_score": scores[r], "label": batch[r]} for r in self.frating}
+        return {"pos_score": scores, "label": batch[self.frating]}
+
+    def _cascade_scores(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Pairwise scores of a cascade's training step (``baseranker.py:
+        394-416``): the positives pointwise, then ``negative_count``
+        negatives a row from the frozen retriever's ``sampling`` (its query
+        encoded by the frozen net, draws from the device generator), scored
+        through ``_multi_item_batch``."""
+        if not self.neg_count:
+            raise ValueError("`negative_count` is required with a retriever")
+        tc = self.config["train"]
+        pos_score = self.score(batch)
+        rs = self._retriever_state()
+        with torch.no_grad():
+            query = rs["net"].encode_query(self.retriever._get_query_feat(batch))
+            log_pos_prob, neg_ids, log_neg_prob = self.retriever.sampling(
+                batch, self.neg_count, query, method=tc.get("sampling_method", "none"),
+                excluding_hist=tc.get("excluding_hist", False), states=rs, net=rs["net"],
+                generator=self.device_generator)
+        neg_score = self.score(self._multi_item_batch(batch, neg_ids)).reshape(
+            -1, int(self.neg_count))
+        return {"pos_score": pos_score, "log_pos_prob": log_pos_prob, "neg_score": neg_score,
+                "log_neg_prob": log_neg_prob, "label": batch[self.frating]}
+
+    def _multitask_loss(self, out: Dict[str, Dict[str, torch.Tensor]]) -> torch.Tensor:
+        """Each rating's loss weighted by ``softmax(train.weights)``
+        (``baseranker.py:426-430``)."""
+        weights = self.config["train"].get("weights") or [1.0] * len(self.frating)
+        w = torch.softmax(torch.tensor(weights, dtype=torch.float32, device=self.device), 0)
+        return sum(w[i] * self.loss_fn(out[r]["label"], out[r]["pos_score"])
+                   for i, r in enumerate(self.frating))
 
     def training_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         out = self.forward(batch)
+        if isinstance(self.frating, list):
+            return self._multitask_loss(out)
+        if "neg_score" in out:                 # a cascade's pairwise loss
+            return self.loss_fn(**out)
         return self.loss_fn(out["label"], out["pos_score"])
+
+    # ------------------------------------------------------------------
+    # two-stage retrieval (baseranker.py:523-556)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def topk(self, batch: Dict[str, torch.Tensor], k: int,
+             user_hist: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The retriever's top ``eval.topk`` candidates (``user_hist``
+        excluded) reranked by the ranker's scores: ``(scores [B, k], item
+        ids [B, k])``. ``k`` above the retriever's ``eval.topk`` raises."""
+        if self.retriever is None:
+            raise NotImplementedError("topk requires a cascaded retriever")
+        retr_k = int(self.retriever.config["eval"]["topk"])
+        if k > retr_k:
+            raise ValueError(f"ranker topk {k} must be <= the retriever's eval.topk {retr_k}")
+        rs = self._retriever_state()
+        _, cand = self.retriever.topk(batch, retr_k, user_hist, states=rs, net=rs["net"])
+        scores = self.score(self._multi_item_batch(batch, cand)).reshape(cand.shape[0], -1)
+        top, idx = torch.topk(scores, k, dim=-1)
+        return top, torch.gather(cand, 1, idx)
+
+    def _item_feat_col(self, f: str) -> torch.Tensor:
+        if f not in self._item_feat_cols:
+            self._item_feat_cols[f] = torch.as_tensor(
+                np.ascontiguousarray(self.item_feat.get_col(f))).to(self.device)
+        return self._item_feat_cols[f]
+
+    def _multi_item_batch(self, batch: Dict[str, torch.Tensor],
+                          item_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``item_ids [B, K]`` as a batch of ``B K`` rows
+        (``baseranker.py:538-556``): the item id and its item features are
+        the candidates' (also where the batch has none, as a served
+        request), every other field of a batch row (``seqlen`` and
+        the ``in_`` histories too) is repeated once a candidate. The
+        ``user_hist`` table of an evaluation batch, which no score net
+        reads, is left out."""
+        num_item = item_ids.shape[-1]
+        flat = item_ids.reshape(-1)
+        item_values = {self.fiid: flat}
+        if self.item_feat is not None:
+            for f in self.item_feat.fields:
+                if f in self.fields and f != self.fiid:
+                    item_values[f] = self._item_feat_col(f)[flat.long()]
+        out = dict(item_values)                # a served request has no item fields
+        for key, v in batch.items():
+            if key in item_values:
+                continue
+            elif key == "user_hist":
+                continue
+            elif v.dim() >= 1 and v.shape[0] == item_ids.shape[0]:
+                out[key] = torch.repeat_interleave(v, num_item, dim=0)
+            else:
+                out[key] = v
+        return out
 
     # ------------------------------------------------------------------
     def _eval_batches(self, data) -> List[Dict[str, torch.Tensor]]:
@@ -190,8 +368,9 @@ class BaseRanker(Recommender):
         of each batch, ``auc`` over all of the split's rows at once (padded
         rows weigh 0); every number stays on the device until the end."""
         if eval_mod.get_rank_metrics(metric_names):
-            raise NotImplementedError("rank metrics of a ranker need a cascaded retriever, "
-                                      f"not ported yet {_QUEUE}")
+            if self.retriever is None:
+                raise NotImplementedError("rank metrics of a ranker need a cascaded retriever")
+            return self._rank_eval_epoch(data, metric_names, cutoffs)
         unknown = [m for m in metric_names if not eval_mod.get_pred_metrics(m)]
         if unknown:
             raise NotImplementedError(f"metrics {unknown} are not ported for a ranker")
@@ -199,29 +378,65 @@ class BaseRanker(Recommender):
         pred_m = [(m, fn) for m, fn in eval_mod.get_pred_metrics(metric_names)
                   if m not in global_names and m in ("logloss", "accuracy", "mse", "mae")]
         thres = self.config["eval"].get("binarized_prob_thres", 0.5)
+        multitask = isinstance(self.frating, list)
+        ratings = self.frating if multitask else [self.frating]
         self.net.eval()
         sums: Dict[str, torch.Tensor] = {}
         weight = torch.zeros((), device=self.device)
-        glob: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = []
+        glob: Dict[str, List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]] = {
+            r: [] for r in ratings}
         for batch in self._eval_batches(data):
-            label = batch[self.frating]
-            valid = (torch.arange(label.shape[0], device=self.device) < batch["_size"]).float()
-            scores = self.score(batch)
-            for name, fn in pred_m:
-                if name == "logloss":
-                    per = fn(scores, label)
-                elif name == "accuracy":
-                    per = fn(torch.sigmoid(scores), label, thres)
-                else:
-                    per = fn(torch.sigmoid(scores), label)
-                val = (per * valid).sum()
-                sums[name] = sums[name] + val if name in sums else val
+            valid = (torch.arange(batch[ratings[0]].shape[0], device=self.device)
+                     < batch["_size"]).float()
+            scores_all = self.score(batch)
+            for r in ratings:
+                scores, label = (scores_all[r] if multitask else scores_all), batch[r]
+                prefix = f"{r}_" if multitask else ""
+                for name, fn in pred_m:
+                    if name == "logloss":
+                        per = fn(scores, label)
+                    elif name == "accuracy":
+                        per = fn(torch.sigmoid(scores), label, thres)
+                    else:
+                        per = fn(torch.sigmoid(scores), label)
+                    key, val = prefix + name, (per * valid).sum()
+                    sums[key] = sums[key] + val if key in sums else val
+                if global_names:
+                    glob[r].append((scores, label, valid))
             weight = weight + batch["_size"].float()
-            if global_names:
-                glob.append((scores, label, valid))
         out = {k: float(v) / max(float(weight), 1.0) for k, v in sums.items()}
-        if glob:
-            scores, labels, weights = (torch.cat(x) for x in zip(*glob))
-            for name, fn in eval_mod.get_global_metrics(metric_names):
-                out[name] = float(fn(scores, labels, weights))
+        if global_names:
+            for r in ratings:
+                scores, labels, weights = (torch.cat(x) for x in zip(*glob[r]))
+                for name, fn in eval_mod.get_global_metrics(metric_names):
+                    out[(f"{r}_" if multitask else "") + name] = float(fn(scores, labels, weights))
         return out
+
+    @torch.no_grad()
+    def _rank_eval_epoch(self, data, metric_names, cutoffs) -> Dict[str, float]:
+        """A cascade's rank metrics (``_make_rank_eval_step``,
+        ``baseranker.py:477-505``): each batch's reranked top ``eval.topk``
+        against its targets, exactly as a retriever scores its lists, summed
+        over the true rows on the device and read once at the end."""
+        other = [m for m in metric_names if not eval_mod.get_rank_metrics(m)]
+        if other:
+            raise NotImplementedError(f"metrics {other} beside rank metrics in one evaluation")
+        self._epoch_refresh(-1)
+        self.net.eval()
+        topk = int(self.config["eval"]["topk"])
+        sums: Dict[str, torch.Tensor] = {}
+        weight = torch.zeros((), device=self.device)
+        for batch in self._eval_batches(data):
+            target, rating = batch[self.fiid], batch[self.frating]
+            valid = (torch.arange(target.shape[0], device=self.device) < batch["_size"]).float()
+            _, items = self.topk(batch, topk, batch.get("user_hist"))
+            if target.dim() == 1:
+                target, rating = target[:, None], rating[:, None]
+            hit = eval_mod.hit_matrix(items, target)
+            for cutoff in cutoffs:
+                for name in metric_names:
+                    key = f"{name}@{cutoff}"
+                    val = (eval_mod.metric_dict[name](hit, rating, cutoff) * valid).sum()
+                    sums[key] = sums[key] + val if key in sums else val
+            weight = weight + batch["_size"].float()
+        return {k: float(v) / max(float(weight), 1.0) for k, v in sums.items()}

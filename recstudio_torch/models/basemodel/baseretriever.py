@@ -187,11 +187,12 @@ class BaseRetriever(Recommender):
         return {f: v for f, v in batch.items() if f in self.query_fields}
 
     # ------------------------------------------------------------------
-    def _item_vectors(self) -> torch.Tensor:
+    def _item_vectors(self, net: Optional[nn.Module] = None) -> torch.Tensor:
         """Encode the full catalog, items 1..N-1 (the [PAD] row excluded),
-        differentiably: the training step's catalog."""
+        differentiably, by ``net`` (this model's by default): the training
+        step's catalog."""
         ids = torch.arange(1, self.num_items, device=self.device)
-        return self.net.encode_item(ids)
+        return (self.net if net is None else net).encode_item(ids)
 
     @torch.no_grad()
     def _compute_item_vector(self) -> torch.Tensor:
@@ -527,14 +528,20 @@ class BaseRetriever(Recommender):
     @torch.no_grad()
     def topk(self, batch: Dict[str, torch.Tensor], k: int,
              user_hist: Optional[torch.Tensor] = None,
-             return_query: bool = False):
+             return_query: bool = False, states: Optional[Dict] = None,
+             net: Optional[nn.Module] = None):
         """Top-k catalog items per query: ``(scores [B, k], item ids [B, k])``,
-        ids 1-based; ``user_hist`` [B, H] (0 = pad) items are excluded."""
-        item_vector = self.states.get("item_vector")
+        ids 1-based; ``user_hist`` [B, H] (0 = pad) items are excluded.
+        ``states`` and ``net`` (this model's by default) give the catalog
+        encoding and the net, as a cascade's frozen copy does
+        (``baseretriever.py:516-523``)."""
+        states = self.states if states is None else states
+        net = self.net if net is None else net
+        item_vector = states.get("item_vector")
         if item_vector is None:
             item_vector = self._compute_item_vector()
-        query = self.net.encode_query(self._get_query_feat(batch))
-        scores = self.score_func.catalog(query, item_vector)
+        query = net.encode_query(self._get_query_feat(batch))
+        scores = net.score_func.catalog(query, item_vector)
         score_k, topk_items = self._topk_from_scores(scores, k, user_hist)
         if return_query:
             return score_k, topk_items, query

@@ -278,8 +278,11 @@ class Recommender:
         if self.val_check:
             vm = self.config["eval"]["val_metrics"]
             vm = vm[0] if isinstance(vm, list) else vm
-            # a rank metric is read at the first cutoff (recommender.py:824-834)
+            # a rank metric is read at the first cutoff, a multitask model's
+            # metric on its first rating (recommender.py:824-834)
             self.val_metric = f"{vm}@{self._cutoffs()[0]}" if eval_mod.get_rank_metrics(vm) else vm
+            if isinstance(self.frating, list):
+                self.val_metric = f"{self.frating[0]}_{self.val_metric}"
         self.callback = self._get_callback(train_data.name)
         self._train_data = train_data
         self._calib_batches = None

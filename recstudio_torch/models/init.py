@@ -12,8 +12,9 @@ import torch
 from torch import nn
 
 
-def _draw(shape, method: str, init_range: float, generator: torch.Generator) -> torch.Tensor:
-    fan_out, fan_in = shape[0], shape[1]
+def _draw(shape, method: str, init_range: float, generator: torch.Generator,
+          fans=None) -> torch.Tensor:
+    fan_out, fan_in = fans or (shape[0], shape[1])
     if method == "normal":
         return init_range * torch.randn(shape, generator=generator)
     if method == "xavier_uniform":
@@ -22,6 +23,17 @@ def _draw(shape, method: str, init_range: float, generator: torch.Generator) -> 
     if method == "xavier_normal":
         return ((2.0 / (fan_in + fan_out)) ** 0.5) * torch.randn(shape, generator=generator)
     raise ValueError(f"unknown init method {method}")
+
+
+def _lecun_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal``: a normal truncated at two standard
+    deviations, scaled to variance ``1 / fan_in`` (fan_in ``shape[0]``)."""
+    x = torch.randn(shape, generator=generator)
+    bad = x.abs() > 2.0
+    while bad.any():
+        x[bad] = torch.randn(int(bad.sum()), generator=generator)
+        bad = x.abs() > 2.0
+    return x * (shape[0] ** -0.5 / 0.87962566103423978)
 
 
 @torch.no_grad()
@@ -37,6 +49,11 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
     - a 2-D parameter named ``*embedding*`` (the CTR ``dense_embedding``
       kernel ``[Fd, D]``): ``method``, with row 0 set to 0, as the JAX rule
       by name does to every ``embedding`` leaf;
+    - a gated GRU's raw ``w_hh [H, 3H]``: LeCun normal (truncated at two
+      standard deviations, variance 1 / H), the initializer the JAX module
+      declares (its rule by name leaves it); an expert bank's
+      ``[E, in, out]`` kernels: ``method`` with the fans ``E in`` and ``E
+      out``, as the JAX rule reads the stacked leaf's (``init.py:18-25``);
     - any other 2-D parameter (learned position tables): N(0, 0.02), the
       initializer the JAX modules declare for them;
     - a 1-D parameter ``w_{i}`` (DCN's cross weights): N(0, 1), the
@@ -55,6 +72,12 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
             p.copy_(_draw(tuple(p.shape), method, init_range, generator))
             if id(p) in embeddings:
                 p[0].zero_()
+        elif leaf == "w_hh" and p.dim() == 2:
+            p.copy_(_lecun_normal(tuple(p.shape), generator))
+        elif leaf.startswith("kernel_") and p.dim() == 3:
+            E, n_in, n_out = p.shape
+            p.copy_(_draw(tuple(p.shape), method, init_range, generator,
+                          fans=(E * n_out, E * n_in)))
         elif "embedding" in leaf and p.dim() == 2:
             p.copy_(_draw(tuple(p.shape), method, init_range, generator))
             p[0].zero_()

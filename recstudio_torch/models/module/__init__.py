@@ -3,6 +3,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .gru import AGRU, AIGRU, AUGRU
 from .layers import (AttentionLayer, GRULayer, MLPModule, SeqPoolingLayer, TransformerEncoder,
                      TransformerLayer, get_act)
 
@@ -23,5 +24,5 @@ class Embedding(nn.Embedding):
         return super().forward(ids)
 
 
-__all__ = ["AttentionLayer", "Embedding", "GRULayer", "MLPModule", "SeqPoolingLayer",
+__all__ = ["AGRU", "AIGRU", "AUGRU", "AttentionLayer", "Embedding", "GRULayer", "MLPModule", "SeqPoolingLayer",
            "TransformerEncoder", "TransformerLayer", "get_act"]

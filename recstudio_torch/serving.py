@@ -1,15 +1,19 @@
 """Online serving: fixed-shape batched top-k inference and CTR scoring.
 
 Counterpart of ``recstudio_tpu/serving.py``: ``Predictor`` serves a
-retriever's top-k lists, ``ScorePredictor`` a ranker's probabilities.
+retriever's top-k lists, or a cascaded ranker's (``model.topk``: the
+retriever's candidates reranked), ``ScorePredictor`` a ranker's
+probabilities (a dict of them, one a rating, for a multitask ranker).
 Each request is
 padded to ``max_batch`` rows so every call runs the same shapes; ``warm()``
 runs one dummy request at start-up. The dummy is built from the model's
 query fields (zeros ``[max_batch, W]`` for ``in_*`` histories, W the
 model's ``history_width``: a sequence model's length, a user model's
 widest training history; zero ``seqlen``), so it works for sequence and
-user retrievers; the JAX package builds it
-from the user id alone (``serving.py:102-108``), which SASRec rejects.
+user retrievers; a cascade's query fields and width are its retriever's,
+and its request also carries the ranker's own user-side fields. The JAX
+package builds the dummy from the user id alone (``serving.py:102-108``),
+which SASRec rejects.
 
 Example::
 
@@ -58,12 +62,20 @@ class _FixedShapeServer:
 
 
 class Predictor(_FixedShapeServer):
-    """Fixed-shape batched top-k server for a retriever. Runs on the
-    model's device; history masking uses ``train_data.user_hist``."""
+    """Fixed-shape batched top-k server for a retriever, or a ranker with a
+    cascaded retriever. Runs on the model's device; history masking uses
+    ``train_data.user_hist``."""
 
     def __init__(self, model, max_batch: int = 32, k: int = 20,
                  train_data=None, exclude_history: bool = True):
         self.model = model
+        retriever = getattr(model, "retriever", None)
+        # the fields of a request: the query tower's, and a cascade's
+        # user-side ranker fields (the candidates bring the item fields)
+        self._query = retriever if retriever is not None else model
+        self._fields = set(self._query.query_fields)
+        if retriever is not None:                # a cascade has one rating
+            self._fields |= model.fields - model.item_fields - {model.frating}
         self.max_batch = int(max_batch)
         self.k = int(k)
         # snapshot item vectors from the current parameters
@@ -75,9 +87,9 @@ class Predictor(_FixedShapeServer):
 
     def _dummy(self) -> Dict[str, np.ndarray]:
         out = {}
-        for f in sorted(self.model.query_fields):
+        for f in sorted(self._fields):
             # only a history field has a width (the model's, from its dataset)
-            shape = ((self.max_batch, self.model.history_width) if f.startswith("in_")
+            shape = ((self.max_batch, self._query.history_width) if f.startswith("in_")
                      else (self.max_batch,))
             out[f] = np.zeros(shape, np.int32)
         return out
@@ -91,8 +103,8 @@ class Predictor(_FixedShapeServer):
 
     def _call_padded(self, padded: Dict[str, np.ndarray]):
         fuid = self.model.fuid
-        dev = batch_to_device({f: v for f, v in padded.items()
-                               if f in self.model.query_fields}, self.model.device)
+        dev = batch_to_device({f: v for f, v in padded.items() if f in self._fields},
+                              self.model.device)
         user_hist = None
         if self._hist is not None and fuid in dev:
             user_hist = self._hist[dev[fuid].to(torch.long)]
@@ -140,12 +152,21 @@ class ScorePredictor(_FixedShapeServer):
     def warm(self, example: Dict[str, np.ndarray]) -> "ScorePredictor":
         """Score ``example`` once before the first real request."""
         padded, _ = self._pad(example)
-        float(self._run(padded).sum().item())   # host read: genuinely complete
+        out = self._run(padded)
+        out = sum(out.values()) if isinstance(out, dict) else out
+        float(out.sum().item())   # host read: genuinely complete
         return self
 
-    def __call__(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
+    def __call__(self, batch: Dict[str, np.ndarray]):
+        """Probabilities ``[n]``, or ``{rating: [n]}`` for a multitask
+        ranker (the JAX server reads one array, ``serving.py:160-167``, and
+        cannot serve one)."""
         t0 = time.perf_counter()
         padded, n = self._pad(batch)
-        out = torch.sigmoid(self._run(padded)[:n]).cpu().numpy()   # the host read is the fence
+        logits = self._run(padded)
+        if isinstance(logits, dict):            # the host reads are the fence
+            out = {r: torch.sigmoid(v[:n]).cpu().numpy() for r, v in logits.items()}
+        else:
+            out = torch.sigmoid(logits[:n]).cpu().numpy()
         self._lat_ms.append((time.perf_counter() - t0) * 1e3)
         return out

@@ -35,7 +35,17 @@ kernel ``dense_embedding``, the biases, ``CrossNetwork``'s ``w_{i}`` and
 attention's ``q_proj``, ``k_proj``, ``v_proj`` and ``out_proj``, ``res``,
 ``att_proj``, ``attn_fc``, ``fc``) is a ``Linear`` weight, transposed.
 The flax ``batch_stats`` collection is the batch norms' ``mean``, ``var``
-and ``count`` buffers (``ranker_batch_stats_to_jax`` the reverse).
+and ``count`` buffers (``ranker_batch_stats_to_jax`` the reverse). The
+same two functions carry DIN, DIEN and the multitask nets: an
+``Embedding`` module's ``embedding`` leaf (DIN's and DIEN's
+``item_embedding`` and ``item_bias``) is its ``weight``; a ``GRULayer``'s
+``<name>/gru_{i}/{ih,hh}`` kernels and biases are its ``nn.GRU`` layer's
+(DIEN's extractor, ``AIGRU``); a gated GRU's ``w_ih`` is a ``Linear`` and
+its raw ``w_hh [H, 3H]`` keeps its layout; MMoE's ``nn.vmap``-ed bank
+``experts/dense_{i}/{kernel,bias}`` is ``ExpertBank``'s ``kernel_{i} [E,
+in, out]`` and ``bias_{i}``, untransposed. ``cascade_params_from_jax``
+splits a JAX cascade into the ranker's ``state_dict`` and the retriever's,
+which the JAX package nests in ``states["retriever"]["params"]``.
 
 ``graph_params_from_jax`` and ``graph_params_to_jax`` do the same for a
 graph model's tree (LightGCN, NGCF, SimGCL): the tables ``user_embedding``
@@ -178,6 +188,53 @@ def _is_token_table(leaf: str) -> bool:
 _BN_STATS = ("mean", "var", "count")
 
 
+# a sequence ranker's item tables (DIN, DIEN): modules whose JAX leaf is
+# ``embedding``, as a retriever's
+_RANKER_TABLES = ("item_embedding", "item_bias")
+
+
+def _ranker_port_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
+    """A leaf of a JAX ranker's tree that is not a CTR token table -> (the
+    port's name, transpose)."""
+    for j, part in enumerate(path[:-2]):
+        if part.startswith("gru_") and path[j + 1] in ("ih", "hh"):
+            # a GRULayer's <name>/gru_{i}/{ih,hh}/{kernel,bias}
+            kind = "weight" if path[-1] == "kernel" else "bias"
+            return (".".join(path[:j] + ("layers", part[len("gru_"):]))
+                    + f".{kind}_{path[j + 1]}_l0"), kind == "weight"
+    if path[0] == "experts" and path[-2].startswith("dense_"):
+        # MMoE's bank: experts/dense_{i}/{kernel [E, in, out], bias [E, out]}
+        return f"experts.{path[-1]}_{path[-2][len('dense_'):]}", False
+    if path[-1] == "embedding":                     # an Embedding module's table
+        return ".".join(path[:-1]) + ".weight", False
+    if path[-1] == "kernel":
+        return ".".join(path[:-1]) + ".weight", True
+    if path[-2:-1] == ("ln",) and path[-1] == "scale":
+        return ".".join(path[:-1]) + ".weight", False
+    return ".".join(path), False
+
+
+def _ranker_jax_path(parts: Tuple[str, ...], value: torch.Tensor) -> Tuple[Tuple[str, ...], bool]:
+    """``_ranker_port_name``'s inverse."""
+    leaf = parts[-1]
+    if parts[-3:-2] == ("layers",) and leaf.endswith("_l0") and leaf.count("_") == 2:
+        kind, gate, _ = leaf.split("_")             # {weight,bias}_{ih,hh}_l0
+        return parts[:-3] + (f"gru_{parts[-2]}", gate,
+                             "kernel" if kind == "weight" else "bias"), kind == "weight"
+    if parts[0] == "experts" and leaf.startswith(("kernel_", "bias_")):
+        kind, i = leaf.split("_")
+        return ("experts", f"dense_{i}", kind), False
+    if leaf == "weight":
+        if parts[:-1] in [(t,) for t in _RANKER_TABLES]:
+            return parts[:-1] + ("embedding",), False
+        if _is_token_table(parts[-2]):
+            return parts[:-1], False
+        if parts[-2] == "ln" and value.dim() == 1:
+            return parts[:-1] + ("scale",), False
+        return parts[:-1] + ("kernel",), True
+    return parts, False
+
+
 def ranker_params_from_jax(tree: Dict[str, Any], embed_dim: int,
                            batch_stats: Dict[str, Any] = None,
                            packed: bool = False) -> Dict[str, torch.Tensor]:
@@ -191,18 +248,15 @@ def ranker_params_from_jax(tree: Dict[str, Any], embed_dim: int,
     is its ``ln.weight``."""
     sd = {}
     for path, value in _leaves(tree):
-        if path[-1] == "kernel":
-            sd[".".join(path[:-1]) + ".weight"] = _tensor(value, True)
-        elif _is_token_table(path[-1]):
+        if _is_token_table(path[-1]):
             d = 1 if path[0] == "linear" else embed_dim
             a = np.asarray(value, np.float32)
             if a.shape[-1] == 3 * d and not packed:
                 a = a[:, :d]
             sd[".".join(path) + ".weight"] = _tensor(a)
-        elif path[-2:-1] == ("ln",) and path[-1] == "scale":
-            sd[".".join(path[:-1]) + ".weight"] = _tensor(value)
         else:
-            sd[".".join(path)] = _tensor(value)
+            name, tr = _ranker_port_name(path)
+            sd[name] = _tensor(value, tr)
     for path, value in _leaves(batch_stats or {}):
         sd[".".join(path)] = _tensor(value)
     return sd
@@ -234,15 +288,7 @@ def ranker_params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     for key, value in state_dict.items():
         if _is_bn_stat(key):
             continue
-        parts = tuple(key.split("."))
-        tr = False
-        if parts[-1] == "weight":
-            if _is_token_table(parts[-2]):
-                parts = parts[:-1]
-            elif parts[-2] == "ln" and value.dim() == 1:
-                parts = parts[:-1] + ("scale",)
-            else:
-                parts, tr = parts[:-1] + ("kernel",), True
+        parts, tr = _ranker_jax_path(tuple(key.split(".")), value)
         node = out
         for part in parts[:-1]:
             node = node.setdefault(part, {})
@@ -264,6 +310,18 @@ def ranker_batch_stats_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, 
             node = node.setdefault(part, {})
         node[parts[-1]] = value.detach().cpu().numpy().astype(np.float32)
     return out
+
+
+def cascade_params_from_jax(params: Dict[str, Any], states: Dict[str, Any], embed_dim: int,
+                            batch_stats: Dict[str, Any] = None
+                            ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """A JAX cascade's ranker params and ``states`` -> ``(the ranker's
+    state_dict, the retriever's state_dict)``: the retriever's parameters
+    are nested in ``states["retriever"]["params"]`` there
+    (``baseranker.py:63-70``), and load into the port's retriever before
+    the ranker freezes it."""
+    return (ranker_params_from_jax(params, embed_dim, batch_stats),
+            params_from_jax(_as_numpy(states["retriever"]["params"])))
 
 
 def graph_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:

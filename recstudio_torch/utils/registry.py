@@ -1,11 +1,11 @@
 """Model registry: name -> (model class, layered default config).
 
 The subset of ``recstudio_tpu/utils/registry.py`` this port implements:
-SASRec, BERT4Rec, GRU4Rec, NARM and STAMP (``seq``), BPR, PMF, CML, NCF
-and LogisticMF (``mf``),
-MultiDAE and MultiVAE (``ae``), DeepFM, FM, LR, WideDeep, DCN, NFM and
-AutoInt (``fm``), LightGCN, NGCF and SimGCL (``graph``), and the dataset
-configs they run on.
+SASRec, BERT4Rec, GRU4Rec, NARM, STAMP, DIN and DIEN (``seq``), BPR, PMF,
+CML, NCF and LogisticMF (``mf``), MultiDAE and MultiVAE (``ae``), DeepFM,
+FM, LR, WideDeep, DCN, NFM and AutoInt (``fm``), LightGCN, NGCF and SimGCL
+(``graph``), HardShare, MMoE, PLE and AITM (``multitask``), and the
+dataset configs they run on.
 """
 from __future__ import annotations
 
@@ -21,6 +21,8 @@ _MODELS = {"sasrec": ("seq", "SASRec", ("seq_all", "sasrec")),
            "gru4rec": ("seq", "GRU4Rec", ("seq_all", "gru4rec")),
            "narm": ("seq", "NARM", ("seq_all", "narm")),
            "stamp": ("seq", "STAMP", ("seq_all", "stamp")),
+           "din": ("seq", "DIN", ("seq_all", "din")),
+           "dien": ("seq", "DIEN", ("seq_all", "dien")),
            "bpr": ("mf", "BPR", ("mf_all", "bpr")),
            "pmf": ("mf", "PMF", ("mf_all", "pmf")),
            "cml": ("mf", "CML", ("mf_all", "cml")),
@@ -37,7 +39,11 @@ _MODELS = {"sasrec": ("seq", "SASRec", ("seq_all", "sasrec")),
            "autoint": ("fm", "AutoInt", ("fm_all", "autoint")),
            "lightgcn": ("graph", "LightGCN", ("lightgcn",)),
            "ngcf": ("graph", "NGCF", ("ngcf",)),
-           "simgcl": ("graph", "SimGCL", ("simgcl",))}
+           "simgcl": ("graph", "SimGCL", ("simgcl",)),
+           "hardshare": ("multitask", "HardShare", ("multitask_all", "hardshare")),
+           "mmoe": ("multitask", "MMoE", ("multitask_all", "mmoe")),
+           "ple": ("multitask", "PLE", ("multitask_all", "ple")),
+           "aitm": ("multitask", "AITM", ("multitask_all", "aitm"))}
 
 
 def list_models() -> Dict[str, str]:

@@ -44,8 +44,9 @@ ML100K_MODELS = ("WideDeep", "DCN", "NFM", "AutoInt")
 # the epoch cap of each ml-100k run, phase X's depth: the JAX fits' best
 # validation epochs at the config's own cap (1000, patience 10) were 3–10
 # (WideDeep), 2–7 (DCN), 3–8 (NFM) and 7–25 (AutoInt), and the ten epochs
-# of patience after them took most of phase X's time
-ML100K_EPOCHS = {"WideDeep": 10, "DCN": 8, "NFM": 8, "AutoInt": 12}
+# of patience after them took most of phase X's time; cut again to 4 each
+# when phases AA–AD joined the script, for its time limit
+ML100K_EPOCHS = {"WideDeep": 4, "DCN": 4, "NFM": 4, "AutoInt": 4}
 SEEDS = (2022, 2023, 2024, 2025, 2026, 2027)
 PARALLEL = 6
 ABOUT = {

@@ -46,8 +46,9 @@ SIX = (2022, 2023, 2024, 2025, 2026, 2027)
 SEEDS = {"LightGCN": SIX, "NGCF": SIX, "SimGCL": SIX}
 # None: the config's own cap (1000), with early stopping at its patience.
 # LightGCN's cap is phase U's depth: its fits stopped early after 93–126
-# epochs (best 82–115), whose time the script's limit no longer allows
-EPOCHS = {"LightGCN": 40, "NGCF": 40, "SimGCL": 20}
+# epochs (best 82–115), whose time the script's limit no longer allows (40,
+# then 20 when phases AA–AD joined the script)
+EPOCHS = {"LightGCN": 20, "NGCF": 40, "SimGCL": 20}
 MARGIN = 0.05
 ABOUT = {
     "LightGCN": "d 64, 3 layers (collapsed operator M, fp32), l2 1e-4, batch 512, one uniform "

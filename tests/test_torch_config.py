@@ -57,6 +57,25 @@ def test_graph_model_configs_equal_jax(name):
     assert got["data"]["sampler"] is None
 
 
+@pytest.mark.parametrize("name", ["DIN", "DIEN"])
+def test_seq_ranker_configs_equal_jax(name):
+    _, want = jax_get_model(name)
+    cls, got = get_model(name)
+    assert got == want and cls.__name__ == name
+    assert got["data"]["binarized_rating_thres"] == 3.0 and got["eval"]["batch_size"] == 32
+
+
+@pytest.mark.parametrize("name", ["HardShare", "MMoE", "PLE", "AITM"])
+def test_multitask_model_configs_equal_jax(name):
+    """The multitask family's defaults (``multitask/config/all.yaml``):
+    ``fmeval``, no rating threshold or binarization, equal task weights."""
+    _, want = jax_get_model(name)
+    cls, got = get_model(name)
+    assert got == want and cls.__name__ == name
+    assert got["data"]["fmeval"] is True and got["data"]["binarized_rating_thres"] is None
+    assert got["train"]["weights"] is None and got["eval"]["val_metrics"] == ["auc", "logloss"]
+
+
 def test_ml100k_config_equals_jax():
     assert get_dataset_default_config("ml-100k") == jax_dataset_config("ml-100k")
 
@@ -80,7 +99,9 @@ def test_registry_lists_what_is_ported():
                              "multidae": "ae", "multivae": "ae",
                              "deepfm": "fm", "fm": "fm", "lr": "fm", "widedeep": "fm",
                              "dcn": "fm", "nfm": "fm", "autoint": "fm",
-                             "lightgcn": "graph", "ngcf": "graph", "simgcl": "graph"}
+                             "lightgcn": "graph", "ngcf": "graph", "simgcl": "graph",
+                             "din": "seq", "dien": "seq", "hardshare": "multitask",
+                             "mmoe": "multitask", "ple": "multitask", "aitm": "multitask"}
 
 
 @pytest.mark.parametrize("key,value", [
