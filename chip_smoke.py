@@ -229,6 +229,21 @@ then:
   ``scripts/torch_seq_mt_seeds.py``); the SASRec -> DIN cascade on
   ml-100k, whose served lists give ``evaluate``'s NDCG@5 and agree with
   the CPU copy's;
+- phase AE: the fifteen models of the CTR interaction zoo (InterHAt,
+  DIFM, xDeepFM, DCNv2, PNN, DLRM, FwFM, AFM, FFM, FmFM, FiBiNET, MaskNet,
+  ONN, HFM, AFN) at their repo configs on phase R's data, batch 8192: for
+  each, 20 timed steps (step ms, examples/s, peak memory), one step held
+  to the CPU copy in float32 (InterHAt's through K1 and K2; the CPU
+  copy's relus taking the card's decisions), one evaluation (AUC,
+  rows/s), a ``ScorePredictor`` request of 8192 rows held to ``predict``;
+  InterHAt's layer through K1 and K2 (K1 alone in evaluation and serving)
+  and DIFM's attention through K3 in evaluation and serving, each
+  evaluation held to the plain route; the other thirteen launch nothing;
+- phase AF: ``quickstart.run`` of InterHAt, DIFM and xDeepFM on ml-100k at
+  the repo's configs for at most 2 epochs, test AUC held to the JAX seeds'
+  bands (``recstudio_torch/assets/{interhat,difm,xdeepfm}_ml100k_train_
+  reference.json``), every test row served through ``ScorePredictor``
+  against ``evaluate`` and ``predict``;
 - each kernel against its plain PyTorch version on the phases' shapes,
   with its time, the plain version's, PyTorch's own call where one exists,
   and the card's bound for the same work.
@@ -301,6 +316,15 @@ TOL_GRU = (2e-5, 1e-4)     # (atol, rtol)
 # served CTR probabilities against predict()'s or evaluate()'s: the same
 # weights, the MLP's products at another batch size
 TOL_PROB = 1e-5
+# DIFM's kernel route against its plain route, probabilities: its FM sums
+# the pair products of unnormalised float fields (logits up to ~16,000 at
+# criteo-1m-shape), so the plain route alone lies up to 3.3e-5 from a
+# float64 copy (H100 runs); twice that, rounded up. K3@difm's row holds
+# the kernel itself to TOL_K3
+TOL_DIFM_PROB = 1e-4
+# a relu input the card and the CPU copy may decide apart: within this
+# share of its tensor's largest |input| of 0 (float32 sums in two orders)
+TOL_RELU_FLIP = 1e-5
 # phase R: the JAX seeds' AUC band after its epochs must sit this far above
 # the untrained model's AUC, or the gate could not tell a model that learns
 AUC_MARGIN = 0.1
@@ -352,11 +376,16 @@ def bound(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def attended_pairs(pad, attn=None) -> int:
+def attended_pairs(pad, attn=None, shape=None) -> int:
     """(example, query, key) triples that attention must weigh on these
-    masks (``attn`` None: no attention mask): the allowed keys of each
-    query row, or all Lk keys of a row whose keys are all masked (it
-    averages them). Masked-out pairs need no work."""
+    masks (``attn`` None: no attention mask; ``pad`` None: no key padding,
+    ``shape`` its (B, L)): the allowed keys of each query row, or all Lk
+    keys of a row whose keys are all masked (it averages them). Masked-out
+    pairs need no work."""
+    if pad is None:
+        import torch
+        pad = torch.zeros(shape, dtype=torch.bool,
+                          device=attn.device if attn is not None else "cpu")
     L = pad.shape[1]
     allowed = ~pad[:, None, :].expand(-1, L, -1)         # [B, Lq, Lk]
     if attn is not None:
@@ -3039,14 +3068,71 @@ def device_kernels(fn) -> int:
                and not e.name().startswith(("Memcpy", "Memset")))
 
 
-def card_vs_cpu_step(model, cpu, batch, zero=()):
+def relu_inputs(card=None):
+    """A ``TorchFunctionMode`` that keeps the input of every relu of a step
+    (``.inputs``: {shape: [CPU tensors in call order]}). Given the mode of
+    the card's step (``card``), each relu of the CPU copy's step takes the
+    card's decision for the same call (the n-th of its shape): where both
+    inputs lie within rounding of 0 they can fall on either side on the two
+    devices, and one flipped unit moves its weight row's gradient by the
+    whole of its row's term. ``relu_flips`` holds what that hid."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+    relus = {torch.relu, torch.nn.functional.relu, torch.Tensor.relu}
+
+    class ReluInputs(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.inputs = {}
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func not in relus:
+                return func(*args, **kwargs)
+            x = args[0]
+            seen = self.inputs.setdefault(tuple(x.shape), [])
+            seen.append(x.detach().cpu())
+            theirs = None if card is None else card.inputs.get(tuple(x.shape), [])
+            if not theirs or len(seen) > len(theirs):   # a relu the card ran inside a kernel
+                return func(*args, **kwargs)
+            return x * (theirs[len(seen) - 1] > 0).to(x.device, x.dtype)
+
+    return ReluInputs()
+
+
+def relu_flips(card, cpu):
+    """(units whose relu the two devices decided apart, the largest |input|
+    among them over its tensor's largest)."""
+    import torch
+    n, worst = 0, 0.0
+    for shape, mine in cpu.inputs.items():
+        for c, p in zip(card.inputs.get(shape, []), mine):
+            flip = (c > 0) != (p > 0)
+            if bool(flip.any()):
+                n += int(flip.sum())
+                scale = max(float(c.abs().max()), float(p.abs().max()))
+                worst = max(worst, float(torch.maximum(c[flip].abs(), p[flip].abs()).max())
+                            / scale)
+    return n, worst
+
+
+def card_vs_cpu_step(model, cpu, batch, zero=(), relus=None):
     """One training step on the card and on its CPU copy from the same
     dropout generator state: (card loss, CPU loss, max gradient error,
     gradients ok, the three tensors with the largest error over their
-    tolerance)."""
+    tolerance). With ``relus`` (a dict), the CPU copy's relus take the
+    card's decisions (``relu_inputs``), and ``relus`` gets the count of
+    units decided apart and the largest of their inputs (``relu_flips``)."""
+    import contextlib
     gen = model.generator.get_state()
-    loss_k, grads_k = ranker_step(model, batch, gen)
-    loss_c, grads_c = ranker_step(cpu, {k: v.cpu() for k, v in batch.items()}, gen)
+    card = relu_inputs() if relus is not None else contextlib.nullcontext()
+    with card:
+        loss_k, grads_k = ranker_step(model, batch, gen)
+    mine = relu_inputs(card) if relus is not None else contextlib.nullcontext()
+    with mine:
+        loss_c, grads_c = ranker_step(cpu, {k: v.cpu() for k, v in batch.items()}, gen)
+    if relus is not None:
+        relus["flipped_units"], relus["flipped_largest_input"] = relu_flips(card, mine)
     grads_k = {k: v.cpu() for k, v in grads_k.items()}
     max_abs, ok = grad_errors(grads_k, grads_c, zero)
     over = sorted((float(((grads_k[k] - w).abs() / (
@@ -3531,15 +3617,210 @@ def cascade_fit(device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases AE and AF: the CTR interaction zoo, InterHAt and DIFM
+# ---------------------------------------------------------------------------
+# each model's repo config, as phase AE checks it (criteo-1m-shape, batch 8192)
+AE_MODELS = {
+    "InterHAt": dict(embed_dim=16, n_head=2, feedforward_dim=64, order=3, aggregation_dim=32,
+                     mlp_layer=[128, 64], dropout=0.3),
+    "DIFM": dict(embed_dim=10, mlp_layer=[256, 256], n_head=2, dropout=0.3),
+    "xDeepFM": dict(embed_dim=10, cin_layer_size=[100, 100, 100], mlp_layer=[128, 128, 128],
+                    direct=False, dropout=0.2),
+    "DCNv2": dict(embed_dim=10, combination="parallel", low_rank=None, num_layers=3,
+                  mlp_layer=[256, 256, 256], dropout=0.5, batch_norm=True),
+    "PNN": dict(embed_dim=10, product_type="inner", mlp_layer=[128, 64], dropout=0.5),
+    "DLRM": dict(embed_dim=10, op="sum", top_mlp_layer=[128, 128],
+                 bottom_mlp_layer=[128, 128], top_dropout=0.5, bottom_dropout=0.5),
+    "FwFM": dict(embed_dim=10, linear_type="filv"),
+    "AFM": dict(embed_dim=10, attention_dim=4, dropout=0.5),
+    "FFM": dict(embed_dim=10),
+    "FmFM": dict(embed_dim=10),
+    "FiBiNET": dict(embed_dim=10, reduction_ratio=3, bilinear_type="interaction",
+                    mlp_layer=[128, 32], dropout=0.5, shared_bilinear=True),
+    "MaskNet": dict(embed_dim=10, parallel=False, num_blocks=3, block_dim=50,
+                    mlp_layer=[512, 128], dropout=0.5),
+    "ONN": dict(embed_dim=10, mlp_layer=[128, 64], dropout=0.2, batch_norm=True),
+    "HFM": dict(embed_dim=10, op="circular_correlation", deep=True, mlp_layer=[256, 256, 256],
+                dropout=0.3),
+    "AFN": dict(embed_dim=10, log_hidden_size=128, mlp_layer=[128, 128], ensemble=True,
+                ensemble_mlp_layer=[256, 64], dropout=0.5, ensemble_dropout=0.5),
+}
+# the kernels each model launches in phase AE (the rest launch none)
+AE_KERNELS = {"InterHAt": ("fused_transformer_layer", "fused_transformer_layer_bwd"),
+              "DIFM": ("fused_mha",)}
+# rows of the step held to the CPU copy (the plain Philox masks of a whole
+# 8192-row step on the host's cores would take most of the phase's time)
+AE_CPU_ROWS = 1024
+
+
+def ae_zero_gradients(name, model):
+    """Gradients that are zero in exact arithmetic: a Linear's bias that
+    feeds a batch norm in training mode, an attention's key bias."""
+    from recstudio_torch.models.module.layers import MLPModule, SimpleBatchNorm
+    zero = [f"{mname}.dense_{i}.bias" for mname, m in model.net.named_modules()
+            if isinstance(m, MLPModule) for i in range(m.n_layers)
+            if isinstance(getattr(m, f"bn_{i}", None), SimpleBatchNorm)]
+    if name == "DIFM":
+        zero.append("vector_fen.attn.k_proj.bias")
+    return zero
+
+
+def zoo_step(device, name, trn, tst, B, staged):
+    """One model of phase AE: its repo config on criteo-1m-shape at batch
+    ``B``, initialised from its seed; 20 timed steps, one step held to the
+    CPU copy (its relus taking the card's decisions, ``relu_inputs``), one
+    evaluation, ``ScorePredictor`` at ``B`` rows held to ``predict``;
+    InterHAt's and DIFM's evaluation held to the plain route."""
+    import numpy as np
+    import torch
+    from recstudio_torch.models.module import TransformerLayer
+    from recstudio_torch.models.module.layers import MultiHeadAttention
+    from recstudio_torch.serving import ScorePredictor
+    from recstudio_torch.utils import get_model
+    cls, conf = get_model(name)
+    conf["train"].update(epochs=1, batch_size=B, seed=2022)
+    conf["eval"].update(batch_size=B, val_metrics=["auc"], test_metrics=["auc", "logloss"],
+                        save_path=SAVE_DIR)
+    t = t_model = time.perf_counter()
+    model = cls(conf, device=device)
+    model._init_model(trn)
+    model._init_parameter(trn)
+    model.optimizer = model._get_optimizer()
+    if not staged:                           # the training split, staged once for all
+        model._setup_scan_epoch(trn)
+        staged.update(arrays=model._epoch_arrays, fn=model._batch_fn, rows=model._epoch_rows)
+    model._epoch_arrays, model._batch_fn = staged["arrays"], staged["fn"]
+    model._epoch_rows = staged["rows"]
+    model._train_data = trn                  # the batch norms calibrate on it
+    init_s = time.perf_counter() - t
+    mc = model.config["model"]
+    shape = {k: (model.embed_dim if k == "embed_dim" else mc.get(k)) for k in AE_MODELS[name]}
+    fields = len(model.fields) - 1
+    check(shape == AE_MODELS[name] and fields == 39 and B == 8192,
+          f"phase AE {name} config {shape}, {fields} fields, batch {B}")
+    torch.cuda.reset_peak_memory_stats(device)
+    steps, times, losses, counts = timed_steps(model, epoch_stream(model))
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    p50 = times[len(times) // 2]
+    _, step_counts = counted(lambda: model._grad_step(steps[0]))
+    model.net.eval()
+
+    zero = ae_zero_gradients(name, model)
+    rows = {k: v[:AE_CPU_ROWS] for k, v in steps[-1].items()}
+    t = time.perf_counter()
+    cpu, relus = cpu_copy(model, trn), {}
+    loss_k, loss_c, grad_err, step_ok, over = card_vs_cpu_step(model, cpu, rows, zero, relus)
+    del cpu
+    cpu_step_s = time.perf_counter() - t
+
+    result, eval_counts = counted(lambda: model.evaluate(tst, verbose=False))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model._eval_epoch(tst, ["auc", "logloss"], [None])
+    eval_s = time.perf_counter() - t
+    plain = [m for m in model.net.modules()
+             if isinstance(m, (TransformerLayer, MultiHeadAttention))]
+    route_diff = None
+    route_tol = TOL_DIFM_PROB if name == "DIFM" else TOL_PROB
+    if plain:                                # the kernel route, then the plain route
+        routes = []
+        for flag in (False, True):
+            for m in plain:
+                m.plain = flag
+            routes.append(eval_probs(model, tst))
+        for m in plain:
+            m.plain = False
+        route_diff = max_prob_diff(*routes)
+
+    pred = ScorePredictor(model, max_batch=B, train_data=trn)
+    cols = [f for f in tst.inter_feat.fields if f != model.frating]
+    request = {f: tst.inter_feat.get_col(f)[tst.data_index[:B]] for f in cols}
+    pred.warm(request)
+    served, serve_counts = counted(lambda: pred(request))
+    tst.use_field = model.fields
+    serve_diff = float(np.abs(served - model.predict(tst._get_pos_batch(np.arange(B)))).max())
+    launched = {k: counts[k] + step_counts[k] + eval_counts[k] + serve_counts[k] for k in counts}
+    ph = {"phase": "AE", "model": name, "config": shape, "fields": fields, "batch": B,
+          "init_s": init_s, "launches": launched, "timed_steps_launches": counts,
+          "training_step_launches": step_counts,
+          "eval_launches": eval_counts, "serve_launches": serve_counts,
+          "step_ms_p50": p50, "step_ms_min": times[0], "step_ms_max": times[-1],
+          "examples_per_s": B / p50 * 1e3, "peak_mem_gb": peak_gb,
+          "params_m": sum(p.numel() for p in model.net.parameters()) / 1e6,
+          "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+          "cpu_rows": AE_CPU_ROWS, "card_loss": loss_k, "cpu_loss": loss_c,
+          "grad_max_abs_err": grad_err, "grad_err_over_tol_largest": over,
+          "grad_tol": TOL_GRAD, "loss_tol": TOL_LOSS, "zero_gradients": zero,
+          "test_auc_after_steps": result["auc"], "test_logloss": result["logloss"],
+          "eval_s": eval_s, "eval_rows_per_s": len(tst.data_index) / eval_s,
+          "route_diff": route_diff,
+          "route_tol": route_tol, "relu_flip_tol": TOL_RELU_FLIP, **relus,
+          "cpu_step_s": cpu_step_s, "model_s": time.perf_counter() - t_model,
+          "serve_max_abs_diff_vs_predict": serve_diff,
+          **{"serve_" + k: v for k, v in pred.stats().items()}}
+    emit("PHASE", ph)
+    kernels = AE_KERNELS.get(name, ())
+    check(not {k: v for k, v in launched.items() if k not in kernels and v},
+          f"phase AE {name} launched {counts} {eval_counts} {serve_counts}")
+    if name == "InterHAt":
+        check(counts["fused_transformer_layer"] > 0 and counts["fused_transformer_layer_bwd"] > 0
+              and eval_counts["fused_transformer_layer"] > 0
+              and serve_counts["fused_transformer_layer"] > 0
+              and not eval_counts["fused_transformer_layer_bwd"],
+              f"phase AE InterHAt: K1/K2 launches {counts}, {eval_counts}, {serve_counts}")
+    if name == "DIFM":
+        check(not counts["fused_mha"] and eval_counts["fused_mha"] > 0
+              and serve_counts["fused_mha"] > 0,
+              f"phase AE DIFM: K3 launches {counts}, {eval_counts}, {serve_counts}")
+    check(bool(torch.isfinite(losses).all()) and 0 < result["auc"] < 1,
+          f"phase AE {name} losses {losses}, AUC {result['auc']}")
+    check(step_ok, f"phase AE {name}: the step disagrees with the CPU copy's: loss {loss_k} vs "
+                   f"{loss_c}, gradients {grad_err} {over}")
+    check(relus["flipped_largest_input"] <= TOL_RELU_FLIP,
+          f"phase AE {name}: card and CPU copy decide relus apart away from 0: {relus}")
+    check(route_diff is None or route_diff <= route_tol,
+          f"phase AE {name}: the kernel route's scores differ from the plain route's by "
+          f"{route_diff}")
+    check(serve_diff <= TOL_PROB, f"phase AE {name}: ScorePredictor differs from predict by "
+                                  f"{serve_diff}")
+    return ph
+
+
+def phase_ae(device):
+    """The fifteen models of the zoo at their repo configs on phase R's data
+    (criteo-1m-shape, 39 fields), batch 8192 (``zoo_step``): InterHAt
+    through K1 and K2 (K1 alone in evaluation and serving), DIFM's
+    evaluation and serving through K3, the others through no kernel."""
+    ref, ds, (trn, _, tst), _, _, _, _ = criteo_setup()
+    staged = {}
+    return [zoo_step(device, name, trn, tst, ref["batch_size"], staged) for name in AE_MODELS]
+
+
+def phase_af(device):
+    """InterHAt, DIFM and xDeepFM the way users start them
+    (``ranker_fit_phase``, at most 2 epochs each): InterHAt's training
+    through K1 and K2, its validation, evaluation and serving through K1;
+    DIFM's validation, evaluation and serving through K3."""
+    kernels = {"InterHAt": ("fused_transformer_layer", "fused_transformer_layer_bwd"),
+               "DIFM": ("fused_mha",), "xDeepFM": ()}
+    keys = {"InterHAt": ("embed_dim", "n_head", "feedforward_dim", "order", "dropout"),
+            "DIFM": ("embed_dim", "mlp_layer", "n_head", "dropout"),
+            "xDeepFM": ("embed_dim", "cin_layer_size", "direct", "dropout")}
+    return [ranker_fit_phase(device, "AF", name, {k: AE_MODELS[name][k] for k in keys[name]},
+                             kernels[name], profile=False) for name in kernels]
+
+
 def causal_mask(L, device, causal=True):
     """The causal attention mask (True = disallow), or None (bidirectional)."""
     import torch
     return torch.triu(torch.ones((L, L), dtype=torch.bool, device=device), 1) if causal else None
 
 
-def k1_versus_plain(device, B, L, D, F, H, causal=True):
+def k1_versus_plain(device, B, L, D, F, H, causal=True, padded=True, act="gelu", eps=1e-12):
     """K1 in eval mode against the plain layer, with a bitwise repeat and
-    the output tile of each of its four products (sized to the card)."""
+    the output tile of each of its four products (sized to the card);
+    ``padded`` False: no key padding mask (InterHAt's fields)."""
     import numpy as np
     import torch
     from recstudio_torch.ops.transformer_layer import (forward_tiles, fused_transformer_layer,
@@ -3549,25 +3830,50 @@ def k1_versus_plain(device, B, L, D, F, H, causal=True):
     tree = random_sasrec_params(B + L, 2, D, 1, F, 1)
     params = layer_params(tree["query_encoder"]["transformer"]["layer_0"], device)
     x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(device)
-    pad = torch.from_numpy(right_padding(rng, B, L)).to(device)
+    pad = torch.from_numpy(right_padding(rng, B, L)).to(device) if padded else None
     attn = causal_mask(L, device, causal)
-    kern = lambda: fused_transformer_layer(x, params, pad, attn, H, 0.0, "gelu", 1e-12, False)
-    plain = lambda: transformer_layer_plain(x, params, pad, attn, H, "gelu", 1e-12)
+    kern = lambda: fused_transformer_layer(x, params, pad, attn, H, 0.0, act, eps, False)
+    plain = lambda: transformer_layer_plain(x, params, pad, attn, H, act, eps)
+    lib = library_layer(params, D, H, F, eps, device) if act == "relu" and not (
+        padded or causal) else None
     with torch.no_grad():
         got, want = kern(), plain()
         bitwise = torch.equal(got, kern())
         torch.cuda.synchronize()
         max_abs, max_rel, ok = errors(got, want, TOL_K1)
         ms, plain_ms = time_ms(kern), time_ms(plain)
-    flops = 2 * B * L * D * (3 * D + D + 2 * F) + 4 * attended_pairs(pad, attn) * D
-    nbytes = 4 * (2 * B * L * D + 4 * D * D + 2 * D * F + 9 * D + F + B * L
+        if lib is not None:                  # the same function in one PyTorch call
+            lib_abs, _, lib_ok = errors(lib(x), want, TOL_K1)
+            ok &= lib_ok
+            library_ms = time_ms(lambda: lib(x))
+    flops = 2 * B * L * D * (3 * D + D + 2 * F) + 4 * attended_pairs(pad, attn, (B, L)) * D
+    nbytes = 4 * (2 * B * L * D + 4 * D * D + 2 * D * F + 9 * D + F + (B * L if padded else 0)
                   + (L * L if causal else 0))
     b_ms, by = bound(flops, nbytes)
-    return {"shape": dict(B=B, L=L, D=D, F=F, H=H, causal=causal), "max_abs_err": max_abs,
+    return {"shape": dict(B=B, L=L, D=D, F=F, H=H, causal=causal, key_padding=padded,
+                          activation=act), "max_abs_err": max_abs,
             "max_rel_err": max_rel, "tol": TOL_K1, "ok": ok and bitwise,
             "bitwise_repeatable": bitwise, "tiles": forward_tiles(B, L, D, F, False, device),
-            "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
-            "bound_by": by, "gflop": flops / 1e9}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "gflop": flops / 1e9,
+            **({"library_ms": None} if lib is None else {
+                "library_ms": library_ms, "library": "nn.TransformerEncoderLayer, eval",
+                "library_max_abs_err": lib_abs})}
+
+
+def library_layer(params, D, H, F, eps, device):
+    """``nn.TransformerEncoderLayer`` holding the layer's ``params``: in
+    eval mode under ``no_grad``, with no mask, one call (its fused fast
+    path) computes K1's post-LN relu layer."""
+    import torch
+    layer = torch.nn.TransformerEncoderLayer(D, H, F, dropout=0.0, activation="relu",
+                                             layer_norm_eps=eps, batch_first=True,
+                                             norm_first=False, device=device).eval()
+    layer.load_state_dict({
+        "self_attn." + n if n.startswith("in_proj") else
+        "self_attn.out_proj." + n[len("out_proj_"):] if n.startswith("out_proj") else
+        n.replace("_", ".", 1): v for n, v in params.items()})
+    return layer
 
 
 def k3_versus_plain(device, B, H, L, Dh, causal=True):
@@ -3648,9 +3954,9 @@ def k3_unmasked_versus_plain(device, B, H, L, Dh):
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
 
 
-def layer_inputs(device, B, L, D, F, seed, causal=True):
-    """Seeded layer weights, x, an output gradient g, right padding and the
-    attention mask (None unless ``causal``)."""
+def layer_inputs(device, B, L, D, F, seed, causal=True, padded=True):
+    """Seeded layer weights, x, an output gradient g, right padding (None
+    unless ``padded``) and the attention mask (None unless ``causal``)."""
     import numpy as np
     import torch
     from recstudio_torch.utils.convert import random_sasrec_params
@@ -3659,22 +3965,22 @@ def layer_inputs(device, B, L, D, F, seed, causal=True):
     params = layer_params(tree["query_encoder"]["transformer"]["layer_0"], device)
     x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(device)
     g = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(device)
-    pad = torch.from_numpy(right_padding(rng, B, L)).to(device)
+    pad = torch.from_numpy(right_padding(rng, B, L)).to(device) if padded else None
     return params, x, g, pad, causal_mask(L, device, causal)
 
 
-def k1_train_versus_plain(device, B, L, D, F, H, p=0.5, seed=2026, causal=True):
+def k1_train_versus_plain(device, B, L, D, F, H, p=0.5, seed=2026, causal=True, padded=True,
+                          act="gelu", eps=1e-12):
     """K1 in training mode (dropout on) against the plain forward with the
     same masks, with a bitwise repeat of the output and of every residual
     K2 reads."""
     import torch
     from recstudio_torch.ops.transformer_layer import (forward_tiles, training_residuals,
                                                        transformer_layer_plain)
-    params, x, _, pad, attn = layer_inputs(device, B, L, D, F, B + L + 2, causal)
-    call = lambda: training_residuals(x, params, pad, attn, H, p, "gelu", 1e-12, seed)
+    params, x, _, pad, attn = layer_inputs(device, B, L, D, F, B + L + 2, causal, padded)
+    call = lambda: training_residuals(x, params, pad, attn, H, p, act, eps, seed)
     kern = lambda: call()[0]
-    plain = lambda: transformer_layer_plain(x, params, pad, attn, H, "gelu", 1e-12, p, seed,
-                                            True)
+    plain = lambda: transformer_layer_plain(x, params, pad, attn, H, act, eps, p, seed, True)
     with torch.no_grad():
         (got, res), want = call(), plain()
         got2, res2 = call()
@@ -3684,20 +3990,22 @@ def k1_train_versus_plain(device, B, L, D, F, H, p=0.5, seed=2026, causal=True):
         max_abs, max_rel, ok = errors(got, want, TOL_K1)
         ms, plain_ms = time_ms(kern), time_ms(plain, iters=5)
     M = B * L
-    flops = 2 * M * D * (3 * D + D + 2 * F) + 4 * attended_pairs(pad, attn) * D
+    flops = 2 * M * D * (3 * D + D + 2 * F) + 4 * attended_pairs(pad, attn, (B, L)) * D
     weights = 4 * D * D + 2 * D * F + 9 * D + F
     # x, weights, masks in; out and the residuals of K2 out
-    nbytes = 4 * (M * D + weights + B * L + (L * L if causal else 0) + M * D
+    nbytes = 4 * (M * D + weights + (B * L if padded else 0) + (L * L if causal else 0) + M * D
                   + M * (3 * D + 4 * D + 2 * F + 2) + B * H * L * 2)
     b_ms, by = bound(flops, nbytes)
-    return {"shape": dict(B=B, L=L, D=D, F=F, H=H, dropout=p, causal=causal),
+    return {"shape": dict(B=B, L=L, D=D, F=F, H=H, dropout=p, causal=causal,
+                          key_padding=padded, activation=act),
             "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": TOL_K1,
             "ok": ok and bitwise, "bitwise_repeatable": bitwise,
             "tiles": forward_tiles(B, L, D, F, True, device), "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9}
 
 
-def k2_versus_plain(device, B, L, D, F, H, p=0.5, seed=2027, causal=True):
+def k2_versus_plain(device, B, L, D, F, H, p=0.5, seed=2027, causal=True, padded=True,
+                    act="gelu", eps=1e-12):
     """K2 (dropout on) against autograd through the plain forward with the
     same masks; the plain time is the autograd backward alone. Reports the
     share of its attention steps' tile pairs (``K2_ATTN_TILE``) K2 computes
@@ -3711,17 +4019,17 @@ def k2_versus_plain(device, B, L, D, F, H, p=0.5, seed=2027, causal=True):
                                                        training_residuals,
                                                        transformer_layer_plain,
                                                        weight_grad_splits)
-    params, x, g, pad, attn = layer_inputs(device, B, L, D, F, B + L + 3, causal)
-    _, res = training_residuals(x, params, pad, attn, H, p, "gelu", 1e-12, seed)
-    kern = lambda: fused_transformer_layer_bwd(g, x, params, pad, attn, H, p, "gelu", 1e-12,
-                                               seed, res)
+    params, x, g, pad, attn = layer_inputs(device, B, L, D, F, B + L + 3, causal, padded)
+    _, res = training_residuals(x, params, pad, attn, H, p, act, eps, seed)
+    kern = lambda: fused_transformer_layer_bwd(g, x, params, pad, attn, H, p, act, eps, seed,
+                                               res)
     dx, grads = kern()
     dx2, grads2 = kern()
     torch.cuda.synchronize()
     bitwise = torch.equal(dx, dx2) and all(torch.equal(grads[n], grads2[n]) for n in PARAM_NAMES)
     xs = x.detach().requires_grad_()
     ps = {n: params[n].detach().requires_grad_() for n in PARAM_NAMES}
-    out = transformer_layer_plain(xs, ps, pad, attn, H, "gelu", 1e-12, p, seed, True)
+    out = transformer_layer_plain(xs, ps, pad, attn, H, act, eps, p, seed, True)
     inputs = [xs, *(ps[n] for n in PARAM_NAMES)]
     plain = lambda: torch.autograd.grad(out, inputs, g, retain_graph=True)
     want = plain()
@@ -3729,14 +4037,15 @@ def k2_versus_plain(device, B, L, D, F, H, p=0.5, seed=2027, causal=True):
                                                                             want[1:]))})
     ms, plain_ms = time_ms(kern), time_ms(plain, iters=5)
     M = B * L
-    flops = 2 * 2 * M * D * (3 * D + D + 2 * F) + 8 * attended_pairs(pad, attn) * D
+    flops = 2 * 2 * M * D * (3 * D + D + 2 * F) + 8 * attended_pairs(pad, attn, (B, L)) * D
     weights = 4 * D * D + 2 * D * F + 9 * D + F
     # x, masks, weights, the residuals and g in; dx and the twelve gradients out
-    nbytes = 4 * (M * D + B * L + (L * L if causal else 0) + weights
+    nbytes = 4 * (M * D + (B * L if padded else 0) + (L * L if causal else 0) + weights
                   + M * (3 * D + 4 * D + 2 * F + 2) + B * H * L * 2 + M * D + M * D + weights)
     b_ms, by = bound(flops, nbytes)
     tiles, empty = mha_tiles(pad, attn, L, L, *K2_ATTN_TILE)
-    return {"shape": dict(B=B, L=L, D=D, F=F, H=H, dropout=p, causal=causal),
+    return {"shape": dict(B=B, L=L, D=D, F=F, H=H, dropout=p, causal=causal,
+                          key_padding=padded, activation=act),
             "max_abs_err": max_abs,
             "tol": TOL_GRAD, "ok": ok and bitwise, "bitwise_repeatable": bitwise, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": by,
@@ -4061,7 +4370,7 @@ def _main(device, prepared) -> int:
                phase_q, lambda d: phase_r(d, prepared["R"]), phase_s,
                lambda d: phase_t(d, prepared["T"]), phase_u, phase_w, phase_x, phase_y,
                phase_y2, phase_z, phase_aa, lambda d: phase_ab(d, prepared["AB"]), phase_ac,
-               phase_ad, lambda d: phase_v(d, prepared["V"])):
+               phase_ad, phase_ae, phase_af, lambda d: phase_v(d, prepared["V"])):
         t = time.perf_counter()
         out = fn(device)
         phases += out if isinstance(out, list) else [out]
@@ -4097,6 +4406,16 @@ def _main(device, prepared) -> int:
             ("K3@F", k3_f), ("K3@autoint", k3_autoint), ("K3@aitm", k3_aitm),
             ("K1train@D", k1_d), ("K2@D", k2_d), ("K1@F", k1_f), ("K1train@F", k1t_f),
             ("K2@F", k2_f)]
+    # phase AE's InterHAt (its layer over criteo's 39 fields: d 16, Dh 8, F 64,
+    # relu, neither mask; dropout 0.3 in training) and DIFM (Dh 5, no mask)
+    rows += [("K1@interhat", k1_versus_plain(device, 8192, 39, 16, 64, 2, causal=False,
+                                             padded=False, act="relu", eps=1e-5)),
+             ("K1train@interhat", k1_train_versus_plain(device, 8192, 39, 16, 64, 2, p=0.3,
+                                                        causal=False, padded=False,
+                                                        act="relu", eps=1e-5)),
+             ("K2@interhat", k2_versus_plain(device, 8192, 39, 16, 64, 2, p=0.3, causal=False,
+                                             padded=False, act="relu", eps=1e-5)),
+             ("K3@difm", k3_unmasked_versus_plain(device, 8192, 2, 39, 5))]
     rows += [(f"{k}@F", clse_f[k]) for k in ("K7", "K8", "K9")]
     rows += [(f"{k}@cat500k", clse_cat[k]) for k in ("K7", "K8", "K9")]
     rows += [(f"{k}@K", clse_k[k]) for k in ("K7", "K8", "K9")]

@@ -25,6 +25,23 @@ def _draw(shape, method: str, init_range: float, generator: torch.Generator,
     raise ValueError(f"unknown init method {method}")
 
 
+def _flax_fans(shape):
+    """flax's fans (``variance_scaling``, in axis -2, out axis -1): each
+    scaled by the product of the other axes."""
+    receptive = 1
+    for s in shape[:-2]:
+        receptive *= s
+    return shape[-1] * receptive, shape[-2] * receptive
+
+
+# initializers a module declares for a raw parameter of its own
+# (``raw_init``), the flax initializer the JAX module declares there
+RAW_INITS = {
+    "normal": lambda shape, g: torch.randn(shape, generator=g),
+    "xavier_uniform": lambda shape, g: _draw(shape, "xavier_uniform", 0.0, g, _flax_fans(shape)),
+}
+
+
 def _lecun_normal(shape, generator: torch.Generator) -> torch.Tensor:
     """flax's ``lecun_normal``: a normal truncated at two standard
     deviations, scaled to variance ``1 / fan_in`` (fan_in ``shape[0]``)."""
@@ -41,6 +58,11 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
                     method: str = "xavier_normal", init_range: float = 0.02) -> None:
     """Re-initialise ``module``'s parameters in place, by role:
 
+    - a raw parameter that its module names in ``raw_init`` (``{name:
+      initializer}``, a key of ``RAW_INITS``): that initializer, which the
+      JAX module declares and the JAX rule by name leaves (CIN's ``conv_{i}``,
+      FmFM's ``field_weight``, the bilinear ``weight``, DCN-Mix's ``U_{i}``,
+      ``V_{i}``, ``C_{i}``, ``bias_{i}``);
     - ``*norm*_weight``: 1; ``*bias`` and ``bias_*`` (a GRU's): 0;
     - 2-D ``*weight`` and ``weight_*`` (embedding tables, projections, a
       GRU's ``weight_ih_l0 [3H, in]`` and ``weight_hh_l0 [3H, H]``, whose
@@ -62,9 +84,13 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
       batch norm's ``scale`` 1, ``Dice``'s ``alpha`` 0).
     """
     embeddings = {id(m.weight) for m in module.modules() if isinstance(m, nn.Embedding)}
+    raw = {id(getattr(m, n)): RAW_INITS[kind] for m in module.modules()
+           for n, kind in getattr(m, "raw_init", {}).items()}
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if "norm" in leaf and leaf.endswith("weight"):
+        if id(p) in raw:
+            p.copy_(raw[id(p)](tuple(p.shape), generator))
+        elif "norm" in leaf and leaf.endswith("weight"):
             p.fill_(1.0)
         elif leaf.endswith("bias") or leaf.startswith("bias_"):
             p.zero_()
@@ -74,7 +100,7 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
                 p[0].zero_()
         elif leaf == "w_hh" and p.dim() == 2:
             p.copy_(_lecun_normal(tuple(p.shape), generator))
-        elif leaf.startswith("kernel_") and p.dim() == 3:
+        elif (leaf == "kernel" or leaf.startswith("kernel_")) and p.dim() == 3:
             E, n_in, n_out = p.shape
             p.copy_(_draw(tuple(p.shape), method, init_range, generator,
                           fans=(E * n_out, E * n_in)))

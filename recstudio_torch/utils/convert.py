@@ -34,7 +34,15 @@ kernel ``dense_embedding``, the biases, ``CrossNetwork``'s ``w_{i}`` and
 ``Dense`` kernel (``{name}_dense/weight``, ``mlp/dense_{i}``, the
 attention's ``q_proj``, ``k_proj``, ``v_proj`` and ``out_proj``, ``res``,
 ``att_proj``, ``attn_fc``, ``fc``) is a ``Linear`` weight, transposed.
-The flax ``batch_stats`` collection is the batch norms' ``mean``, ``var``
+Both functions take the port's net: its tensors give each table's width,
+and a ``kernel`` is a ``Dense``'s only where the net holds an
+``nn.Linear`` there; the raw parameters of the interaction layers keep
+their name and layout (PNN's ``outer/kernel [D, P,
+D]``, CIN's ``conv_{i}``, FmFM's ``field_weight``, FiBiNET's bilinear
+``weight``, DCN-Mix's ``U_{i}``, ``V_{i}``, ``C_{i}``, ``bias_{i}``), and a
+``TransformerLayer``'s leaves inside a ranker (InterHAt's ``trm``) map
+through ``_LAYER_MAP`` as a sequence model's do. The flax ``batch_stats``
+collection is the batch norms' ``mean``, ``var``
 and ``count`` buffers (``ranker_batch_stats_to_jax`` the reverse). The
 same two functions carry DIN, DIEN and the multitask nets: an
 ``Embedding`` module's ``embedding`` leaf (DIN's and DIEN's
@@ -88,7 +96,7 @@ _LAYER_UNMAP = {v[0]: (k, v[1]) for k, v in _LAYER_MAP.items()}
 
 def _tensor(a, transpose: bool = False) -> torch.Tensor:
     a = np.asarray(a, np.float32)
-    return torch.from_numpy(np.ascontiguousarray(a.T if transpose else a).copy())
+    return torch.from_numpy(np.array(a.T if transpose else a, order="C"))
 
 
 def layer_params_from_jax(layer: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -188,14 +196,19 @@ def _is_token_table(leaf: str) -> bool:
 _BN_STATS = ("mean", "var", "count")
 
 
-# a sequence ranker's item tables (DIN, DIEN): modules whose JAX leaf is
-# ``embedding``, as a retriever's
-_RANKER_TABLES = ("item_embedding", "item_bias")
+def _owner(net: torch.nn.Module, parts: Tuple[str, ...]):
+    """The submodule of ``net`` at ``parts``, or None."""
+    try:
+        return net.get_submodule(".".join(parts))
+    except AttributeError:
+        return None
 
 
-def _ranker_port_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
+def _ranker_port_name(path: Tuple[str, ...], net: torch.nn.Module) -> Tuple[str, bool]:
     """A leaf of a JAX ranker's tree that is not a CTR token table -> (the
-    port's name, transpose)."""
+    port's name, transpose). A ``kernel`` is a ``Dense``'s, transposed, only
+    where ``net`` holds an ``nn.Linear``; a raw ``kernel`` (PNN's
+    ``outer/kernel [D, P, D]``) keeps its layout."""
     for j, part in enumerate(path[:-2]):
         if part.startswith("gru_") and path[j + 1] in ("ih", "hh"):
             # a GRULayer's <name>/gru_{i}/{ih,hh}/{kernel,bias}
@@ -205,17 +218,25 @@ def _ranker_port_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
     if path[0] == "experts" and path[-2].startswith("dense_"):
         # MMoE's bank: experts/dense_{i}/{kernel [E, in, out], bias [E, out]}
         return f"experts.{path[-1]}_{path[-2][len('dense_'):]}", False
+    if path[-1] in _LAYER_MAP:                      # a TransformerLayer's leaf
+        name, tr = _LAYER_MAP[path[-1]]
+        return ".".join(path[:-1] + (name,)), tr
     if path[-1] == "embedding":                     # an Embedding module's table
         return ".".join(path[:-1]) + ".weight", False
-    if path[-1] == "kernel":
+    owner = _owner(net, path[:-1])
+    if path[-1] == "kernel" and isinstance(owner, torch.nn.Linear):
         return ".".join(path[:-1]) + ".weight", True
-    if path[-2:-1] == ("ln",) and path[-1] == "scale":
+    if path[-1] == "scale" and isinstance(owner, torch.nn.LayerNorm):
         return ".".join(path[:-1]) + ".weight", False
     return ".".join(path), False
 
 
-def _ranker_jax_path(parts: Tuple[str, ...], value: torch.Tensor) -> Tuple[Tuple[str, ...], bool]:
-    """``_ranker_port_name``'s inverse."""
+def _ranker_jax_path(parts: Tuple[str, ...], net: torch.nn.Module) -> Tuple[Tuple[str, ...], bool]:
+    """``_ranker_port_name``'s inverse: a ``weight`` is a CTR token table,
+    an ``Embedding``'s table, a ``Linear``'s kernel, a ``LayerNorm``'s
+    scale, or else a
+    raw parameter in the JAX layout (FiBiNET's bilinear ``weight``), as the
+    module of ``net`` that holds it says."""
     leaf = parts[-1]
     if parts[-3:-2] == ("layers",) and leaf.endswith("_l0") and leaf.count("_") == 2:
         kind, gate, _ = leaf.split("_")             # {weight,bias}_{ih,hh}_l0
@@ -224,55 +245,85 @@ def _ranker_jax_path(parts: Tuple[str, ...], value: torch.Tensor) -> Tuple[Tuple
     if parts[0] == "experts" and leaf.startswith(("kernel_", "bias_")):
         kind, i = leaf.split("_")
         return ("experts", f"dense_{i}", kind), False
+    if leaf in _LAYER_UNMAP:
+        name, tr = _LAYER_UNMAP[leaf]
+        return parts[:-1] + (name,), tr
     if leaf == "weight":
-        if parts[:-1] in [(t,) for t in _RANKER_TABLES]:
+        from ..models.module.ctr import Embeddings
+        owner = _owner(net, parts[:-1])
+        if isinstance(owner, torch.nn.Embedding):
+            if isinstance(_owner(net, parts[:-2]), Embeddings):     # a CTR token table
+                return parts[:-1], False
             return parts[:-1] + ("embedding",), False
-        if _is_token_table(parts[-2]):
-            return parts[:-1], False
-        if parts[-2] == "ln" and value.dim() == 1:
+        if isinstance(owner, torch.nn.Linear):
+            return parts[:-1] + ("kernel",), True
+        if isinstance(owner, torch.nn.LayerNorm):
             return parts[:-1] + ("scale",), False
-        return parts[:-1] + ("kernel",), True
     return parts, False
 
 
-def ranker_params_from_jax(tree: Dict[str, Any], embed_dim: int,
-                           batch_stats: Dict[str, Any] = None,
-                           packed: bool = False) -> Dict[str, torch.Tensor]:
-    """A JAX ranker's params -> the port's ``state_dict``. ``embed_dim`` is
-    the model's D (the ``linear`` tree's tables are 1 wide). A packed ``[N,
-    3D]`` table of the JAX row-sparse fit (params | mu | nu) is kept whole
-    for a port model whose tables are packed (``packed``), else it gives
-    its first D columns (its moments: ``ranker_moments_from_jax``).
-    ``batch_stats``, the flax collection of the net's batch norms, gives
-    their ``mean``, ``var`` and ``count`` buffers; a LayerNorm's ``ln/scale``
-    is its ``ln.weight``."""
-    sd = {}
+def _target(sd: Dict[str, torch.Tensor], name: str, shape) -> torch.Tensor:
+    """The port net's tensor ``name`` (``sd`` its ``state_dict``); a
+    ``KeyError`` or ``ValueError`` where it has none, or one of another
+    rank."""
+    if name not in sd:
+        raise KeyError(f"the port's net has no {name!r}")
+    if sd[name].dim() != len(shape):
+        raise ValueError(f"{name}: the port's is {tuple(sd[name].shape)}, the JAX leaf's "
+                         f"{tuple(shape)}")
+    return sd[name]
+
+
+def _table_width(sd: Dict[str, torch.Tensor], path: Tuple[str, ...], width: int) -> int:
+    """The width of the port's token table at ``path`` (``width`` columns in
+    the JAX tree): a JAX table is as wide as the port's, or three times as
+    wide (params | mu | nu of the row-sparse fit) for an unpacked port
+    table; any other width raises."""
+    d = _target(sd, ".".join(path) + ".weight", (0, width)).shape[-1]
+    if width not in (d, 3 * d):
+        raise ValueError(f"{'/'.join(path)}: a JAX table {width} wide for a port table "
+                         f"{d} wide")
+    return d
+
+
+def ranker_params_from_jax(tree: Dict[str, Any], net: torch.nn.Module,
+                           batch_stats: Dict[str, Any] = None) -> Dict[str, torch.Tensor]:
+    """A JAX ranker's params -> the ``state_dict`` of the port's ``net``,
+    whose tensors give each table's width and whose modules tell a
+    ``Dense`` kernel from a raw parameter. A packed ``[N, 3D]`` table of
+    the JAX row-sparse fit (params | mu | nu) is kept whole where ``net``'s
+    table is packed, else it gives its first D columns (its moments:
+    ``ranker_moments_from_jax``). ``batch_stats``, the flax collection of
+    the net's batch norms, gives their ``mean``, ``var`` and ``count``
+    buffers. A leaf ``net`` has no tensor for raises."""
+    sd, target = {}, net.state_dict()
     for path, value in _leaves(tree):
+        a = np.asarray(value, np.float32)
         if _is_token_table(path[-1]):
-            d = 1 if path[0] == "linear" else embed_dim
-            a = np.asarray(value, np.float32)
-            if a.shape[-1] == 3 * d and not packed:
-                a = a[:, :d]
-            sd[".".join(path) + ".weight"] = _tensor(a)
+            d = _table_width(target, path, a.shape[-1])
+            sd[".".join(path) + ".weight"] = _tensor(a[:, :d])
         else:
-            name, tr = _ranker_port_name(path)
-            sd[name] = _tensor(value, tr)
+            name, tr = _ranker_port_name(path, net)
+            sd[name] = _tensor(a, tr)
+            _target(target, name, a.shape)
     for path, value in _leaves(batch_stats or {}):
         sd[".".join(path)] = _tensor(value)
     return sd
 
 
-def ranker_moments_from_jax(tree: Dict[str, Any], embed_dim: int
+def ranker_moments_from_jax(tree: Dict[str, Any], net: torch.nn.Module
                             ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
     """The moments a JAX row-sparse fit keeps in its packed ``[N, 3D]``
     tables: ``{port name: (mu, nu)}``, columns D to 2D and 2D to 3D, the
-    dense ``LazyAdam``'s moments of the unpacked table."""
-    out = {}
+    dense ``LazyAdam``'s moments of ``net``'s unpacked table."""
+    out, target = {}, net.state_dict()
     for path, value in _leaves(tree):
-        d = 1 if path[0] == "linear" else embed_dim
         a = np.asarray(value, np.float32)
-        if _is_token_table(path[-1]) and a.shape[-1] == 3 * d:
-            out[".".join(path) + ".weight"] = (_tensor(a[:, d:2 * d]), _tensor(a[:, 2 * d:]))
+        if _is_token_table(path[-1]):
+            d = _table_width(target, path, a.shape[-1])
+            if a.shape[-1] == 3 * d:
+                out[".".join(path) + ".weight"] = (_tensor(a[:, d:2 * d]),
+                                                   _tensor(a[:, 2 * d:]))
     return out
 
 
@@ -280,15 +331,16 @@ def _is_bn_stat(key: str) -> bool:
     return key.rsplit(".", 1)[-1] in _BN_STATS
 
 
-def ranker_params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """``ranker_params_from_jax``'s inverse, for parameters or gradients
-    (a packed table stays ``[N, 3D]``); the batch-norm buffers are left
-    out (``ranker_batch_stats_to_jax``)."""
+def ranker_params_to_jax(values: Dict[str, torch.Tensor], net: torch.nn.Module
+                         ) -> Dict[str, Any]:
+    """``ranker_params_from_jax``'s inverse, for ``net``'s parameters or
+    their gradients by the same names (a packed table stays ``[N, 3D]``);
+    the batch-norm buffers are left out (``ranker_batch_stats_to_jax``)."""
     out: Dict[str, Any] = {}
-    for key, value in state_dict.items():
+    for key, value in values.items():
         if _is_bn_stat(key):
             continue
-        parts, tr = _ranker_jax_path(tuple(key.split(".")), value)
+        parts, tr = _ranker_jax_path(tuple(key.split(".")), net)
         node = out
         for part in parts[:-1]:
             node = node.setdefault(part, {})
@@ -312,15 +364,15 @@ def ranker_batch_stats_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, 
     return out
 
 
-def cascade_params_from_jax(params: Dict[str, Any], states: Dict[str, Any], embed_dim: int,
-                            batch_stats: Dict[str, Any] = None
+def cascade_params_from_jax(params: Dict[str, Any], states: Dict[str, Any],
+                            net: torch.nn.Module, batch_stats: Dict[str, Any] = None
                             ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """A JAX cascade's ranker params and ``states`` -> ``(the ranker's
     state_dict, the retriever's state_dict)``: the retriever's parameters
     are nested in ``states["retriever"]["params"]`` there
     (``baseranker.py:63-70``), and load into the port's retriever before
     the ranker freezes it."""
-    return (ranker_params_from_jax(params, embed_dim, batch_stats),
+    return (ranker_params_from_jax(params, net, batch_stats),
             params_from_jax(_as_numpy(states["retriever"]["params"])))
 
 

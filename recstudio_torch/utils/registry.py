@@ -3,7 +3,8 @@
 The subset of ``recstudio_tpu/utils/registry.py`` this port implements:
 SASRec, BERT4Rec, GRU4Rec, NARM, STAMP, DIN and DIEN (``seq``), BPR, PMF,
 CML, NCF and LogisticMF (``mf``), MultiDAE and MultiVAE (``ae``), DeepFM,
-FM, LR, WideDeep, DCN, NFM and AutoInt (``fm``), LightGCN, NGCF and SimGCL
+FM, LR, WideDeep, DCN, NFM, AutoInt, InterHAt, DIFM, xDeepFM, DCNv2, PNN,
+DLRM, FwFM, AFM, FFM, FmFM, FiBiNET, MaskNet, ONN, HFM and AFN (``fm``), LightGCN, NGCF and SimGCL
 (``graph``), HardShare, MMoE, PLE and AITM (``multitask``), and the
 dataset configs they run on.
 """
@@ -37,6 +38,21 @@ _MODELS = {"sasrec": ("seq", "SASRec", ("seq_all", "sasrec")),
            "dcn": ("fm", "DCN", ("fm_all", "dcn")),
            "nfm": ("fm", "NFM", ("fm_all", "nfm")),
            "autoint": ("fm", "AutoInt", ("fm_all", "autoint")),
+           "interhat": ("fm", "InterHAt", ("fm_all", "interhat")),
+           "difm": ("fm", "DIFM", ("fm_all", "difm")),
+           "xdeepfm": ("fm", "xDeepFM", ("fm_all", "xdeepfm")),
+           "dcnv2": ("fm", "DCNv2", ("fm_all", "dcnv2")),
+           "pnn": ("fm", "PNN", ("fm_all", "pnn")),
+           "dlrm": ("fm", "DLRM", ("fm_all", "dlrm")),
+           "fwfm": ("fm", "FwFM", ("fm_all", "fwfm")),
+           "afm": ("fm", "AFM", ("fm_all", "afm")),
+           "ffm": ("fm", "FFM", ("fm_all", "ffm")),
+           "fmfm": ("fm", "FmFM", ("fm_all", "fmfm")),
+           "fibinet": ("fm", "FiBiNET", ("fm_all", "fibinet")),
+           "masknet": ("fm", "MaskNet", ("fm_all", "masknet")),
+           "onn": ("fm", "ONN", ("fm_all", "onn")),
+           "hfm": ("fm", "HFM", ("fm_all", "hfm")),
+           "afn": ("fm", "AFN", ("fm_all", "afn")),
            "lightgcn": ("graph", "LightGCN", ("lightgcn",)),
            "ngcf": ("graph", "NGCF", ("ngcf",)),
            "simgcl": ("graph", "SimGCL", ("simgcl",)),

@@ -3,7 +3,7 @@
 JAX bands of phase X (WideDeep, DCN, NFM and AutoInt on ml-100k).
 
     python3 scripts/torch_ctr_seeds.py [--epochs 6] [--seeds 2022 2023 ...]
-    JAX_PLATFORMS=cpu python scripts/torch_ctr_seeds.py --jax-ml100k [WideDeep DCN NFM AutoInt]
+    JAX_PLATFORMS=cpu python scripts/torch_ctr_seeds.py --jax-ml100k [WideDeep DCN ... xDeepFM]
     JAX_PLATFORMS=cpu python scripts/torch_ctr_seeds.py --one MODEL SEED
     python3 scripts/torch_ctr_seeds.py --port MODEL [SEED ...]
 
@@ -40,13 +40,15 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "recstudio_torch", "assets")
-ML100K_MODELS = ("WideDeep", "DCN", "NFM", "AutoInt")
+ML100K_MODELS = ("WideDeep", "DCN", "NFM", "AutoInt", "InterHAt", "DIFM", "xDeepFM")
 # the epoch cap of each ml-100k run, phase X's depth: the JAX fits' best
 # validation epochs at the config's own cap (1000, patience 10) were 3–10
 # (WideDeep), 2–7 (DCN), 3–8 (NFM) and 7–25 (AutoInt), and the ten epochs
 # of patience after them took most of phase X's time; cut again to 4 each
-# when phases AA–AD joined the script, for its time limit
-ML100K_EPOCHS = {"WideDeep": 4, "DCN": 4, "NFM": 4, "AutoInt": 4}
+# when phases AA–AD joined the script, for its time limit; InterHAt, DIFM and
+# xDeepFM (phase AF) run at most 2 each, for the same limit
+ML100K_EPOCHS = {"WideDeep": 4, "DCN": 4, "NFM": 4, "AutoInt": 4, "InterHAt": 2, "DIFM": 2,
+                 "xDeepFM": 2}
 SEEDS = (2022, 2023, 2024, 2025, 2026, 2027)
 PARALLEL = 6
 ABOUT = {
@@ -57,6 +59,12 @@ ABOUT = {
            "norm, sigmoid, dropout 0.3",
     "AutoInt": "embed_dim 10, attention_dim 64, 3 attention layers, 2 heads, residual "
                "projection, MLP [128, 64], relu, dropout 0.5",
+    "InterHAt": "embed_dim 16, one transformer layer (2 heads, feedforward 64, relu), order "
+                "3, aggregation_dim 32, MLP [128, 64], relu, dropout 0.3",
+    "DIFM": "embed_dim 10, self-attention FEN (2 heads), MLP FEN [256, 256], relu, "
+            "dropout 0.3",
+    "xDeepFM": "embed_dim 10, CIN [100, 100, 100] (direct False), MLP [128, 128, 128], "
+               "relu, dropout 0.2",
 }
 
 

@@ -60,7 +60,7 @@ def main(steps: int) -> int:
     (jm, jconf, jsplits), (m, conf, splits) = built
 
     own = dict(leaves(ranker_params_to_jax({k: v.detach() for k, v in
-                                            m.net.named_parameters()})))
+                                            m.net.named_parameters()}, m.net)))
     print("initial weights: parameter, shape, JAX std / max, port std / max")
     for name, w in leaves(jax.tree_util.tree_map(np.asarray, jm.params)):
         p = own[name]
@@ -76,7 +76,7 @@ def main(steps: int) -> int:
     m = type(m)(conf, device="cpu")
     m._init_model(splits[0])
     m.load_state_dict(ranker_params_from_jax(jax.tree_util.tree_map(np.asarray, jm.params),
-                                             m.embed_dim))
+                                             m.net))
     m.optimizer = m._get_optimizer()
     opt = optax.adam(float(jconf["train"].get("learning_rate", 1e-3)))
     params, opt_state = jm.params, opt.init(jm.params)
@@ -107,7 +107,7 @@ def main(steps: int) -> int:
         if i % 50 == 0 or i == steps - 1:
             print(f"  {i:4d} {float(jloss):.6f} {float(loss):.6f}", flush=True)
     got = dict(leaves(ranker_params_to_jax({k: v.detach() for k, v in
-                                            m.net.named_parameters()})))
+                                            m.net.named_parameters()}, m.net)))
     worst = max(float(np.abs(got[k] - w).max() / (np.abs(w).max() + 1e-12))
                 for k, w in leaves(jax.tree_util.tree_map(np.asarray, params)))
     print(f"largest relative parameter difference after {steps} steps: {worst:.3g}")

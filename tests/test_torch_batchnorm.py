@@ -148,7 +148,7 @@ def test_batch_norm_mlp_matches_jax(act, batch_norm, last_activation, last_bn):
                     last_bn=last_bn)
     stats0 = {k: v for k, v in mlp.state_dict().items() if k.rsplit(".", 1)[-1] in
               ("mean", "var", "count")}
-    mlp.load_state_dict({**stats0, **ranker_params_from_jax(params, 1)})
+    mlp.load_state_dict({**stats0, **ranker_params_from_jax(params, mlp)})
     bns = [n for n, m in mlp.named_modules() if isinstance(m, SimpleBatchNorm)]
     want_bns = (["bn_0", "bn_1"] + (["bn_2"] if last_bn else [])) if batch_norm else []
     if act == "dice":

@@ -127,11 +127,12 @@ def _cascade(pair):
         jranker.states["net"] = {"batch_stats": jax.tree_util.tree_map(jnp.asarray, stats)}
     jranker._epoch_refresh(-1)
     # the JAX cascade's nested retriever parameters load into the port's
-    # retriever before the ranker freezes it
-    ranker_sd, retr_sd = cascade_params_from_jax(params, jranker.states,
-                                                 conf["model"]["embed_dim"], stats)
-    retr.load_state_dict(retr_sd)
+    # retriever before the ranker freezes it (its net, built once before,
+    # gives the converter the ranker's layout)
     ranker = cls(conf, retriever=retr, loss=loss, **kw)
+    ranker._init_model(splits[0])
+    ranker_sd, retr_sd = cascade_params_from_jax(params, jranker.states, ranker.net, stats)
+    retr.load_state_dict(retr_sd)
     ranker._init_model(splits[0])
     ranker._init_parameter(splits[0])
     ranker.load_state_dict(ranker_sd)
@@ -204,7 +205,7 @@ def test_cascade_step_matches_jax_and_leaves_the_retriever(pair, monkeypatch):
     zero_pad_rows_in_grads(ranker.net)
     ranker.net.eval()
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
-    grads = ranker_params_to_jax({n: p.grad for n, p in ranker.net.named_parameters()})
+    grads = ranker_params_to_jax({n: p.grad for n, p in ranker.net.named_parameters()}, ranker.net)
     want = jax.tree_util.tree_map(np.asarray, jax_zero_pad(jgrads))
     largest = max(float(np.abs(g).max()) for g in jax.tree_util.tree_leaves(want))
     if "dense_mlp" in want:                 # DIN: dense_{i} feeds bn_{i} in training

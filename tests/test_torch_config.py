@@ -39,7 +39,9 @@ def test_autoencoder_model_configs_equal_jax(name):
     assert got["eval"]["batch_size"] == 200 and got["train"]["weight_decay"] == 1e-5
 
 
-@pytest.mark.parametrize("name", ["DeepFM", "FM", "LR", "WideDeep", "DCN", "NFM", "AutoInt"])
+@pytest.mark.parametrize("name", ["DeepFM", "FM", "LR", "WideDeep", "DCN", "NFM", "AutoInt",
+                                  "InterHAt", "DIFM", "xDeepFM", "DCNv2", "PNN", "DLRM", "FwFM",
+                                  "AFM", "FFM", "FmFM", "FiBiNET", "MaskNet", "ONN", "HFM", "AFN"])
 def test_ranker_model_configs_equal_jax(name):
     _, want = jax_get_model(name)
     cls, got = get_model(name)
@@ -101,7 +103,11 @@ def test_registry_lists_what_is_ported():
                              "dcn": "fm", "nfm": "fm", "autoint": "fm",
                              "lightgcn": "graph", "ngcf": "graph", "simgcl": "graph",
                              "din": "seq", "dien": "seq", "hardshare": "multitask",
-                             "mmoe": "multitask", "ple": "multitask", "aitm": "multitask"}
+                             "mmoe": "multitask", "ple": "multitask", "aitm": "multitask",
+                             "interhat": "fm", "difm": "fm", "xdeepfm": "fm", "dcnv2": "fm",
+                             "pnn": "fm", "dlrm": "fm", "fwfm": "fm", "afm": "fm", "ffm": "fm",
+                             "fmfm": "fm", "fibinet": "fm", "masknet": "fm", "onn": "fm",
+                             "hfm": "fm", "afn": "fm"}
 
 
 @pytest.mark.parametrize("key,value", [

@@ -75,12 +75,12 @@ def _compare(jmodule, tmodule, batch, embed_dim):
     ct = np.random.default_rng(2).normal(size=want.shape).astype(np.float32)
     with jax.default_matmul_precision("float32"):
         jgrads = jax.grad(lambda p: jnp.sum(jfn(p) * ct))(params)
-    tmodule.load_state_dict(ranker_params_from_jax(params, embed_dim))
+    tmodule.load_state_dict(ranker_params_from_jax(params, tmodule))
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     out = tmodule(tbatch)
     np.testing.assert_allclose(out.detach().numpy(), want, atol=TOL_OUT[0], rtol=TOL_OUT[1])
     (out * torch.from_numpy(ct)).sum().backward()
-    got = ranker_params_to_jax({n: p.grad for n, p in tmodule.named_parameters()})
+    got = ranker_params_to_jax({n: p.grad for n, p in tmodule.named_parameters()}, tmodule)
     flat_want = dict(_flat(jax.tree_util.tree_map(np.asarray, jgrads)))
     flat_got = dict(_flat(got))
     assert sorted(flat_got) == sorted(flat_want)

@@ -165,18 +165,20 @@ def _jax_deepfm(theirs, sparse_rows, tmp):
     return _BUILT[key]
 
 
-def _port_deepfm(ours, sparse_rows, weights):
+def _port_deepfm(ours, sparse_rows, tree):
     """The port's DeepFM on the CPU under ``sparse_adam`` and ``sparse_rows``,
-    given ``weights`` (a port ``state_dict``; a packed model takes packed
-    tables) and a fresh optimizer."""
+    given the weights of the JAX ``tree`` (a packed model takes packed
+    tables whole, an unpacked one their first D columns) and a fresh
+    optimizer."""
     from recstudio_torch.utils import get_model
+    from recstudio_torch.utils.convert import ranker_params_from_jax
     cls, conf = get_model("DeepFM")
     conf["train"].update(batch_size=BATCH, learner="sparse_adam", sparse_rows=sparse_rows)
     conf["model"]["dropout"] = 0.0
     model = cls(conf, device="cpu")
     model._init_model(ours[0])
     model._init_parameter(ours[0])
-    model.load_state_dict(weights)
+    model.load_state_dict(ranker_params_from_jax(tree, model.net))
     model.optimizer = model._get_optimizer()
     return model
 
@@ -195,15 +197,14 @@ def test_packed_step_matches_jax_and_dense_lazy_adam(ctr_splits, tmp_path):
     import jax
     import jax.numpy as jnp
     from recstudio_torch.models.optim import LazyAdam
-    from recstudio_torch.utils.convert import (ranker_moments_from_jax,
-                                               ranker_params_from_jax, ranker_params_to_jax)
+    from recstudio_torch.utils.convert import ranker_moments_from_jax, ranker_params_to_jax
     ours, theirs = ctr_splits
     jm = _jax_deepfm(theirs, "auto", tmp_path)
     assert jm._ctr_sparse_enabled()
     D = jm.config["model"]["embed_dim"]
     params = jax.tree_util.tree_map(np.asarray, jm.params)
-    sparse = _port_deepfm(ours, "auto", ranker_params_from_jax(params, D, packed=True))
-    dense = _port_deepfm(ours, "false", ranker_params_from_jax(params, D))
+    sparse = _port_deepfm(ours, "auto", params)
+    dense = _port_deepfm(ours, "false", params)
     assert sparse._ctr_sparse_enabled() and not dense._ctr_sparse_enabled()
     assert isinstance(dense.optimizer, LazyAdam)
     tables = _tables(sparse)
@@ -225,7 +226,7 @@ def test_packed_step_matches_jax_and_dense_lazy_adam(ctr_splits, tmp_path):
         w = sparse.net.get_parameter(name)
         assert w.grad is None and not w.requires_grad           # no [N, D] gradient
     # against the JAX packed step: every leaf, packed tables whole
-    got = ranker_params_to_jax(sparse.net.state_dict())
+    got = ranker_params_to_jax(sparse.net.state_dict(), sparse.net)
     want = jax.tree_util.tree_map(np.asarray, p)
     for path, leaf in jax.tree_util.tree_flatten_with_path(want)[0]:
         names = [str(getattr(x, "key", x)) for x in path]
@@ -236,7 +237,7 @@ def test_packed_step_matches_jax_and_dense_lazy_adam(ctr_splits, tmp_path):
     # against the dense LazyAdam: parameters, and the packed moment columns
     # against the dense moments
     sd_s, sd_d = sparse.net.state_dict(), dense.net.state_dict()
-    moments = ranker_moments_from_jax(ranker_params_to_jax(sd_s), D)
+    moments = ranker_moments_from_jax(ranker_params_to_jax(sd_s, sparse.net), dense.net)
     assert sorted(moments) == sorted(tables)
     for name, p_d in sd_d.items():
         p_s = sd_s[name]
@@ -262,11 +263,9 @@ def test_packed_step_matches_jax_and_dense_lazy_adam(ctr_splits, tmp_path):
 
 def test_packed_step_repeats_bit_for_bit(ctr_splits, tmp_path):
     import jax
-    from recstudio_torch.utils.convert import ranker_params_from_jax
     ours, theirs = ctr_splits
     jm = _jax_deepfm(theirs, "auto", tmp_path)
-    weights = ranker_params_from_jax(jax.tree_util.tree_map(np.asarray, jm.params),
-                                     jm.config["model"]["embed_dim"], packed=True)
+    weights = jax.tree_util.tree_map(np.asarray, jm.params)
     runs = []
     for _ in range(2):
         model = _port_deepfm(ours, "true", weights)
@@ -329,7 +328,7 @@ def test_packed_checkpoint_and_serving(ctr_splits, tmp_path):
     import jax
     from recstudio_tpu.serving import ScorePredictor as JaxScorePredictor
     from recstudio_torch.serving import ScorePredictor
-    from recstudio_torch.utils.convert import ranker_params_from_jax, ranker_params_to_jax
+    from recstudio_torch.utils.convert import ranker_params_to_jax
     ours, theirs = ctr_splits
     jm = _jax_deepfm(theirs, "auto", tmp_path)
     params = jax.tree_util.tree_map(np.asarray, jm.params)
@@ -339,13 +338,13 @@ def test_packed_checkpoint_and_serving(ctr_splits, tmp_path):
     params = copy.deepcopy(params)
     params["embedding"]["token_embedding"] = np.concatenate(   # nonzero moments
         [tab[:, :D], rng.normal(size=tab[:, D:].shape).astype(np.float32)], axis=1)
-    model = _port_deepfm(ours, "auto", ranker_params_from_jax(params, D, packed=True))
-    back = ranker_params_to_jax(model.net.state_dict())
+    model = _port_deepfm(ours, "auto", params)
+    back = ranker_params_to_jax(model.net.state_dict(), model.net)
     np.testing.assert_array_equal(back["embedding"]["token_embedding"],
                                   params["embedding"]["token_embedding"])
     path = str(tmp_path / "packed.ckpt")
     model.save_checkpoint(path)
-    again = _port_deepfm(ours, "auto", ranker_params_from_jax(jm.params, D, packed=True))
+    again = _port_deepfm(ours, "auto", jax.tree_util.tree_map(np.asarray, jm.params))
     again.load_checkpoint(path)
     assert torch.equal(again.net.embedding.token_embedding.weight,
                        model.net.embedding.token_embedding.weight)
@@ -362,7 +361,7 @@ def test_packed_checkpoint_and_serving(ctr_splits, tmp_path):
     tst.use_field = model.fields
     full = tst._get_pos_batch(np.arange(300))
     np.testing.assert_allclose(got, model.predict(full), rtol=0, atol=1e-6)
-    unpacked = _port_deepfm(ours, "false", ranker_params_from_jax(params, D))
+    unpacked = _port_deepfm(ours, "false", params)
     np.testing.assert_allclose(unpacked.predict(full), got, rtol=0, atol=1e-6)
 
 

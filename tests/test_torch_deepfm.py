@@ -253,7 +253,7 @@ def _models(name, splits, learner="adam"):
     jmodel, model, tree = _BUILT[key]
     jmodel.params = tree
     jmodel.config["train"]["learner"] = model.config["train"]["learner"] = learner
-    model.load_state_dict(ranker_params_from_jax(tree, model.embed_dim))
+    model.load_state_dict(ranker_params_from_jax(tree, model.net))
     model.optimizer = None
     return jmodel, model
 
@@ -297,7 +297,7 @@ def _three_steps(jmodel, model, batch, learner, follow_jax=False):
     with jax.default_matmul_precision("float32"):
         for i in range(3):
             if follow_jax:
-                model.load_state_dict(ranker_params_from_jax(params, model.embed_dim))
+                model.load_state_dict(ranker_params_from_jax(params, model.net))
             want = np.asarray(score(params, jbatch))
             with torch.no_grad():
                 got = model.score(tbatch).numpy()
@@ -316,7 +316,7 @@ def _three_steps(jmodel, model, batch, learner, follow_jax=False):
                 loss = model._grad_step(tbatch)
             model.net.eval()
             np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5, err_msg=f"loss {i}")
-            grads = ranker_params_to_jax({n: p.grad for n, p in model.net.named_parameters()})
+            grads = ranker_params_to_jax({n: p.grad for n, p in model.net.named_parameters()}, model.net)
             _assert_tree(grads, jax.tree_util.tree_map(np.asarray, jax_zero_pad(jgrads)),
                          TOL_GRAD, f"grad {i}")
             params, state, _ = grad_step(params, state, jbatch, jax.random.PRNGKey(i))
@@ -362,7 +362,7 @@ def test_three_sparse_adam_steps_match_jax(splits):
     assert model.optimizer.param_groups[0]["count"] == int(inner.count) == 3
     for key, tree in (("mu", inner.mu), ("nu", inner.nu)):
         got = ranker_params_to_jax({n: model.optimizer.moments(p)[0 if key == "mu" else 1]
-                                    for n, p in model.net.named_parameters()})
+                                    for n, p in model.net.named_parameters()}, model.net)
         _assert_tree(got, tree, (1e-5, 1e-3), key)
 
 
@@ -447,7 +447,8 @@ def test_unported_ranker_cases_raise(splits):
 
 def test_ranker_weights_from_jax_packed_table():
     """A packed ``[N, 3D]`` table (params | mu | nu) gives its first D
-    columns; the linear tree's tables are 1 wide."""
+    columns to a port table D wide; the linear tree's tables are 1 wide."""
+    from recstudio_torch.models.module.ctr import Embeddings
     from recstudio_torch.utils.convert import ranker_params_from_jax, ranker_params_to_jax
     rng = np.random.default_rng(0)
     tree = {"embedding": {"token_embedding": rng.normal(size=(9, 12)).astype(np.float32),
@@ -456,13 +457,22 @@ def test_ranker_weights_from_jax_packed_table():
                                      "f_dense": {"weight": {"kernel": np.ones((1, 1))}}},
                        "bias": np.zeros(1)},
             "mlp": {"dense_0": {"kernel": rng.normal(size=(5, 2)), "bias": np.ones(2)}}}
-    sd = ranker_params_from_jax(tree, 4)
+    tokens = [("a", "token", 4), ("b", "token", 5)]
+    net = torch.nn.Module()
+    net.embedding = Embeddings(tokens + [(f, "float", 1) for f in "xyz"], 4)
+    net.linear = torch.nn.Module()
+    net.linear.embedding = Embeddings(tokens + [("f", "float", 1)], 1)
+    net.linear.bias = torch.nn.Parameter(torch.zeros(1))
+    net.mlp = torch.nn.Module()
+    net.mlp.dense_0 = torch.nn.Linear(5, 2)
+    sd = ranker_params_from_jax(tree, net)
     np.testing.assert_array_equal(sd["embedding.token_embedding.weight"],
                                   tree["embedding"]["token_embedding"][:, :4])
     assert sd["linear.embedding.token_embedding.weight"].shape == (9, 1)
     assert sd["mlp.dense_0.weight"].shape == (2, 5)
     assert sd["linear.embedding.f_dense.weight.weight"].shape == (1, 1)
-    back = ranker_params_to_jax(sd)
+    net.load_state_dict(sd)
+    back = ranker_params_to_jax(sd, net)
     np.testing.assert_allclose(back["mlp"]["dense_0"]["kernel"], tree["mlp"]["dense_0"]["kernel"],
                                rtol=1e-6)
     assert back["embedding"]["dense_embedding"].shape == (3, 4)

@@ -52,13 +52,13 @@ def _pair(name, seed=3):
     params = jax.tree_util.tree_map(
         lambda a: rng.normal(0.0, 0.4, a.shape).astype(np.float32), variables["params"])
     mod = getattr(gru, name)(D, H)
-    mod.load_state_dict(ranker_params_from_jax(params, 1))
+    mod.load_state_dict(ranker_params_from_jax(params, mod))
     return jmod, params, mod
 
 
 def _grads_to_jax(mod):
     from recstudio_torch.utils.convert import ranker_params_to_jax
-    return ranker_params_to_jax({n: p.grad for n, p in mod.named_parameters()})
+    return ranker_params_to_jax({n: p.grad for n, p in mod.named_parameters()}, mod)
 
 
 def _assert_tree(got, want, tag):
@@ -142,7 +142,7 @@ def test_gated_gru_weights_round_trip():
     for name in ("AGRU", "AUGRU", "AIGRU"):
         _, params, mod = _pair(name)
         from recstudio_torch.utils.convert import ranker_params_to_jax
-        back = ranker_params_to_jax(mod.state_dict())
+        back = ranker_params_to_jax(mod.state_dict(), mod)
         _assert_tree(back, params, name)
 
 

@@ -776,3 +776,54 @@ def test_autoint_attention_goes_through_k3(dev, B, L):
     gen = torch.Generator().manual_seed(0)
     mha(x, x, x, rng=gen).sum().backward()
     assert fused_mha.launches == before + 2
+
+
+@pytest.mark.parametrize("B,L", [(8192, 39), (5, 7)], ids=["criteo-fields", "ml100k-fields"])
+def test_interhat_layer_goes_through_k1_and_k2_with_no_mask(dev, B, L):
+    """InterHAt's layer: d 16 (a 16-column k-slice of ``block_product_nt``,
+    a LayerNorm over 16 columns), 2 heads of Dh 8, F 64, relu, and neither a
+    key padding mask nor an attention mask. K1 in evaluation and in
+    training (dropout 0.3) and K2 against the plain forward and its
+    autograd with the same seed, K1 bitwise repeatable."""
+    D, F, H, p, seed = 16, 64, 2, 0.3, 4242
+    rng = np.random.default_rng(B + L)
+    tree = random_sasrec_params(L + 3, 2, D, 1, F, 1)
+    params = {n: t.to(dev) for n, t in
+              layer_params_from_jax(tree["query_encoder"]["transformer"]["layer_0"]).items()}
+    x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    k1, k2 = fused_transformer_layer.launches, fused_transformer_layer_bwd.launches
+    got = fused_transformer_layer(x, params, None, None, H, p, "relu", 1e-5, False)
+    again = fused_transformer_layer(x, params, None, None, H, p, "relu", 1e-5, False)
+    out, res = training_residuals(x, params, None, None, H, p, "relu", 1e-5, seed)
+    dx, grads = fused_transformer_layer_bwd(g, x, params, None, None, H, p, "relu", 1e-5, seed,
+                                            res)
+    torch.cuda.synchronize()
+    assert (fused_transformer_layer.launches, fused_transformer_layer_bwd.launches) == \
+        (k1 + 3, k2 + 1)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, transformer_layer_plain(x, params, None, None, H, "relu",
+                                                            1e-5), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out, transformer_layer_plain(x, params, None, None, H, "relu",
+                                                            1e-5, p, seed, True),
+                               rtol=1e-4, atol=1e-4)
+    wdx, wgrads = transformer_layer_bwd_plain(g, x, params, None, None, H, p, "relu", 1e-5, seed)
+    torch.testing.assert_close(dx, wdx, rtol=1e-4, atol=1e-4 * float(wdx.abs().max()))
+    for name in PARAM_NAMES:
+        torch.testing.assert_close(grads[name], wgrads[name], rtol=1e-4,
+                                   atol=1e-4 * max(float(wgrads[name].abs().max()), 1e-3),
+                                   msg=name)
+
+
+@pytest.mark.parametrize("B,L", [(8192, 39), (5, 7)], ids=["criteo-fields", "ml100k-fields"])
+def test_k3_at_head_width_5(dev, B, L):
+    """DIFM's attention: 2 heads of Dh 5 over the fields, no mask, which
+    takes K3's 4-byte loads (Dh not a multiple of 4): within K3's tolerance
+    of ``mha_plain``, bitwise repeatable, once a call."""
+    _, q, k, v = _mha_inputs(dev, B, 2, L, L, 5, B + L)
+    before = fused_mha.launches
+    got = fused_mha(q, k, v)
+    again = fused_mha(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_mha.launches == before + 2 and torch.equal(got, again)
+    torch.testing.assert_close(got, mha_plain(q, k, v), rtol=1e-4, atol=2e-5)

@@ -159,7 +159,7 @@ def _models(name, splits, weights=None):
         _BUILT[key] = (jmodel, model, params)
     jmodel, model, params = _BUILT[key]
     jmodel.params = jax.tree_util.tree_map(jnp.asarray, params)
-    model.load_state_dict(ranker_params_from_jax(params, model.embed_dim))
+    model.load_state_dict(ranker_params_from_jax(params, model.net))
     return jmodel, model
 
 
@@ -222,7 +222,7 @@ def test_one_step_loss_and_gradients_match_jax(name, weights, splits):
     loss.backward()
     model.net.eval()
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
-    grads = ranker_params_to_jax({n: p.grad for n, p in model.net.named_parameters()})
+    grads = ranker_params_to_jax({n: p.grad for n, p in model.net.named_parameters()}, model.net)
     want = jax.tree_util.tree_map(np.asarray, jgrads)
     largest = max(float(np.abs(g).max()) for g in jax.tree_util.tree_leaves(want))
     for key in [k for k in want if k.startswith("att_")]:

@@ -138,7 +138,7 @@ def _models(name, splits):
     jmodel.params = jax.tree_util.tree_map(jnp.asarray, params)
     if stats:
         jmodel.states["net"] = {"batch_stats": jax.tree_util.tree_map(jnp.asarray, stats)}
-    model.load_state_dict(ranker_params_from_jax(params, model.embed_dim, batch_stats=stats))
+    model.load_state_dict(ranker_params_from_jax(params, model.net, batch_stats=stats))
     model._calib_batches = None
     return jmodel, model
 
@@ -219,7 +219,7 @@ def test_one_step_loss_and_gradients_match_jax(name, splits):
     zero_pad_rows_in_grads(model.net)
     model.net.eval()
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
-    grads = ranker_params_to_jax({n: p.grad for n, p in model.net.named_parameters()})
+    grads = ranker_params_to_jax({n: p.grad for n, p in model.net.named_parameters()}, model.net)
     want = jax.tree_util.tree_map(np.asarray, jax_zero_pad(jgrads))
     # a Linear's bias that feeds a batch norm in training mode has a zero
     # gradient (the norm subtracts the batch mean), and so has NFM's ``bn``
@@ -312,7 +312,7 @@ def _flax_vars(module, *inputs, seed=0, scale=0.3, **kw):
 
 def _load(module, params):
     from recstudio_torch.utils.convert import ranker_params_from_jax
-    sd = ranker_params_from_jax(params, 1)
+    sd = ranker_params_from_jax(params, module)
     missing, unexpected = module.load_state_dict(sd, strict=False)
     assert not unexpected and not [m for m in missing if not m.endswith(("mean", "var", "count"))]
 

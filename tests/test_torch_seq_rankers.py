@@ -204,7 +204,7 @@ def _models(name, splits):
     jmodel.params = jax.tree_util.tree_map(jnp.asarray, params)
     if stats:
         jmodel.states["net"] = {"batch_stats": jax.tree_util.tree_map(jnp.asarray, stats)}
-    model.load_state_dict(ranker_params_from_jax(params, model.embed_dim, batch_stats=stats))
+    model.load_state_dict(ranker_params_from_jax(params, model.net, batch_stats=stats))
     model._calib_batches = None
     return jmodel, model
 
@@ -284,7 +284,7 @@ def test_one_step_loss_and_gradients_match_jax(name, splits):
     zero_pad_rows_in_grads(model.net)
     model.net.eval()
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
-    grads = ranker_params_to_jax({n: p.grad for n, p in model.net.named_parameters()})
+    grads = ranker_params_to_jax({n: p.grad for n, p in model.net.named_parameters()}, model.net)
     want = jax.tree_util.tree_map(np.asarray, jax_zero_pad(jgrads))
     largest = max(float(np.abs(g).max()) for g in jax.tree_util.tree_leaves(want))
     if name == "DIN":        # dense_{i} feeds bn_{i} in training mode
