@@ -244,6 +244,22 @@ then:
   bands (``recstudio_torch/assets/{interhat,difm,xdeepfm}_ml100k_train_
   reference.json``), every test row served through ``ScorePredictor``
   against ``evaluate`` and ``predict``;
+- phase AG: the eight sequential retrievers of the zoo (CL4SRec, CoSeRec,
+  ICLRec, Caser, FPMC, TransRec, HGN, NPE) at their repo configs on the
+  synthetic ml-1m shape at L 200, batch 256 (the contrastive three on its
+  ``SeqToSeqDataset`` windows): for each, 20 timed steps from the seed's
+  weights (step ms, busy share, peak memory, K1 and K2 launches: three
+  encoder passes a step, ICLRec's fourth in evaluation), one step held to
+  the plain layers (the contrastive three) or to the CPU copy on
+  ``AG_CPU_ROWS`` rows (the five others, which launch no kernel); CoSeRec's
+  co-occurrence host seconds and its refresh offline and online, ICLRec's
+  refresh (every window encoded, k-means at 256);
+- phase AH: ``quickstart.run`` of CL4SRec, ICLRec and CoSeRec on ml-100k
+  for the epochs of ``recstudio_torch/assets/{cl4srec,iclrec,coserec}_
+  ml100k_train_reference.json`` (``scripts/torch_cl_seeds.py``), test
+  NDCG@10 held to the JAX seeds' band, which clears the untrained models'
+  NDCG, and every test user served through ``Predictor``, whose lists must
+  give ``evaluate``'s NDCG@10;
 - each kernel against its plain PyTorch version on the phases' shapes,
   with its time, the plain version's, PyTorch's own call where one exists,
   and the card's bound for the same work.
@@ -2126,11 +2142,12 @@ def phase_t(device, prepared):
         sparse_ms = time_ms(lambda: torch.sparse.mm(csr, emb))
     del emb, csr, crow
 
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    epoch_loss = model.training_epoch(0)
-    epoch_s = time.perf_counter() - t
-    host_ms, busy_ms = busy_share(lambda: model.training_epoch(0))
+    # one epoch, timed under the profiler (its host clock ~1 % above an
+    # unprofiled epoch's; a second, unprofiled epoch was cut for the
+    # script's time limit)
+    epoch = []
+    host_ms, busy_ms = busy_share(lambda: epoch.append(model.training_epoch(0)))
+    epoch_loss, epoch_s = epoch[0], host_ms / 1e3
     model._eval_epoch(tst, ["ndcg", "recall"], [20])          # warm
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2192,11 +2209,12 @@ def phase_u(device):
 
 
 # phase V: the JAX bench's ctr_bigvocab_sparse_adam (bench.py:307-327), its
-# rows cut from 10,000,000 to 6,000,000 for the script's time limit, the
-# vocabularies kept; the table (the ids the Zipf draws reach, 21.8 M rows at
-# 10,000,000) must keep more than V_MIN_TABLE_ROWS rows
+# rows cut from 10,000,000 to 6,000,000, then 5,200,000, for the script's
+# time limit, the vocabularies kept; the table (the ids the Zipf draws
+# reach, 21.8 M rows at 10,000,000, 15.4 M at 6,000,000) must keep more than
+# V_MIN_TABLE_ROWS rows
 V_SHAPE = "criteo-10m-hugevocab-shape"
-V_ROWS = 6_000_000
+V_ROWS = 5_200_000
 V_MIN_TABLE_ROWS = 13_000_000
 # the epoch's steps run under the profiler for the card's busy share
 V_PROFILE_STEPS = 100
@@ -2432,12 +2450,17 @@ def phase_v(device, prepared):
     return out
 
 
+# rows of W's CPU-copy step: the batch's 8,192 until the script's time
+# limit cut them to AE's 1,024 (the CPU's plain attention masks)
+W_CPU_ROWS = 1024
+
+
 def phase_w(device):
     """AutoInt at its repo config on phase R's data (criteo-1m-shape), batch
     8192: a one-epoch fit and its test AUC (the evaluation through K3), 20
     timed steps (dropout 0.5 in training: the plain softmax, no kernel),
-    one step held to the CPU copy with the same dropout seeds, the
-    evaluation's probabilities held to the plain-attention route on the
+    one step held to the CPU copy (``W_CPU_ROWS`` rows) with the same
+    dropout seeds, the evaluation's probabilities held to the plain-attention route on the
     same weights, eval rows/s, and ``ScorePredictor`` at 8192 rows a
     request held to ``predict``."""
     import numpy as np
@@ -2487,8 +2510,9 @@ def phase_w(device):
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     step_p50 = sorted(step_ms)[len(step_ms) // 2]
 
-    # one step on the card held to the CPU copy (same batch and dropout seeds)
-    batch = batches[0]
+    # one step on the card held to the CPU copy (the first W_CPU_ROWS rows of
+    # a batch, the same dropout seeds)
+    batch = {k: v[:W_CPU_ROWS] for k, v in batches[0].items()}
     gen = model.generator.get_state()
     loss_k, grads_k = ranker_step(model, batch, gen)
     cpu = cpu_copy(model, trn)
@@ -2539,8 +2563,9 @@ def phase_w(device):
            "examples_per_s": B / step_p50 * 1e3, "peak_mem_gb": peak_gb,
            "test_auc": result["auc"], "test_logloss": result["logloss"],
            "eval_s": eval_s, "eval_rows_per_s": len(tst.data_index) / eval_s,
-           "cpu_loss": loss_c, "card_loss": loss_k, "grad_max_abs_err": max_abs,
-           "grad_tol": TOL_GRAD, "loss_tol": TOL_LOSS, "zero_gradients": key_biases,
+           "cpu_rows": W_CPU_ROWS, "cpu_loss": loss_c, "card_loss": loss_k,
+           "grad_max_abs_err": max_abs, "grad_tol": TOL_GRAD, "loss_tol": TOL_LOSS,
+           "zero_gradients": key_biases,
            "grad_err_over_tol": grad_err_over_tol,
            "zero_gradient_tol": TOL_ZERO_GRAD,
            "k3_vs_plain_route_max_abs_diff": k3_diff, "prob_tol": TOL_PROB,
@@ -3811,6 +3836,182 @@ def phase_af(device):
                              kernels[name], profile=False) for name in kernels]
 
 
+AG_MODELS = {"CL4SRec": dict(hidden_size=64, layer_num=1, head_num=2, dropout_rate=0.5,
+                             layer_norm_eps=1e-12),
+             "CoSeRec": dict(hidden_size=64, layer_num=1, head_num=2, dropout_rate=0.5,
+                             layer_norm_eps=1e-12),
+             "ICLRec": dict(hidden_size=64, layer_num=1, head_num=2, dropout_rate=0.5,
+                            layer_norm_eps=1e-5, num_intent_clusters=256),
+             "Caser": dict(n_v=8, n_h=16, dropout=0.4), "FPMC": {}, "TransRec": {},
+             "HGN": dict(pooling_type="mean"), "NPE": dict(dropout_rate=0.3)}
+AG_CL = ("CL4SRec", "CoSeRec", "ICLRec")
+AG_BATCH, AG_L = 256, 200
+# rows of the CPU copy's step (Caser's 200 convolutions take ~0.7 s a row
+# on the card machine's CPU)
+AG_CPU_ROWS = dict(Caser=4, FPMC=64, TransRec=64, HGN=64, NPE=64)
+# steps profiled for the card's busy share
+AG_BUSY_STEPS = 5
+CL_KERNELS = ("fused_transformer_layer", "fused_transformer_layer_bwd")
+
+
+def seq_card_vs_cpu(model, cpu, batch, neg):
+    """One training step on the card and on its CPU copy with the negatives
+    ``neg`` and the same dropout seeds: (card loss, CPU loss, max gradient
+    error, loss and gradients ok)."""
+    gen = model.generator.get_state()
+    loss_k, grads_k = step_on(model, batch, neg)
+    cpu.generator.set_state(gen)
+    loss_c, grads_c = step_on(cpu, {k: v.cpu() for k, v in batch.items()}, neg.cpu())
+    max_abs, ok = grad_errors({k: v.cpu() for k, v in grads_k.items()}, grads_c)
+    return loss_k, loss_c, max_abs, ok and abs(loss_k - loss_c) <= TOL_LOSS * abs(loss_c)
+
+
+def ag_step(device, name, cls, conf, trn, etl_s):
+    """One model of phase AG on the ml-1m shape's split ``trn``: its refresh,
+    20 timed steps, the busy share of ``AG_BUSY_STEPS``, and one step held
+    to the plain layers or to the CPU copy."""
+    import numpy as np
+    import torch
+    t = time.perf_counter()
+    model = cls(conf, device=device)
+    model._init_model(trn)
+    model._init_parameter(trn)
+    model.optimizer = model._get_optimizer()
+    model._setup_scan_epoch(trn)
+    init_s = time.perf_counter() - t
+    mc, tc = model.config["model"], model.config["train"]
+    shape = {k: mc[k] for k in AG_MODELS[name]}
+    check(shape == AG_MODELS[name] and model.embed_dim == 64 and model.max_seq_len == AG_L
+          and tc["batch_size"] == AG_BATCH, f"phase AG {name} config {shape}")
+    out = {"phase": "AG", "model": name, "config": dict(shape, embed_dim=64, L=AG_L,
+                                                         batch=AG_BATCH),
+           "dataset": type(trn).__name__, "train_rows": len(trn.data_index), "etl_s": etl_s,
+           "init_s": init_s}
+    refresh, refresh_counts = {}, {}
+    if name == "CoSeRec":
+        out["cooccurrence_s"] = model.cooccurrence_s
+        warm_up = mc["augmentation_warm_up_epochs"]
+        for tag, warm in (("offline", warm_up), ("online", 0)):
+            mc["augmentation_warm_up_epochs"] = warm
+            model.states.pop("top1_sim", None)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model._epoch_refresh(0)
+            torch.cuda.synchronize()
+            refresh[tag] = (time.perf_counter() - t, model.states["top1_sim"].clone())
+        mc["augmentation_warm_up_epochs"] = warm_up
+        out["refresh_offline_s"], out["refresh_online_s"] = refresh["offline"][0], \
+            refresh["online"][0]
+        out["online_neighbours_changed"] = float(
+            (refresh["offline"][1] != refresh["online"][1]).float().mean())
+        check(torch.equal(refresh["offline"][1], model._offline_top1)
+              and refresh["online"][1].shape == model._offline_top1.shape
+              and out["online_neighbours_changed"] > 0, "phase AG CoSeRec refresh")
+    else:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, refresh_counts = counted(lambda: model._epoch_refresh(0))
+        out["refresh_s"] = time.perf_counter() - t
+        if name == "ICLRec":
+            centres = model.states["intent_centroids"]
+            out["refresh_launches"] = refresh_counts
+            check(tuple(centres.shape) == (256, 64) and bool(torch.isfinite(centres).all())
+                  and refresh_counts["fused_transformer_layer"] > 0
+                  and not refresh_counts["fused_transformer_layer_bwd"],
+                  f"phase AG ICLRec refresh: {tuple(centres.shape)}, {refresh_counts}")
+    if name in AG_CL:
+        layers = model.query_encoder.transformer.layers
+
+        def set_path(plain):
+            for layer in layers:
+                layer.plain = plain
+        metrics, losses, counts, ((loss_p, max_abs, ok),) = steps_and_comparison(
+            model, set_path, (True,))
+        out.update(metrics, plain_loss=loss_p, grad_max_abs_err=max_abs, compare="plain layers")
+        ok &= abs(metrics["kernel_loss"] - loss_p) <= TOL_LOSS * abs(loss_p)
+    else:
+        torch.cuda.reset_peak_memory_stats()
+        steps, times, losses, counts = timed_steps(model, epoch_stream(model))
+        p50 = times[len(times) // 2]
+        out.update(steps=len(times), step_ms_p50=p50, step_ms_max=times[-1],
+                   examples_per_s=AG_BATCH / (p50 / 1e3), loss_first=float(losses[0]),
+                   loss_last=float(losses[-1]),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        n_rows = AG_CPU_ROWS[name]
+        rows = {k: v[:n_rows] for k, v in steps[-1].items()}
+        neg = torch.from_numpy(np.random.default_rng(2035).integers(
+            1, trn.num_items, size=(n_rows, 1))).to(device)
+        t = time.perf_counter()
+        cpu = cpu_copy(model, trn)
+        loss_k, loss_c, max_abs, ok = seq_card_vs_cpu(model, cpu, rows, neg)
+        del cpu
+        out.update(compare="CPU copy", cpu_rows=n_rows, card_loss=loss_k, cpu_loss=loss_c,
+                   grad_max_abs_err=max_abs, cpu_step_s=time.perf_counter() - t,
+                   grad_tol=TOL_GRAD, loss_tol=TOL_LOSS)
+    batches = itertools.islice(epoch_stream(model), AG_BUSY_STEPS)
+    model.net.train()
+    host_ms, busy_ms = busy_share(lambda: [model._grad_step(b) for b in batches])
+    model.net.eval()
+    out.update(launches={k: v + refresh_counts.get(k, 0) for k, v in counts.items()},
+               timed_steps_launches=counts, busy_steps=AG_BUSY_STEPS, busy_host_ms=host_ms,
+               busy_ms=busy_ms, busy_share=None if busy_ms is None else busy_ms / host_ms)
+    emit("PHASE", out)
+    check(bool(torch.isfinite(losses).all()), f"phase AG {name} losses {losses}")
+    check(ok, f"phase AG {name}: the step disagrees with its {out['compare']}: "
+              f"{out.get('kernel_loss', out.get('card_loss'))}, gradients {max_abs}")
+    if name in AG_CL:                # three encoder passes a step; ICLRec's fourth, evaluating
+        passes = 4 if name == "ICLRec" else 3
+        check(counts["fused_transformer_layer"] == passes * out["steps"]
+              and counts["fused_transformer_layer_bwd"] == 3 * out["steps"],
+              f"phase AG {name}: K1, K2 launches {counts} in {out['steps']} steps")
+        check(not any(v for k, v in counts.items() if k not in CL_KERNELS),
+              f"phase AG {name} launched {counts}")
+    else:
+        check(not any(counts.values()), f"phase AG {name} launched a kernel: {counts}")
+    return out
+
+
+
+def phase_ag(device):
+    """The eight sequential retrievers of the zoo at full width on the ml-1m
+    shape at L 200 (``ag_step``), the split built once for each dataset
+    class."""
+    from recstudio_torch.data.synthetic import SHAPES, generate
+    from recstudio_torch.utils import get_model
+    name, config = generate("ml-1m-shape", *SHAPES["ml-1m-shape"], seed=7)
+    config["max_seq_len"] = AG_L
+    splits, out = {}, []
+    for model_name in AG_MODELS:
+        cls, conf = get_model(model_name)
+        conf["train"].update(batch_size=AG_BATCH, seed=7)
+        ds_cls = cls._get_dataset_class()
+        if ds_cls not in splits:
+            t = time.perf_counter()
+            trn = ds_cls(name, config=config).build(**conf["data"])[0]
+            splits[ds_cls] = (trn, time.perf_counter() - t)
+        out.append(ag_step(device, model_name, cls, conf, *splits[ds_cls]))
+    return out
+
+
+def phase_ah(device):
+    """CL4SRec, ICLRec and CoSeRec the way users start them (``fit_phase``
+    through ``quickstart.run``): training through K1 and K2, evaluation and
+    serving through K1; test NDCG@10 in the JAX band, which clears chance."""
+    out = []
+    for name in ("CL4SRec", "ICLRec", "CoSeRec"):
+        path = os.path.join(REPO, "recstudio_torch", "assets",
+                            f"{name.lower()}_ml100k_train_reference.json")
+        with open(path) as f:
+            ref = json.load(f)
+        check(ref["ndcg@10_band"][0] > ref["untrained_ndcg@10"],
+              f"phase AH {name}: the JAX band does not clear the untrained NDCG@10")
+        out.append(fit_phase(device, "AH", name, path,
+                             dict(TRANSFORMER_KEYS, dropout="dropout_rate"),
+                             dict(embed_dim=64, hidden=64, heads=2, layers=1, dropout=0.5, L=20,
+                                  batch=256), CL_KERNELS, quickstart=True))
+    return out
+
+
 def causal_mask(L, device, causal=True):
     """The causal attention mask (True = disallow), or None (bidirectional)."""
     import torch
@@ -4370,7 +4571,8 @@ def _main(device, prepared) -> int:
                phase_q, lambda d: phase_r(d, prepared["R"]), phase_s,
                lambda d: phase_t(d, prepared["T"]), phase_u, phase_w, phase_x, phase_y,
                phase_y2, phase_z, phase_aa, lambda d: phase_ab(d, prepared["AB"]), phase_ac,
-               phase_ad, phase_ae, phase_af, lambda d: phase_v(d, prepared["V"])):
+               phase_ad, phase_ae, phase_af, phase_ag, phase_ah,
+               lambda d: phase_v(d, prepared["V"])):
         t = time.perf_counter()
         out = fn(device)
         phases += out if isinstance(out, list) else [out]
@@ -4416,6 +4618,11 @@ def _main(device, prepared) -> int:
              ("K2@interhat", k2_versus_plain(device, 8192, 39, 16, 64, 2, p=0.3, causal=False,
                                              padded=False, act="relu", eps=1e-5)),
              ("K3@difm", k3_unmasked_versus_plain(device, 8192, 2, 39, 5))]
+    # phase AG's contrastive layer (d 64, F 64, causal, right padding; dropout
+    # 0.5 in training) and ICLRec's intent encode (evaluation, LayerNorm eps 1e-5)
+    rows += [("K1train@cl4srec", k1_train_versus_plain(device, AG_BATCH, AG_L, 64, 64, 2)),
+             ("K2@cl4srec", k2_versus_plain(device, AG_BATCH, AG_L, 64, 64, 2)),
+             ("K1@iclrec", k1_versus_plain(device, AG_BATCH, AG_L, 64, 64, 2, eps=1e-5))]
     rows += [(f"{k}@F", clse_f[k]) for k in ("K7", "K8", "K9")]
     rows += [(f"{k}@cat500k", clse_cat[k]) for k in ("K7", "K8", "K9")]
     rows += [(f"{k}@K", clse_k[k]) for k in ("K7", "K8", "K9")]

@@ -1,4 +1,5 @@
 from .advance_dataset import ALSDataset
-from .dataset import SeqDataset, TripletDataset, UserDataset
+from .dataset import FullSeqDataset, SeqDataset, SeqToSeqDataset, TripletDataset, UserDataset
 
-__all__ = ["ALSDataset", "SeqDataset", "TripletDataset", "UserDataset"]
+__all__ = ["ALSDataset", "FullSeqDataset", "SeqDataset", "SeqToSeqDataset", "TripletDataset",
+           "UserDataset"]

@@ -1035,3 +1035,119 @@ class SeqDataset(TripletDataset):
             return batch
 
         return compact, batch_fn
+
+
+def _user_splits(splits) -> Tuple[np.ndarray, np.ndarray]:
+    """The per-user split bounds and user ids, paired as ``zip`` pairs them;
+    a single-user split raises."""
+    splits, uids = splits
+    if uids is None:
+        raise NotImplementedError("a single-user split is not ported yet")
+    k = min(len(uids), len(splits))
+    return splits[:k], uids[:k]
+
+
+class FullSeqDataset(SeqDataset):
+    """One truncated sequence a user a split (``dataset.py:1359-1372``): the
+    training row ends at the last training item, an evaluation row at the
+    split's last item, each at most ``max_seq_len`` long."""
+
+    def _get_data_idx(self, splits):
+        sp, uids = _user_splits(splits)
+        sp = sp.copy()
+        sp[:, 1:] -= 1
+        maxlen = self.max_seq_len
+        outs = [np.stack([uids, np.maximum(sp[:, 0], sp[:, 1] - maxlen), sp[:, 1]], axis=1)]
+        for k in range(2, sp.shape[1]):
+            outs.append(np.stack([uids, np.maximum(sp[:, k] - maxlen, sp[:, 0]), sp[:, k]], axis=1))
+        return [o.astype(np.int64).reshape(-1, 3) for o in outs]
+
+
+class SeqToSeqDataset(SeqDataset):
+    """A source window and its target window shifted by one
+    (``dataset.py:1378-1500``), for the contrastive sequence models: a
+    split's row ``[uid, max(start, i - 1 - L), i - 1]`` (i its end) holds
+    the items before the split's last one. In training the batch carries
+    the source window ``in_*`` and, at every true position, the next item
+    (``[B, L]`` targets, 0 at padding); in evaluation the single target at
+    the window's end. Item features are not joined, as there."""
+
+    def _get_data_idx(self, splits):
+        sp, uids = _user_splits(splits)
+        maxlen = self.max_seq_len
+        outs = []
+        for k in range(1, sp.shape[1]):
+            i = sp[:, k]
+            s = np.maximum(sp[:, 0], i - 1 - maxlen)
+            keep = i - 1 > s
+            outs.append(np.stack([uids[keep], s[keep], i[keep] - 1], axis=1)
+                        .astype(np.int64).reshape(-1, 3))
+        fii = self.first_item_idx
+        return [p if (self.train_rep if k == 0 else self.test_rep) else p[fii[p[:, -1]]]
+                for k, p in enumerate(outs)]
+
+    def _get_pos_batch(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        rows = self.data_index[idx]
+        starts, ends = rows[:, 1], rows[:, 2]
+        batch = {self.fuid: rows[:, 0].astype(np.int32),
+                 "seqlen": (ends - starts).astype(np.int32)}
+        for f in self._fields_of(self.user_feat):
+            if f != self.fuid:
+                batch[f] = self.user_feat.get_col(f)[rows[:, 0]]
+        gather = starts[:, None] + np.arange(self.max_seq_len)[None, :]
+        valid = gather < ends[:, None]
+        fields = [f for f in self._fields_of(self.inter_feat) if f != self.fuid]
+        for f in fields:
+            col = self.inter_feat.get_col(f)
+            batch["in_" + f] = np.where(valid, col[np.where(valid, gather, 0)], 0).astype(col.dtype)
+        for f in fields:
+            col = self.inter_feat.get_col(f)
+            batch[f] = col[ends] if self.eval_mode else \
+                np.where(valid, col[np.where(valid, gather + 1, 0)], 0).astype(col.dtype)
+        return batch
+
+    @property
+    def inter_feat_subset(self):
+        di = self.data_index
+        return np.concatenate([np.arange(s, e + 1) for s, e in zip(di[:, 1], di[:, 2])]
+                              + [np.zeros(0, np.int64)])
+
+    def device_epoch_arrays(self) -> Tuple[Dict[str, np.ndarray], Callable]:
+        """Training staging (``dataset.py:1438-1500``): the interaction
+        columns packed into one ``[n + L + 1, C]`` int32 matrix (floats as
+        their bits, L + 1 rows of zeros), so one ``[L + 1, C]`` slice an
+        example, gathered at once, serves the source window (its first L
+        rows) and the target window (its last L) of every field."""
+        L = self.max_seq_len
+        fuid = self.fuid
+        fields = [f for f in self._fields_of(self.inter_feat) if f != fuid]
+        if not fields:
+            raise ValueError("device_epoch_arrays: no interaction column besides the user id")
+        is_float = {f: np.issubdtype(self.inter_feat.get_col(f).dtype, np.floating)
+                    for f in fields}
+        packed = np.stack([_int32_column(f, self.inter_feat.get_col(f)) for f in fields], axis=1)
+        compact = {"_rows": _int32_column("data_index", self.data_index),
+                   "_interpack": np.concatenate([packed,
+                                                 np.zeros((L + 1, len(fields)), np.int32)])}
+        users = [f for f in self._fields_of(self.user_feat) if f != fuid]
+        for f in users:
+            compact["_user_" + f] = _int32_column(f, self.user_feat.get_col(f))
+        user_float = {f: np.issubdtype(self.user_feat.get_col(f).dtype, np.floating)
+                      for f in users}
+
+        def batch_fn(arrays: Dict[str, torch.Tensor], sel: torch.Tensor) -> Dict[str, torch.Tensor]:
+            rows = arrays["_rows"][sel].long()
+            u, starts, ends = rows[:, 0], rows[:, 1], rows[:, 2]
+            batch = {fuid: u.int(), "seqlen": (ends - starts).int()}
+            for f in users:
+                batch[f] = _from_words(arrays["_user_" + f][u], user_float[f])
+            pos = starts[:, None] + torch.arange(L + 1, device=sel.device)[None, :]
+            valid = pos[:, :L] < ends[:, None]
+            wins = arrays["_interpack"][pos]                    # [B, L + 1, C]
+            for c, f in enumerate(fields):
+                win = _from_words(wins[:, :, c], is_float[f])
+                batch["in_" + f] = _masked(valid, win[:, :L])
+                batch[f] = _masked(valid, win[:, 1:])
+            return batch
+
+        return compact, batch_fn

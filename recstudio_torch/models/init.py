@@ -39,6 +39,10 @@ def _flax_fans(shape):
 RAW_INITS = {
     "normal": lambda shape, g: torch.randn(shape, generator=g),
     "xavier_uniform": lambda shape, g: _draw(shape, "xavier_uniform", 0.0, g, _flax_fans(shape)),
+    "xavier_normal": lambda shape, g: _draw(shape, "xavier_normal", 0.0, g, _flax_fans(shape)),
+    # a conv1d weight [out, in, width], whose flax kernel is (width, in, out)
+    "xavier_normal_conv1d": lambda shape, g: _draw(shape, "xavier_normal", 0.0, g,
+                                                   _flax_fans(shape[::-1])),
 }
 
 
@@ -62,12 +66,14 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
       initializer}``, a key of ``RAW_INITS``): that initializer, which the
       JAX module declares and the JAX rule by name leaves (CIN's ``conv_{i}``,
       FmFM's ``field_weight``, the bilinear ``weight``, DCN-Mix's ``U_{i}``,
-      ``V_{i}``, ``C_{i}``, ``bias_{i}``);
+      ``V_{i}``, ``C_{i}``, ``bias_{i}``, HGN's ``W_g_4``, Caser's
+      ``horizontal_kernel_{h}``);
     - ``*norm*_weight``: 1; ``*bias`` and ``bias_*`` (a GRU's): 0;
-    - 2-D ``*weight`` and ``weight_*`` (embedding tables, projections, a
-      GRU's ``weight_ih_l0 [3H, in]`` and ``weight_hh_l0 [3H, H]``, whose
-      fans are the JAX ``[in, 3H]`` kernel's): ``method``, with row 0 of
-      embedding tables set to 0;
+    - 2-D ``*weight``, ``weight_*`` and ``*kernel`` (embedding tables,
+      projections, a GRU's ``weight_ih_l0 [3H, in]`` and ``weight_hh_l0
+      [3H, H]``, whose fans are the JAX ``[in, 3H]`` kernel's, Caser's
+      ``vertical_kernel``): ``method``, with row 0 of embedding tables set
+      to 0;
     - a 2-D parameter named ``*embedding*`` (the CTR ``dense_embedding``
       kernel ``[Fd, D]``): ``method``, with row 0 set to 0, as the JAX rule
       by name does to every ``embedding`` leaf;
@@ -94,7 +100,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
             p.fill_(1.0)
         elif leaf.endswith("bias") or leaf.startswith("bias_"):
             p.zero_()
-        elif (leaf.endswith("weight") or leaf.startswith("weight_")) and p.dim() == 2:
+        elif (leaf.endswith(("weight", "kernel")) or leaf.startswith("weight_")) \
+                and p.dim() == 2:
             p.copy_(_draw(tuple(p.shape), method, init_range, generator))
             if id(p) in embeddings:
                 p[0].zero_()

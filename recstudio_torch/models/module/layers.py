@@ -234,17 +234,18 @@ def _vf_gru(x: torch.Tensor, weights: Sequence[torch.Tensor], train: bool) -> to
     return out
 
 
-class _CudnnGru(torch.autograd.Function):
-    """One cuDNN GRU layer whose forward and backward both run in float32.
-    The forward records cuDNN's own graph on detached inputs; the backward
-    differentiates that graph inside the same float32 block."""
+class _Float32Cudnn(torch.autograd.Function):
+    """``fn(*inputs)`` through cuDNN with its forward and backward both in
+    float32 (a GRU layer, Caser's convolutions). The forward records
+    cuDNN's own graph on detached inputs; the backward differentiates that
+    graph inside the same float32 block."""
 
     @staticmethod
-    def forward(ctx, x, w_ih, w_hh, b_ih, b_hh):
+    def forward(ctx, fn, *inputs):
         leaves = [t.detach().requires_grad_(need)
-                  for t, need in zip((x, w_ih, w_hh, b_ih, b_hh), ctx.needs_input_grad)]
+                  for t, need in zip(inputs, ctx.needs_input_grad[1:])]
         with torch.enable_grad(), _float32_cudnn():
-            out = _vf_gru(leaves[0], leaves[1:], train=True)
+            out = fn(*leaves)
         ctx.leaves, ctx.out = leaves, out
         return out.detach()
 
@@ -254,7 +255,19 @@ class _CudnnGru(torch.autograd.Function):
         ctx.leaves = ctx.out = None
         with _float32_cudnn():
             grads = iter(torch.autograd.grad(out, [t for t in leaves if t.requires_grad], g))
-        return tuple(next(grads) if t.requires_grad else None for t in leaves)
+        return (None,) + tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+
+def float32_cudnn(fn, *inputs: torch.Tensor) -> torch.Tensor:
+    """``fn(*inputs)`` on CUDA tensors with cuDNN in float32 in both passes
+    (``_float32_cudnn``: no TF32, whatever the process setting); on CPU
+    tensors ``fn`` as it is."""
+    if not inputs[0].is_cuda:
+        return fn(*inputs)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _Float32Cudnn.apply(fn, *inputs)
+    with _float32_cudnn():
+        return fn(*inputs)
 
 
 def gru_layer(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
@@ -270,10 +283,8 @@ def gru_layer(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, b_ih: tor
         if x.dtype != torch.float32 or not torch.backends.cudnn.is_acceptable(x):
             raise RuntimeError(f"cuDNN cannot run this GRU ({x.dtype} on {x.device})")
     gru_layer.launches += 1
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *weights)):
-        return _CudnnGru.apply(x, *weights)
-    with _float32_cudnn():
-        return _vf_gru(x, weights, train=False)
+    train = torch.is_grad_enabled() and any(t.requires_grad for t in (x, *weights))
+    return float32_cudnn(lambda x_, *w: _vf_gru(x_, w, train=train), x, *weights)
 
 
 gru_layer.launches = 0

@@ -63,6 +63,9 @@ def _pooling(pooling_type: str) -> Optional[SeqPoolingLayer]:
 
 
 class SASRec(BaseRetriever):
+    # the query encoder's pooling in training: the last true position
+    # (CL4SRec's family trains on every position, "origin")
+    _training_pooling = "last"
 
     @staticmethod
     def _get_dataset_class():
@@ -75,7 +78,8 @@ class SASRec(BaseRetriever):
             max_seq_len=train_data.config["max_seq_len"], n_head=mc["head_num"],
             hidden_size=mc["hidden_size"], dropout=mc["dropout_rate"],
             activation=mc["activation"], layer_norm_eps=float(mc["layer_norm_eps"]),
-            n_layer=mc["layer_num"], item_encoder=self.item_encoder)
+            n_layer=mc["layer_num"], item_encoder=self.item_encoder,
+            training_pooling_type=self._training_pooling)
 
     def _get_loss_func(self):
         return BinaryCrossEntropyLoss()

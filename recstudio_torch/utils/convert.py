@@ -1,10 +1,18 @@
 """Parameter conversion between the JAX package and the port.
 
 ``params_from_jax`` turns a JAX SASRec, BERT4Rec, GRU4Rec, NARM, STAMP,
-BPR, MultiDAE or MultiVAE parameter tree (the nested dict of arrays that
-``model.params`` holds; BERT4Rec's item table has one more row, the
-``[MASK]`` token; BPR's tree is its two tables, ``query_encoder/embedding``
-and ``item_encoder/embedding``; a sequence model's query encoder owns the
+CL4SRec, CoSeRec, ICLRec, Caser, FPMC, TransRec, HGN, NPE, BPR, MultiDAE
+or MultiVAE parameter tree (the nested dict of arrays that
+``model.params`` holds; BERT4Rec's and the contrastive models' item table
+has one more row, the ``[MASK]`` token; Caser's, FPMC's, TransRec's,
+HGN's and NPE's ``user_embedding``, FPMC's ``last_item_embedding`` and
+NPE's item tower's nested ``embedding_layer`` are tables; Caser's
+``horizontal_kernel_{h} (h, D, n_h)`` is the conv1d weight ``[n_h, D,
+h]``, its axes reversed, and its ``vertical_kernel (n_v, L)``, HGN's
+``W_g_4``, ``b_g_4`` and ``b_g`` and TransRec's ``global_user_emb`` keep
+their layout, HGN's ``W_g_{1,2}`` and ``w_g_3`` being ``Dense`` kernels;
+BPR's tree is its two tables, ``query_encoder/embedding`` and
+``item_encoder/embedding``; a sequence model's query encoder owns the
 item table the catalog is scored against; MultiDAE's and MultiVAE's query
 encoder has a table of its own, ``item_embedding``, beside the item
 tower's) into the port's ``state_dict``; ``params_to_jax`` is the reverse.
@@ -117,7 +125,11 @@ def layer_params_to_jax(layer: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]
 
 # modules whose ``weight`` is an embedding table (the JAX ``embedding``
 # leaf, not transposed); a tower that is a table itself has the bare name
-_TABLES = ("item_encoder", "item_embedding")
+_TABLES = ("item_encoder", "item_embedding", "user_embedding", "last_item_embedding",
+           "embedding_layer")
+# raw 3-D kernels stored reversed: Caser's ``horizontal_kernel_{h}``, JAX
+# ``(h, D, n_h)``, the port's conv1d weight ``[n_h, D, h]``
+_REVERSED = "horizontal_kernel_"
 
 
 def _port_name(path) -> Tuple[str, bool]:
@@ -125,6 +137,8 @@ def _port_name(path) -> Tuple[str, bool]:
     the tower's, transpose)."""
     if path[-1] == "embedding":                     # an embedding table
         return ".".join(path[:-1] + ("weight",)), False
+    if path[-1].startswith(_REVERSED):
+        return ".".join(path), True
     if path[0] == "transformer":                    # transformer/layer_{i}/<leaf>
         name, tr = _LAYER_MAP[path[2]]
         return f"transformer.layers.{path[1][len('layer_'):]}.{name}", tr
@@ -141,6 +155,8 @@ def _jax_path(name: str) -> Tuple[Tuple[str, ...], bool]:
     parts = tuple(name.split("."))
     if parts == ("weight",) or (parts[-1] == "weight" and parts[-2] in _TABLES):
         return parts[:-1] + ("embedding",), False
+    if parts[-1].startswith(_REVERSED):
+        return parts, True
     if parts[0] == "transformer":                   # transformer.layers.{i}.<name>
         leaf, tr = _LAYER_UNMAP[parts[3]]
         return ("transformer", f"layer_{parts[2]}", leaf), tr
@@ -162,7 +178,8 @@ def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX SASRec, BERT4Rec, GRU4Rec, NARM, STAMP, BPR, PMF, CML, NCF,
+    """JAX SASRec, BERT4Rec, GRU4Rec, NARM, STAMP, the eight sequence
+    retrievers of ``models/seq`` (CL4SRec to NPE), BPR, PMF, CML, NCF,
     LogisticMF, MultiDAE or MultiVAE params -> the port's ``state_dict``
     (float32 CPU tensors)."""
     sd = {}

@@ -1,7 +1,8 @@
 """Model registry: name -> (model class, layered default config).
 
 The subset of ``recstudio_tpu/utils/registry.py`` this port implements:
-SASRec, BERT4Rec, GRU4Rec, NARM, STAMP, DIN and DIEN (``seq``), BPR, PMF,
+SASRec, BERT4Rec, GRU4Rec, NARM, STAMP, DIN, DIEN, CL4SRec, CoSeRec,
+ICLRec, Caser, FPMC, TransRec, HGN and NPE (``seq``, the whole family), BPR, PMF,
 CML, NCF and LogisticMF (``mf``), MultiDAE and MultiVAE (``ae``), DeepFM,
 FM, LR, WideDeep, DCN, NFM, AutoInt, InterHAt, DIFM, xDeepFM, DCNv2, PNN,
 DLRM, FwFM, AFM, FFM, FmFM, FiBiNET, MaskNet, ONN, HFM and AFN (``fm``), LightGCN, NGCF and SimGCL
@@ -24,6 +25,14 @@ _MODELS = {"sasrec": ("seq", "SASRec", ("seq_all", "sasrec")),
            "stamp": ("seq", "STAMP", ("seq_all", "stamp")),
            "din": ("seq", "DIN", ("seq_all", "din")),
            "dien": ("seq", "DIEN", ("seq_all", "dien")),
+           "cl4srec": ("seq", "CL4SRec", ("seq_all", "cl4srec")),
+           "coserec": ("seq", "CoSeRec", ("seq_all", "coserec")),
+           "iclrec": ("seq", "ICLRec", ("seq_all", "iclrec")),
+           "caser": ("seq", "Caser", ("seq_all", "caser")),
+           "fpmc": ("seq", "FPMC", ("seq_all", "fpmc")),
+           "transrec": ("seq", "TransRec", ("seq_all", "transrec")),
+           "hgn": ("seq", "HGN", ("seq_all", "hgn")),
+           "npe": ("seq", "NPE", ("seq_all", "npe")),
            "bpr": ("mf", "BPR", ("mf_all", "bpr")),
            "pmf": ("mf", "PMF", ("mf_all", "pmf")),
            "cml": ("mf", "CML", ("mf_all", "cml")),

@@ -45,9 +45,10 @@ ML100K_MODELS = ("WideDeep", "DCN", "NFM", "AutoInt", "InterHAt", "DIFM", "xDeep
 # validation epochs at the config's own cap (1000, patience 10) were 3–10
 # (WideDeep), 2–7 (DCN), 3–8 (NFM) and 7–25 (AutoInt), and the ten epochs
 # of patience after them took most of phase X's time; cut again to 4 each
-# when phases AA–AD joined the script, for its time limit; InterHAt, DIFM and
-# xDeepFM (phase AF) run at most 2 each, for the same limit
-ML100K_EPOCHS = {"WideDeep": 4, "DCN": 4, "NFM": 4, "AutoInt": 4, "InterHAt": 2, "DIFM": 2,
+# when phases AA–AD joined the script, and to 2 each when phases AG and AH
+# joined it, for its time limit; InterHAt, DIFM and xDeepFM (phase AF) run
+# at most 2 each, for the same limit
+ML100K_EPOCHS = {"WideDeep": 2, "DCN": 2, "NFM": 2, "AutoInt": 2, "InterHAt": 2, "DIFM": 2,
                  "xDeepFM": 2}
 SEEDS = (2022, 2023, 2024, 2025, 2026, 2027)
 PARALLEL = 6

@@ -46,8 +46,9 @@ SIX = (2022, 2023, 2024, 2025, 2026, 2027)
 SEEDS = {name: SIX for name in RUNS}
 # None: the config's own cap (1000), with early stopping at its patience;
 # BPR-midx-pop's fits stopped after 21-25 epochs, capped at 12 for phase
-# Z's share of the script's time limit
-EPOCHS = {"PMF": None, "CML": 30, "NCF": 20, "LogisticMF": 20, "BPR-midx-pop": 12}
+# Z's share of the script's time limit; NCF, LogisticMF and BPR-midx-pop cut
+# from 20, 20 and 12 when phases AG and AH joined the script
+EPOCHS = {"PMF": None, "CML": 30, "NCF": 10, "LogisticMF": 10, "BPR-midx-pop": 6}
 MARGIN = 0.05
 PARALLEL = 6
 ABOUT = {

@@ -44,7 +44,8 @@ MT_DATASET, MT_SEED = "kuairand-pure-small", 7
 # band of six seeds 0.005 apart, so DIEN keeps 3; the multitask models' best validation
 # epochs at a cap of 4 were 1-3, and one epoch of the four took 80 s of a
 # slow host's run)
-EPOCHS = {"DIN": 2, "DIEN": 3, "HardShare": 1, "MMoE": 1, "PLE": 1, "AITM": 1}
+# DIN cut to 1 when phases AG and AH joined the script
+EPOCHS = {"DIN": 1, "DIEN": 3, "HardShare": 1, "MMoE": 1, "PLE": 1, "AITM": 1}
 SEEDS = (2022, 2023, 2024, 2025, 2026, 2027)
 PARALLEL = 4
 ABOUT = {

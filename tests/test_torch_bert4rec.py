@@ -37,7 +37,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
                                "bert4rec_ml100k_train_reference.json")
-EPOCHS = 20
+# phase G's depth: 20 until the script's time limit cut it to 10
+EPOCHS = 10
 REF_SEEDS = (2022, 2023, 2024)
 
 

@@ -107,7 +107,9 @@ def test_registry_lists_what_is_ported():
                              "interhat": "fm", "difm": "fm", "xdeepfm": "fm", "dcnv2": "fm",
                              "pnn": "fm", "dlrm": "fm", "fwfm": "fm", "afm": "fm", "ffm": "fm",
                              "fmfm": "fm", "fibinet": "fm", "masknet": "fm", "onn": "fm",
-                             "hfm": "fm", "afn": "fm"}
+                             "hfm": "fm", "afn": "fm", "cl4srec": "seq", "coserec": "seq",
+                             "iclrec": "seq", "caser": "seq", "fpmc": "seq", "transrec": "seq",
+                             "hgn": "seq", "npe": "seq"}
 
 
 @pytest.mark.parametrize("key,value", [

@@ -52,8 +52,9 @@ MODELS = ("DeepFM", "FM", "LR")
 REF_SEEDS = (2022, 2023, 2024)
 # the epoch cap of the ml-100k runs, phase S's depth: their early stops at
 # the config's cap (1000) came after 15 (DeepFM), 20 (FM) and 84 (LR)
-# epochs on the card, more than the script's time limit leaves
-ML100K_EPOCHS = {"DeepFM": 5, "FM": 8, "LR": 20}
+# epochs on the card, more than the script's time limit leaves; cut from
+# 5, 8 and 20 when phases AG and AH joined the script
+ML100K_EPOCHS = {"DeepFM": 3, "FM": 5, "LR": 10}
 
 # phase R's data: the JAX bench's ctr_scale setup (scripts/scale_bench.py)
 CRITEO_SHAPE = "criteo-1m-shape"

@@ -827,3 +827,47 @@ def test_k3_at_head_width_5(dev, B, L):
     torch.cuda.synchronize()
     assert fused_mha.launches == before + 2 and torch.equal(got, again)
     torch.testing.assert_close(got, mha_plain(q, k, v), rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("eps", [1e-12, 1e-5], ids=["eps1e-12", "eps1e-5"])
+@pytest.mark.parametrize("B,L", [(256, 200), (5, 20)], ids=["ml-1m-shape", "ml100k"])
+def test_cl_retriever_layer_at_f64_d64(dev, B, L, eps):
+    """The layer of CL4SRec, CoSeRec and ICLRec: d 64, F 64 (a 64-column
+    FFN product tile), 2 heads, gelu, causal with right padding, and
+    LayerNorm eps 1e-12 (CL4SRec, CoSeRec) or 1e-5 (ICLRec). K1 in
+    evaluation (ICLRec's intent encode) and in training (dropout 0.5) and K2
+    against the plain forward and its autograd with the same seed; K1's
+    evaluation output and K2's gradients bitwise repeatable. Tolerances as
+    ``test_fused_layer_training_matches_plain``."""
+    D, F, H, p, seed = 64, 64, 2, 0.5, 2121
+    rng = np.random.default_rng(B + L + int(eps < 1e-6))
+    tree = random_sasrec_params(L + 5, 2, D, 1, F, 1)
+    params = {n: t.to(dev) for n, t in
+              layer_params_from_jax(tree["query_encoder"]["transformer"]["layer_0"]).items()}
+    x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    pad, causal = _masks(rng, B, L, dev)
+    k1, k2 = fused_transformer_layer.launches, fused_transformer_layer_bwd.launches
+    got = fused_transformer_layer(x, params, pad, causal, H, p, "gelu", eps, False)
+    again = fused_transformer_layer(x, params, pad, causal, H, p, "gelu", eps, False)
+    out, res = training_residuals(x, params, pad, causal, H, p, "gelu", eps, seed)
+    dx, grads = fused_transformer_layer_bwd(g, x, params, pad, causal, H, p, "gelu", eps, seed,
+                                            res)
+    dx2, grads2 = fused_transformer_layer_bwd(g, x, params, pad, causal, H, p, "gelu", eps,
+                                              seed, res)
+    torch.cuda.synchronize()
+    assert (fused_transformer_layer.launches, fused_transformer_layer_bwd.launches) == \
+        (k1 + 3, k2 + 2)
+    assert torch.equal(got, again) and torch.equal(dx, dx2)
+    assert all(torch.equal(grads[n], grads2[n]) for n in PARAM_NAMES)
+    torch.testing.assert_close(got, transformer_layer_plain(x, params, pad, causal, H, "gelu",
+                                                            eps), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out, transformer_layer_plain(x, params, pad, causal, H, "gelu",
+                                                            eps, p, seed, True),
+                               rtol=1e-4, atol=1e-4)
+    wdx, wgrads = transformer_layer_bwd_plain(g, x, params, pad, causal, H, p, "gelu", eps, seed)
+    torch.testing.assert_close(dx, wdx, rtol=1e-4, atol=1e-4 * float(wdx.abs().max()))
+    for name in PARAM_NAMES:
+        torch.testing.assert_close(grads[name], wgrads[name], rtol=1e-4,
+                                   atol=1e-4 * max(float(wgrads[name].abs().max()), 1e-3),
+                                   msg=name)

@@ -23,7 +23,7 @@ orders:
 ``narm_ml100k_train_reference.json`` and ``stamp_ml100k_train_reference.json``
 hold the JAX package's test NDCG@10 and Recall@10 after
 ``quickstart.run(<model>, "ml-100k")`` for ``EPOCHS`` epochs at the repo's
-config (4, phase N's depth, cut from 20, then 12 and 8, for the script's time limit),
+config (2, phase N's depth, cut from 20, then 12, 8 and 4, for the script's time limit),
 over six seeds, and the test NDCG@10 of each seed's untrained model;
 ``chip_smoke.py`` (phase N) holds the card's run of the port to the band
 those seeds span. Rewrite both (twelve JAX fits in parallel, a few minutes
@@ -41,7 +41,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "recstudio_torch", "assets")
-EPOCHS = 4
+EPOCHS = 2
 REF_SEEDS = (2022, 2023, 2024, 2025, 2026, 2027)
 MODELS = ("NARM", "STAMP")
 D_TEST, HIDDEN_TEST, ROWS, WEIGHT_SEED, K = 16, 32, 64, 5, 20
