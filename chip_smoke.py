@@ -127,7 +127,7 @@ then:
 - phase S: ``quickstart.run`` of DeepFM, FM and LR on ml-100k at the
   repo's config (fm family: ``fmeval``, ratings binarized at 3.0; early
   stopping on validation AUC, patience 10) for at most the epochs of
-  their references (5, 8 and 20), test AUC held to each model's
+  their references (2, 3 and 10), test AUC held to each model's
   JAX band (``recstudio_torch/assets/{deepfm,fm,lr}_ml100k_train_
   reference.json``), one epoch profiled, every test row served through
   ``ScorePredictor(max_batch=256)``, whose probabilities must be
@@ -144,7 +144,7 @@ then:
   routes beside ``torch.sparse.mm`` of the same CSR matrix, one epoch and
   its busy share, every test user evaluated. No kernel;
 - phase U: ``quickstart.run`` of LightGCN, NGCF and SimGCL (for the
-  epochs of their references: 20, 40 and 20) on ml-100k at the repo's
+  epochs of their references: 10, 30 and 10) on ml-100k at the repo's
   configs, held to the JAX seeds' bands (``recstudio_torch/assets/
   {lightgcn,ngcf,simgcl}_ml100k_train_reference.json``): LightGCN's and
   NGCF's test NDCG@10, whose bands clear the untrained models' by
@@ -171,7 +171,7 @@ then:
   seeds, the evaluation's probabilities held to the plain route's;
 - phase X: ``quickstart.run`` of WideDeep, DCN, NFM and AutoInt on
   ml-100k at the repo's configs for at most the epochs of their
-  references (4 each; early stopping may end them sooner), test
+  references (1 each, DCN's 2; early stopping may end them sooner), test
   AUC held to the JAX seeds' bands (``recstudio_torch/assets/{widedeep,dcn,nfm,
   autoint}_ml100k_train_reference.json``), whose AUC band must clear the
   untrained AUC by ``AUC_MARGIN``; the batch norms calibrated; every test
@@ -240,8 +240,8 @@ then:
   and DIFM's attention through K3 in evaluation and serving, each
   evaluation held to the plain route; the other thirteen launch nothing;
 - phase AF: ``quickstart.run`` of InterHAt, DIFM and xDeepFM on ml-100k at
-  the repo's configs for at most 2 epochs, test AUC held to the JAX seeds'
-  bands (``recstudio_torch/assets/{interhat,difm,xdeepfm}_ml100k_train_
+  the repo's configs for one epoch, test AUC held to the JAX seeds' bands
+  (``recstudio_torch/assets/{interhat,difm,xdeepfm}_ml100k_train_
   reference.json``), every test row served through ``ScorePredictor``
   against ``evaluate`` and ``predict``;
 - phase AG: the eight sequential retrievers of the zoo (CL4SRec, CoSeRec,
@@ -260,9 +260,24 @@ then:
   NDCG@10 held to the JAX seeds' band, which clears the untrained models'
   NDCG, and every test user served through ``Predictor``, whose lists must
   give ``evaluate``'s NDCG@10;
+- phase AI: the rest of the CTR ranker zoo, fourteen models (DeepCrossing,
+  IFM, DeepIM, LorentzFM, PPNet, FinalMLP, EDCN, FLEN, SAM, AOANet,
+  DESTINE, FiGNN, CCPM, FGCNN) at their repo configs on phase R's data,
+  batch 8192, as phase AE runs its fifteen, with the card's busy share of
+  five more steps each; FLEN's groups, FinalMLP's streams and PPNet's gate
+  fields set from criteo's 13 float and 26 token columns (its defaults
+  need user and item tables, which the criteo layout lacks). No kernel;
+- phase AJ: ``quickstart.run`` of FinalMLP (its default streams: the user
+  and the item features), FiGNN and FGCNN on ml-100k for one epoch, test
+  AUC held to the JAX seeds' bands (``recstudio_torch/assets/{finalmlp,
+  fignn,fgcnn}_ml100k_train_reference.json``), every test row served
+  through ``ScorePredictor`` against ``evaluate`` and ``predict``. No
+  kernel;
 - each kernel against its plain PyTorch version on the phases' shapes,
-  with its time, the plain version's, PyTorch's own call where one exists,
-  and the card's bound for the same work.
+  with its time, the plain version's, PyTorch's own call where one exists
+  (K1's evaluation rows: ``nn.TransformerEncoderLayer`` with the rows'
+  masks, held to the plain layer too), and the card's bound for the same
+  work.
 
 Launch counts are zeroed before each phase and read after it; a kernel of
 a phase that was not launched in it fails the run. Every failure exits
@@ -3681,29 +3696,42 @@ AE_CPU_ROWS = 1024
 
 def ae_zero_gradients(name, model):
     """Gradients that are zero in exact arithmetic: a Linear's bias that
-    feeds a batch norm in training mode, an attention's key bias."""
+    feeds a batch norm in training mode, an attention's key bias; DESTINE's
+    unary logits' bias (a softmax over the fields) and its queries' and
+    keys' (the whitening over the fields). FLEN's first-order bias is not
+    one here: dropout scales it row by row before its batch norm."""
     from recstudio_torch.models.module.layers import MLPModule, SimpleBatchNorm
     zero = [f"{mname}.dense_{i}.bias" for mname, m in model.net.named_modules()
             if isinstance(m, MLPModule) for i in range(m.n_layers)
-            if isinstance(getattr(m, f"bn_{i}", None), SimpleBatchNorm)]
+            if isinstance(getattr(m, f"bn_{i}", None), SimpleBatchNorm)
+            and getattr(m, f"dense_{i}").bias is not None]
     if name == "DIFM":
         zero.append("vector_fen.attn.k_proj.bias")
+    if name == "DESTINE":
+        zero += [f"attn_{i}.{leaf}.bias" for i in range(model.net.n_layers)
+                 for leaf in ("unary", "Wq", "Wk")]
     return zero
 
 
-def zoo_step(device, name, trn, tst, B, staged):
-    """One model of phase AE: its repo config on criteo-1m-shape at batch
-    ``B``, initialised from its seed; 20 timed steps, one step held to the
-    CPU copy (its relus taking the card's decisions, ``relu_inputs``), one
-    evaluation, ``ScorePredictor`` at ``B`` rows held to ``predict``;
-    InterHAt's and DIFM's evaluation held to the plain route."""
+def zoo_step(device, name, trn, tst, B, staged, tag="AE", expected=None, over=None,
+             busy_steps=0):
+    """One model of phase AE (or ``tag``): its repo config (``over``
+    applied; ``expected`` is what it must be, ``AE_MODELS[name]`` by
+    default) on criteo-1m-shape at batch ``B``, initialised from its seed;
+    20 timed steps, the card's busy share of ``busy_steps`` more, one step
+    held to the CPU copy (its relus taking the card's decisions,
+    ``relu_inputs``), one evaluation, ``ScorePredictor`` at ``B`` rows held
+    to ``predict``; InterHAt's and DIFM's evaluation held to the plain
+    route."""
     import numpy as np
     import torch
     from recstudio_torch.models.module import TransformerLayer
     from recstudio_torch.models.module.layers import MultiHeadAttention
     from recstudio_torch.serving import ScorePredictor
     from recstudio_torch.utils import get_model
+    expected = AE_MODELS[name] if expected is None else expected
     cls, conf = get_model(name)
+    conf["model"].update(over or {})
     conf["train"].update(epochs=1, batch_size=B, seed=2022)
     conf["eval"].update(batch_size=B, val_metrics=["auc"], test_metrics=["auc", "logloss"],
                         save_path=SAVE_DIR)
@@ -3720,14 +3748,21 @@ def zoo_step(device, name, trn, tst, B, staged):
     model._train_data = trn                  # the batch norms calibrate on it
     init_s = time.perf_counter() - t
     mc = model.config["model"]
-    shape = {k: (model.embed_dim if k == "embed_dim" else mc.get(k)) for k in AE_MODELS[name]}
+    shape = {k: (model.embed_dim if k == "embed_dim" else mc.get(k)) for k in expected}
     fields = len(model.fields) - 1
-    check(shape == AE_MODELS[name] and fields == 39 and B == 8192,
-          f"phase AE {name} config {shape}, {fields} fields, batch {B}")
+    check(shape == expected and fields == 39 and B == 8192,
+          f"phase {tag} {name} config {shape}, {fields} fields, batch {B}")
     torch.cuda.reset_peak_memory_stats(device)
     steps, times, losses, counts = timed_steps(model, epoch_stream(model))
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     p50 = times[len(times) // 2]
+    busy = {}
+    if busy_steps:                           # the card's busy share of a few more steps
+        host_ms, busy_ms = busy_share(lambda: [model._grad_step(b)
+                                               for b in steps[:busy_steps]])
+        check(busy_ms is not None, f"phase {tag} {name}: the profiler saw no device activity")
+        busy = {"busy_steps": busy_steps, "busy_host_ms": host_ms, "busy_ms": busy_ms,
+                "busy_share": busy_ms / host_ms}
     _, step_counts = counted(lambda: model._grad_step(steps[0]))
     model.net.eval()
 
@@ -3766,12 +3801,12 @@ def zoo_step(device, name, trn, tst, B, staged):
     tst.use_field = model.fields
     serve_diff = float(np.abs(served - model.predict(tst._get_pos_batch(np.arange(B)))).max())
     launched = {k: counts[k] + step_counts[k] + eval_counts[k] + serve_counts[k] for k in counts}
-    ph = {"phase": "AE", "model": name, "config": shape, "fields": fields, "batch": B,
+    ph = {"phase": tag, "model": name, "config": shape, "fields": fields, "batch": B,
           "init_s": init_s, "launches": launched, "timed_steps_launches": counts,
           "training_step_launches": step_counts,
           "eval_launches": eval_counts, "serve_launches": serve_counts,
           "step_ms_p50": p50, "step_ms_min": times[0], "step_ms_max": times[-1],
-          "examples_per_s": B / p50 * 1e3, "peak_mem_gb": peak_gb,
+          "examples_per_s": B / p50 * 1e3, "peak_mem_gb": peak_gb, **busy,
           "params_m": sum(p.numel() for p in model.net.parameters()) / 1e6,
           "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
           "cpu_rows": AE_CPU_ROWS, "card_loss": loss_k, "cpu_loss": loss_c,
@@ -3787,7 +3822,7 @@ def zoo_step(device, name, trn, tst, B, staged):
     emit("PHASE", ph)
     kernels = AE_KERNELS.get(name, ())
     check(not {k: v for k, v in launched.items() if k not in kernels and v},
-          f"phase AE {name} launched {counts} {eval_counts} {serve_counts}")
+          f"phase {tag} {name} launched {counts} {eval_counts} {serve_counts}")
     if name == "InterHAt":
         check(counts["fused_transformer_layer"] > 0 and counts["fused_transformer_layer_bwd"] > 0
               and eval_counts["fused_transformer_layer"] > 0
@@ -3799,15 +3834,15 @@ def zoo_step(device, name, trn, tst, B, staged):
               and serve_counts["fused_mha"] > 0,
               f"phase AE DIFM: K3 launches {counts}, {eval_counts}, {serve_counts}")
     check(bool(torch.isfinite(losses).all()) and 0 < result["auc"] < 1,
-          f"phase AE {name} losses {losses}, AUC {result['auc']}")
-    check(step_ok, f"phase AE {name}: the step disagrees with the CPU copy's: loss {loss_k} vs "
-                   f"{loss_c}, gradients {grad_err} {over}")
+          f"phase {tag} {name} losses {losses}, AUC {result['auc']}")
+    check(step_ok, f"phase {tag} {name}: the step disagrees with the CPU copy's: loss {loss_k} "
+                   f"vs {loss_c}, gradients {grad_err} {over}")
     check(relus["flipped_largest_input"] <= TOL_RELU_FLIP,
-          f"phase AE {name}: card and CPU copy decide relus apart away from 0: {relus}")
+          f"phase {tag} {name}: card and CPU copy decide relus apart away from 0: {relus}")
     check(route_diff is None or route_diff <= route_tol,
-          f"phase AE {name}: the kernel route's scores differ from the plain route's by "
+          f"phase {tag} {name}: the kernel route's scores differ from the plain route's by "
           f"{route_diff}")
-    check(serve_diff <= TOL_PROB, f"phase AE {name}: ScorePredictor differs from predict by "
+    check(serve_diff <= TOL_PROB, f"phase {tag} {name}: ScorePredictor differs from predict by "
                                   f"{serve_diff}")
     return ph
 
@@ -3824,7 +3859,7 @@ def phase_ae(device):
 
 def phase_af(device):
     """InterHAt, DIFM and xDeepFM the way users start them
-    (``ranker_fit_phase``, at most 2 epochs each): InterHAt's training
+    (``ranker_fit_phase``, one epoch each): InterHAt's training
     through K1 and K2, its validation, evaluation and serving through K1;
     DIFM's validation, evaluation and serving through K3."""
     kernels = {"InterHAt": ("fused_transformer_layer", "fused_transformer_layer_bwd"),
@@ -3834,6 +3869,71 @@ def phase_af(device):
             "xDeepFM": ("embed_dim", "cin_layer_size", "direct", "dropout")}
     return [ranker_fit_phase(device, "AF", name, {k: AE_MODELS[name][k] for k in keys[name]},
                              kernels[name], profile=False) for name in kernels]
+
+
+# ---------------------------------------------------------------------------
+# phases AI and AJ: the rest of the CTR ranker zoo
+# ---------------------------------------------------------------------------
+# criteo-1m-shape's columns: 13 float fields and 26 token fields, no user or
+# item id and no feature table. FLEN's, FinalMLP's and PPNet's default groups
+# (the interaction, user and item tables' fields; the user and item
+# features or ids) are then single or empty, which the JAX package and the
+# port refuse to build; phase AI sets them from the columns
+CRITEO_FLOATS = [f"I{i}" for i in range(1, 14)]
+CRITEO_TOKENS = [f"C{i}" for i in range(1, 27)]
+AI_GROUPS = {"FLEN": {"fields": [CRITEO_FLOATS, CRITEO_TOKENS]},
+             "FinalMLP": {"fields1": CRITEO_FLOATS, "fields2": CRITEO_TOKENS},
+             "PPNet": {"gate_fields": CRITEO_TOKENS}}
+# each model's repo config (with AI_GROUPS), as phase AI checks it
+AI_MODELS = {
+    "DeepCrossing": dict(embed_dim=10, hidden_dims=[64, 64, 64], dropout=0.5),
+    "IFM": dict(embed_dim=10, mlp_layer=[256, 256, 256], dropout=0.5, batch_norm=False),
+    "DeepIM": dict(embed_dim=10, order=3, mlp_layer=[256, 256], dropout=0.3),
+    "LorentzFM": dict(embed_dim=10),
+    "PPNet": dict(embed_dim=10, mlp_layer=[256, 128], gate_hidden_dim=64, dropout=0.3,
+                  **AI_GROUPS["PPNet"]),
+    "FinalMLP": dict(embed_dim=10, mlp_layer1=[256, 256], mlp_layer2=[256, 256], dropout1=0.3,
+                     dropout2=0.3, fs_mlp_layer=[128], n_head=2, **AI_GROUPS["FinalMLP"]),
+    "EDCN": dict(embed_dim=10, num_layers=3, bridge_type="hadamard_product", dropout=0.3),
+    "FLEN": dict(embed_dim=10, mlp_layer=[128, 64], dropout=0.3, **AI_GROUPS["FLEN"]),
+    "SAM": dict(embed_dim=10, interaction_type="sam2e", aggregation="concat", dropout=0.0),
+    "AOANet": dict(embed_dim=10, num_interaction_layers=2, num_subspaces=4,
+                   mlp_layer=[128, 64], dropout=0.3),
+    "DESTINE": dict(embed_dim=10, attention_dim=32, num_attention_layers=3, n_head=2,
+                    mlp_layer=[128, 64], dropout=0.3),
+    "FiGNN": dict(embed_dim=10, num_layers=2),
+    "CCPM": dict(embed_dim=10, channels=[3, 3], heights=[6, 5], mlp_layer=[256], dropout=0.5),
+    "FGCNN": dict(embed_dim=10, channels=[6, 8], heights=[7, 7], pooling_sizes=[2, 2],
+                  recombine_channels=[3, 3], mlp_layer=[128, 64], dropout=0.3),
+}
+AI_BUSY_STEPS = 5
+
+
+def phase_ai(device):
+    """The fourteen models at their repo configs on phase R's data
+    (criteo-1m-shape, 39 fields), batch 8192, through ``zoo_step`` with
+    five more steps profiled for the card's busy share; FLEN's, FinalMLP's
+    and PPNet's field groups set from criteo's columns (``AI_GROUPS``). No
+    kernel is launched: the JAX models reach no Pallas kernel."""
+    ref, ds, (trn, _, tst), _, _, _, _ = criteo_setup()
+    staged = {}
+    return [zoo_step(device, name, trn, tst, ref["batch_size"], staged, "AI", expected,
+                     AI_GROUPS.get(name), AI_BUSY_STEPS) for name, expected in AI_MODELS.items()]
+
+
+def phase_aj(device):
+    """FinalMLP (its default streams: ml-100k's user and item features),
+    FiGNN and FGCNN the way users start them (``ranker_fit_phase``, one
+    epoch each), test AUC held to the six-seed JAX bands, every test row
+    served; no kernel."""
+    expected = {"FinalMLP": dict(embed_dim=10, mlp_layer1=[256, 256], mlp_layer2=[256, 256],
+                                 n_head=2, fields1=None, fields2=None),
+                "FiGNN": AI_MODELS["FiGNN"],
+                "FGCNN": {k: AI_MODELS["FGCNN"][k] for k in
+                          ("embed_dim", "channels", "heights", "pooling_sizes",
+                           "recombine_channels")}}
+    return [ranker_fit_phase(device, "AJ", name, config, profile=False)
+            for name, config in expected.items()]
 
 
 AG_MODELS = {"CL4SRec": dict(hidden_size=64, layer_num=1, head_num=2, dropout_rate=0.5,
@@ -4035,46 +4135,52 @@ def k1_versus_plain(device, B, L, D, F, H, causal=True, padded=True, act="gelu",
     attn = causal_mask(L, device, causal)
     kern = lambda: fused_transformer_layer(x, params, pad, attn, H, 0.0, act, eps, False)
     plain = lambda: transformer_layer_plain(x, params, pad, attn, H, act, eps)
-    lib = library_layer(params, D, H, F, eps, device) if act == "relu" and not (
-        padded or causal) else None
+    lib_layer, lib_name = library_layer(params, D, H, F, eps, act, device)
+    lib = lambda: lib_layer(x, src_mask=attn, src_key_padding_mask=pad)
     with torch.no_grad():
         got, want = kern(), plain()
         bitwise = torch.equal(got, kern())
         torch.cuda.synchronize()
         max_abs, max_rel, ok = errors(got, want, TOL_K1)
         ms, plain_ms = time_ms(kern), time_ms(plain)
-        if lib is not None:                  # the same function in one PyTorch call
-            lib_abs, _, lib_ok = errors(lib(x), want, TOL_K1)
-            ok &= lib_ok
-            library_ms = time_ms(lambda: lib(x))
+        # the same function in one PyTorch call
+        lib_abs, _, lib_ok = errors(lib(), want, TOL_K1)
+        library_ms = time_ms(lib)
     flops = 2 * B * L * D * (3 * D + D + 2 * F) + 4 * attended_pairs(pad, attn, (B, L)) * D
     nbytes = 4 * (2 * B * L * D + 4 * D * D + 2 * D * F + 9 * D + F + (B * L if padded else 0)
                   + (L * L if causal else 0))
     b_ms, by = bound(flops, nbytes)
     return {"shape": dict(B=B, L=L, D=D, F=F, H=H, causal=causal, key_padding=padded,
                           activation=act), "max_abs_err": max_abs,
-            "max_rel_err": max_rel, "tol": TOL_K1, "ok": ok and bitwise,
+            "max_rel_err": max_rel, "tol": TOL_K1, "ok": ok and bitwise and lib_ok,
             "bitwise_repeatable": bitwise, "tiles": forward_tiles(B, L, D, F, False, device),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "gflop": flops / 1e9,
-            **({"library_ms": None} if lib is None else {
-                "library_ms": library_ms, "library": "nn.TransformerEncoderLayer, eval",
-                "library_max_abs_err": lib_abs})}
+            "gflop": flops / 1e9, "library_ms": library_ms, "library": lib_name,
+            "library_max_abs_err": lib_abs}
 
 
-def library_layer(params, D, H, F, eps, device):
-    """``nn.TransformerEncoderLayer`` holding the layer's ``params``: in
-    eval mode under ``no_grad``, with no mask, one call (its fused fast
-    path) computes K1's post-LN relu layer."""
+def library_layer(params, D, H, F, eps, act, device):
+    """``nn.TransformerEncoderLayer`` holding the layer's ``params``, in
+    eval mode, and its description: one call (under ``no_grad``) computes
+    K1's post-LN layer, the causal mask as ``src_mask`` and the right
+    padding as ``src_key_padding_mask``. K1's gelu is the tanh form, a
+    callable here, which takes the module off its fused fast path (relu
+    with no mask keeps it)."""
+    import functools
     import torch
-    layer = torch.nn.TransformerEncoderLayer(D, H, F, dropout=0.0, activation="relu",
+    import torch.nn.functional as F_
+    activation = "relu" if act == "relu" else functools.partial(F_.gelu, approximate="tanh")
+    layer = torch.nn.TransformerEncoderLayer(D, H, F, dropout=0.0, activation=activation,
                                              layer_norm_eps=eps, batch_first=True,
                                              norm_first=False, device=device).eval()
     layer.load_state_dict({
         "self_attn." + n if n.startswith("in_proj") else
         "self_attn.out_proj." + n[len("out_proj_"):] if n.startswith("out_proj") else
         n.replace("_", ".", 1): v for n, v in params.items()})
-    return layer
+    name = "nn.TransformerEncoderLayer, eval, " + (
+        "relu (its fused fast path where no mask is given)" if act == "relu" else
+        "tanh gelu as a callable (not the fused fast path)")
+    return layer, name
 
 
 def k3_versus_plain(device, B, H, L, Dh, causal=True):
@@ -4571,7 +4677,7 @@ def _main(device, prepared) -> int:
                phase_q, lambda d: phase_r(d, prepared["R"]), phase_s,
                lambda d: phase_t(d, prepared["T"]), phase_u, phase_w, phase_x, phase_y,
                phase_y2, phase_z, phase_aa, lambda d: phase_ab(d, prepared["AB"]), phase_ac,
-               phase_ad, phase_ae, phase_af, phase_ag, phase_ah,
+               phase_ad, phase_ae, phase_af, phase_ag, phase_ah, phase_ai, phase_aj,
                lambda d: phase_v(d, prepared["V"])):
         t = time.perf_counter()
         out = fn(device)

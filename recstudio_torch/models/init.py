@@ -38,11 +38,15 @@ def _flax_fans(shape):
 # (``raw_init``), the flax initializer the JAX module declares there
 RAW_INITS = {
     "normal": lambda shape, g: torch.randn(shape, generator=g),
+    "normal_0.02": lambda shape, g: 0.02 * torch.randn(shape, generator=g),
     "xavier_uniform": lambda shape, g: _draw(shape, "xavier_uniform", 0.0, g, _flax_fans(shape)),
     "xavier_normal": lambda shape, g: _draw(shape, "xavier_normal", 0.0, g, _flax_fans(shape)),
     # a conv1d weight [out, in, width], whose flax kernel is (width, in, out)
     "xavier_normal_conv1d": lambda shape, g: _draw(shape, "xavier_normal", 0.0, g,
                                                    _flax_fans(shape[::-1])),
+    # a conv2d weight [out, in, h, w], whose flax kernel is (h, w, in, out)
+    "xavier_uniform_hwio": lambda shape, g: _draw(
+        shape, "xavier_uniform", 0.0, g, _flax_fans((shape[2], shape[3], shape[1], shape[0]))),
 }
 
 
@@ -67,7 +71,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
       JAX module declares and the JAX rule by name leaves (CIN's ``conv_{i}``,
       FmFM's ``field_weight``, the bilinear ``weight``, DCN-Mix's ``U_{i}``,
       ``V_{i}``, ``C_{i}``, ``bias_{i}``, HGN's ``W_g_4``, Caser's
-      ``horizontal_kernel_{h}``);
+      ``horizontal_kernel_{h}``, EDCN's ``cross_w_{i}``, FinalMLP's
+      ``bilinear``, FiGNN's ``W_out_{i}`` and ``W_in_{i}``, CCPM's and
+      FGCNN's convolution weights);
     - ``*norm*_weight``: 1; ``*bias`` and ``bias_*`` (a GRU's): 0;
     - 2-D ``*weight``, ``weight_*`` and ``*kernel`` (embedding tables,
       projections, a GRU's ``weight_ih_l0 [3H, in]`` and ``weight_hh_l0
@@ -80,8 +86,10 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
     - a gated GRU's raw ``w_hh [H, 3H]``: LeCun normal (truncated at two
       standard deviations, variance 1 / H), the initializer the JAX module
       declares (its rule by name leaves it); an expert bank's
-      ``[E, in, out]`` kernels: ``method`` with the fans ``E in`` and ``E
-      out``, as the JAX rule reads the stacked leaf's (``init.py:18-25``);
+      ``[E, in, out]`` kernels, and a 3-D ``W`` (SAM's, AOANet's: the JAX
+      rule lower-cases it to ``w``, a kernel): ``method`` with the fans
+      ``E in`` and ``E out``, as the JAX rule reads the stacked leaf's
+      (``init.py:18-25``);
     - any other 2-D parameter (learned position tables): N(0, 0.02), the
       initializer the JAX modules declare for them;
     - a 1-D parameter ``w_{i}`` (DCN's cross weights): N(0, 1), the
@@ -107,7 +115,7 @@ def init_parameters(module: nn.Module, generator: torch.Generator,
                 p[0].zero_()
         elif leaf == "w_hh" and p.dim() == 2:
             p.copy_(_lecun_normal(tuple(p.shape), generator))
-        elif (leaf == "kernel" or leaf.startswith("kernel_")) and p.dim() == 3:
+        elif (leaf in ("kernel", "W") or leaf.startswith("kernel_")) and p.dim() == 3:
             E, n_in, n_out = p.shape
             p.copy_(_draw(tuple(p.shape), method, init_range, generator,
                           fans=(E * n_out, E * n_in)))

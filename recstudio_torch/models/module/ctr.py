@@ -8,11 +8,12 @@ AutoInt's ``SelfAttentionInteractingLayer`` and the interaction layers of
 the fm zoo (``ctr.py:366-619``): ``CrossNetworkV2``, ``InnerProductLayer``,
 ``OuterProductLayer``, ``CIN``, ``AFMLayer``, ``FieldAwareFMLayer``,
 ``FMFMLayer``, ``SqueezeExcitation``, ``BilinearInteraction``,
-``MaskBlock``, ``OperationAwareFMLayer``, ``HolographicFMLayer`` and
-``LogTransformLayer``. Field pairs are taken in ``torch.triu_indices``
+``MaskBlock``, ``OperationAwareFMLayer``, ``HolographicFMLayer``,
+``LogTransformLayer`` and CCPM's and FGCNN's field convolution
+``FieldConv``. Field pairs are taken in ``torch.triu_indices``
 order, which is ``jnp.triu_indices``'. None of these reaches a Pallas
 kernel in the JAX package (XLA computes them, ``jnp.fft`` included), so
-they are PyTorch here (cuBLAS and cuFFT on the card). Raw parameters keep
+they are PyTorch here (cuBLAS, cuFFT and cuDNN on the card). Raw parameters keep
 the JAX layout and their flax initializer (``raw_init``,
 ``models/init.py``).
 
@@ -50,7 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import MultiHeadAttention, SimpleBatchNorm, get_act, seeded_dropout
+from .layers import (MultiHeadAttention, SimpleBatchNorm, float32_cudnn, get_act,
+                     seeded_dropout)
 
 FieldSpecTuple = Tuple[str, str, int]  # (name, type, num_values)
 
@@ -196,6 +198,26 @@ class FMLayer(nn.Module):
         sum_of_square = torch.sum(inputs ** 2, dim=-2)
         output = 0.5 * (square_of_sum - sum_of_square)         # [..., D]
         return output.sum(-1) if self.reduction == "sum" else output
+
+
+class FieldConv(nn.Conv2d):
+    """CCPM's and FGCNN's convolution over the fields of an NCHW map ``[B,
+    C_in, F, D]`` (``ccpm.py:35-41``, ``fgcnn.py:36-42``): kernel ``(h,
+    1)``, no bias, XLA's SAME padding (the extra row of an even height at
+    the end, by ``F.pad``). On the card it runs through cuDNN in float32
+    in both passes (``layers.float32_cudnn``). The weight ``[C_out, C_in,
+    h, 1]`` is the JAX ``(h, 1, C_in, C_out)`` kernel with its axes
+    permuted (``utils/convert``), and takes flax's ``xavier_uniform`` over
+    that kernel's fans, which the JAX rule by name leaves."""
+
+    def __init__(self, in_channels: int, out_channels: int, height: int):
+        super().__init__(in_channels, out_channels, (height, 1), bias=False)
+        self.raw_init = {"weight": "xavier_uniform_hwio"}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        total = self.kernel_size[0] - 1
+        x = F.pad(x, (0, 0, total // 2, total - total // 2))
+        return float32_cudnn(F.conv2d, x, self.weight)
 
 
 class CrossNetwork(nn.Module):

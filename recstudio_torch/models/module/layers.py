@@ -216,6 +216,27 @@ def gru_layer_plain(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     return torch.stack(out, dim=1)
 
 
+class GRUCell(nn.Module):
+    """One GRU step ``(h, x) -> h'`` (``layers.py:167-180``), the state
+    first as the JAX module takes it. ``ih`` and ``hh`` are ``Linear``s to
+    ``3 d`` with biases (the JAX ``Dense`` kernels, transposed), their
+    outputs in ``r, z, n`` blocks: ``n = tanh(x_n + r * h_n)``, ``h_n``
+    with its bias, and ``h' = (1 - z) n + z h``. FiGNN's state update."""
+
+    def __init__(self, input_dim: int, hidden_size: int):
+        super().__init__()
+        self.ih = nn.Linear(input_dim, 3 * hidden_size)
+        self.hh = nn.Linear(hidden_size, 3 * hidden_size)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        xr, xz, xn = self.ih(x).chunk(3, dim=-1)
+        hr, hz, hn = self.hh(h).chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        return (1.0 - z) * n + z * h
+
+
 def _float32_cudnn():
     """cuDNN on, TF32 off, every other cuDNN setting as it stands, for the
     scope of a block. cuDNN's RNN takes TF32 for float32 by default

@@ -49,7 +49,15 @@ their name and layout (PNN's ``outer/kernel [D, P,
 D]``, CIN's ``conv_{i}``, FmFM's ``field_weight``, FiBiNET's bilinear
 ``weight``, DCN-Mix's ``U_{i}``, ``V_{i}``, ``C_{i}``, ``bias_{i}``), and a
 ``TransformerLayer``'s leaves inside a ranker (InterHAt's ``trm``) map
-through ``_LAYER_MAP`` as a sequence model's do. The flax ``batch_stats``
+through ``_LAYER_MAP`` as a sequence model's do. The rest of the zoo
+follows the same rules: FiGNN's ``GRUCell`` ``gru/{ih,hh}`` kernels
+``[in, 3d]`` are ``Linear`` weights ``[3d, in]``, its ``W_out_{i}``,
+``W_in_{i}`` and ``bias_{i}``, FinalMLP's ``bilinear [H, d1, d2]``,
+AOANet's ``W``, ``alpha`` and ``h``, SAM's ``W``, EDCN's ``cross_w_{i}``,
+``cross_b_{i}`` and gates and IFM's ``bias`` are raw and keep their
+layout; CCPM's and FGCNN's ``conv_{i}`` ``(h, 1, C_in, C_out)`` kernels
+are ``FieldConv`` weights ``[C_out, C_in, h, 1]``, their axes permuted,
+where the net holds a ``Conv2d``. The flax ``batch_stats``
 collection is the batch norms' ``mean``, ``var``
 and ``count`` buffers (``ranker_batch_stats_to_jax`` the reverse). The
 same two functions carry DIN, DIEN and the multitask nets: an
@@ -102,9 +110,26 @@ _LAYER_MAP = {
 _LAYER_UNMAP = {v[0]: (k, v[1]) for k, v in _LAYER_MAP.items()}
 
 
-def _tensor(a, transpose: bool = False) -> torch.Tensor:
+# a convolution's flax kernel (h, w, in, out) -> the port's Conv2d weight [out, in, h, w]
+_HWIO_TO_OIHW = (3, 2, 0, 1)
+
+
+def _tensor(a, transpose=False) -> torch.Tensor:
+    """``a`` as a float32 tensor: transposed where ``transpose`` is True,
+    its axes permuted where it is a permutation."""
     a = np.asarray(a, np.float32)
-    return torch.from_numpy(np.array(a.T if transpose else a, order="C"))
+    if transpose is True:
+        a = a.T
+    elif transpose:
+        a = a.transpose(transpose)
+    return torch.from_numpy(np.array(a, order="C"))
+
+
+def _jax_layout(a: np.ndarray, transpose) -> np.ndarray:
+    """``_tensor``'s layout change undone."""
+    if transpose is True:
+        return a.T.copy()
+    return a.transpose(np.argsort(transpose)).copy() if transpose else a
 
 
 def layer_params_from_jax(layer: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -221,11 +246,12 @@ def _owner(net: torch.nn.Module, parts: Tuple[str, ...]):
         return None
 
 
-def _ranker_port_name(path: Tuple[str, ...], net: torch.nn.Module) -> Tuple[str, bool]:
+def _ranker_port_name(path: Tuple[str, ...], net: torch.nn.Module):
     """A leaf of a JAX ranker's tree that is not a CTR token table -> (the
-    port's name, transpose). A ``kernel`` is a ``Dense``'s, transposed, only
-    where ``net`` holds an ``nn.Linear``; a raw ``kernel`` (PNN's
-    ``outer/kernel [D, P, D]``) keeps its layout."""
+    port's name, transpose or an axis permutation). A ``kernel`` is a
+    ``Dense``'s, transposed, only where ``net`` holds an ``nn.Linear``; a
+    raw ``kernel`` (PNN's ``outer/kernel [D, P, D]``) keeps its layout; a
+    leaf where ``net`` holds an ``nn.Conv2d`` is its HWIO kernel."""
     for j, part in enumerate(path[:-2]):
         if part.startswith("gru_") and path[j + 1] in ("ih", "hh"):
             # a GRULayer's <name>/gru_{i}/{ih,hh}/{kernel,bias}
@@ -240,6 +266,10 @@ def _ranker_port_name(path: Tuple[str, ...], net: torch.nn.Module) -> Tuple[str,
         return ".".join(path[:-1] + (name,)), tr
     if path[-1] == "embedding":                     # an Embedding module's table
         return ".".join(path[:-1]) + ".weight", False
+    if isinstance(_owner(net, path), torch.nn.Conv2d):
+        # a raw convolution kernel (h, w, in, out) that the port holds in a
+        # Conv2d (CCPM's and FGCNN's conv_{i}): its weight, axes permuted
+        return ".".join(path) + ".weight", _HWIO_TO_OIHW
     owner = _owner(net, path[:-1])
     if path[-1] == "kernel" and isinstance(owner, torch.nn.Linear):
         return ".".join(path[:-1]) + ".weight", True
@@ -248,10 +278,10 @@ def _ranker_port_name(path: Tuple[str, ...], net: torch.nn.Module) -> Tuple[str,
     return ".".join(path), False
 
 
-def _ranker_jax_path(parts: Tuple[str, ...], net: torch.nn.Module) -> Tuple[Tuple[str, ...], bool]:
+def _ranker_jax_path(parts: Tuple[str, ...], net: torch.nn.Module):
     """``_ranker_port_name``'s inverse: a ``weight`` is a CTR token table,
-    an ``Embedding``'s table, a ``Linear``'s kernel, a ``LayerNorm``'s
-    scale, or else a
+    an ``Embedding``'s table, a ``Linear``'s kernel, a ``Conv2d``'s HWIO
+    kernel, a ``LayerNorm``'s scale, or else a
     raw parameter in the JAX layout (FiBiNET's bilinear ``weight``), as the
     module of ``net`` that holds it says."""
     leaf = parts[-1]
@@ -274,6 +304,8 @@ def _ranker_jax_path(parts: Tuple[str, ...], net: torch.nn.Module) -> Tuple[Tupl
             return parts[:-1] + ("embedding",), False
         if isinstance(owner, torch.nn.Linear):
             return parts[:-1] + ("kernel",), True
+        if isinstance(owner, torch.nn.Conv2d):
+            return parts[:-1], _HWIO_TO_OIHW
         if isinstance(owner, torch.nn.LayerNorm):
             return parts[:-1] + ("scale",), False
     return parts, False
@@ -361,8 +393,7 @@ def ranker_params_to_jax(values: Dict[str, torch.Tensor], net: torch.nn.Module
         node = out
         for part in parts[:-1]:
             node = node.setdefault(part, {})
-        a = value.detach().cpu().numpy().astype(np.float32)
-        node[parts[-1]] = a.T.copy() if tr else a
+        node[parts[-1]] = _jax_layout(value.detach().cpu().numpy().astype(np.float32), tr)
     return out
 
 

@@ -5,7 +5,9 @@ SASRec, BERT4Rec, GRU4Rec, NARM, STAMP, DIN, DIEN, CL4SRec, CoSeRec,
 ICLRec, Caser, FPMC, TransRec, HGN and NPE (``seq``, the whole family), BPR, PMF,
 CML, NCF and LogisticMF (``mf``), MultiDAE and MultiVAE (``ae``), DeepFM,
 FM, LR, WideDeep, DCN, NFM, AutoInt, InterHAt, DIFM, xDeepFM, DCNv2, PNN,
-DLRM, FwFM, AFM, FFM, FmFM, FiBiNET, MaskNet, ONN, HFM and AFN (``fm``), LightGCN, NGCF and SimGCL
+DLRM, FwFM, AFM, FFM, FmFM, FiBiNET, MaskNet, ONN, HFM, AFN, DeepCrossing,
+FLEN, IFM, EDCN, FinalMLP, PPNet, DeepIM, LorentzFM, AOANet, SAM, DESTINE,
+FiGNN, CCPM and FGCNN (``fm``, the whole family), LightGCN, NGCF and SimGCL
 (``graph``), HardShare, MMoE, PLE and AITM (``multitask``), and the
 dataset configs they run on.
 """
@@ -62,6 +64,20 @@ _MODELS = {"sasrec": ("seq", "SASRec", ("seq_all", "sasrec")),
            "onn": ("fm", "ONN", ("fm_all", "onn")),
            "hfm": ("fm", "HFM", ("fm_all", "hfm")),
            "afn": ("fm", "AFN", ("fm_all", "afn")),
+           "deepcrossing": ("fm", "DeepCrossing", ("fm_all", "deepcrossing")),
+           "flen": ("fm", "FLEN", ("fm_all", "flen")),
+           "ifm": ("fm", "IFM", ("fm_all", "ifm")),
+           "edcn": ("fm", "EDCN", ("fm_all", "edcn")),
+           "finalmlp": ("fm", "FinalMLP", ("fm_all", "finalmlp")),
+           "ppnet": ("fm", "PPNet", ("fm_all", "ppnet")),
+           "deepim": ("fm", "DeepIM", ("fm_all", "deepim")),
+           "lorentzfm": ("fm", "LorentzFM", ("fm_all", "lorentzfm")),
+           "aoanet": ("fm", "AOANet", ("fm_all", "aoanet")),
+           "sam": ("fm", "SAM", ("fm_all", "sam")),
+           "destine": ("fm", "DESTINE", ("fm_all", "destine")),
+           "fignn": ("fm", "FiGNN", ("fm_all", "fignn")),
+           "ccpm": ("fm", "CCPM", ("fm_all", "ccpm")),
+           "fgcnn": ("fm", "FGCNN", ("fm_all", "fgcnn")),
            "lightgcn": ("graph", "LightGCN", ("lightgcn",)),
            "ngcf": ("graph", "NGCF", ("ngcf",)),
            "simgcl": ("graph", "SimGCL", ("simgcl",)),

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Rankers seed by seed: the port's DeepFM at phase R's setup, and the
-JAX bands of phase X (WideDeep, DCN, NFM and AutoInt on ml-100k).
+JAX bands of phases X, AF and AJ (WideDeep, DCN, NFM and AutoInt;
+InterHAt, DIFM and xDeepFM; FinalMLP, FiGNN and FGCNN, on ml-100k).
 
     python3 scripts/torch_ctr_seeds.py [--epochs 6] [--seeds 2022 2023 ...]
-    JAX_PLATFORMS=cpu python scripts/torch_ctr_seeds.py --jax-ml100k [WideDeep DCN ... xDeepFM]
+    JAX_PLATFORMS=cpu python scripts/torch_ctr_seeds.py --jax-ml100k [WideDeep DCN ... FGCNN]
     JAX_PLATFORMS=cpu python scripts/torch_ctr_seeds.py --one MODEL SEED
     python3 scripts/torch_ctr_seeds.py --port MODEL [SEED ...]
 
@@ -40,16 +41,20 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "recstudio_torch", "assets")
-ML100K_MODELS = ("WideDeep", "DCN", "NFM", "AutoInt", "InterHAt", "DIFM", "xDeepFM")
+ML100K_MODELS = ("WideDeep", "DCN", "NFM", "AutoInt", "InterHAt", "DIFM", "xDeepFM", "FinalMLP",
+                 "FiGNN", "FGCNN")
 # the epoch cap of each ml-100k run, phase X's depth: the JAX fits' best
 # validation epochs at the config's own cap (1000, patience 10) were 3–10
 # (WideDeep), 2–7 (DCN), 3–8 (NFM) and 7–25 (AutoInt), and the ten epochs
 # of patience after them took most of phase X's time; cut again to 4 each
-# when phases AA–AD joined the script, and to 2 each when phases AG and AH
-# joined it, for its time limit; InterHAt, DIFM and xDeepFM (phase AF) run
-# at most 2 each, for the same limit
-ML100K_EPOCHS = {"WideDeep": 2, "DCN": 2, "NFM": 2, "AutoInt": 2, "InterHAt": 2, "DIFM": 2,
-                 "xDeepFM": 2}
+# when phases AA–AD joined the script, to 2 each when phases AG and AH
+# joined it, and to 1 each but DCN when phases AI and AJ did, for its time
+# limit (at 1 epoch one of DCN's six seeds stays at the untrained AUC, and
+# its band could not fail); InterHAt, DIFM and xDeepFM (phase AF) ran at
+# most 2 each and run 1 since phases AI and AJ; FinalMLP, FiGNN and FGCNN
+# (phase AJ) one each: the depth at which all six seeds of each clear the
+# untrained AUC by AUC_MARGIN, and no more
+ML100K_EPOCHS = dict({name: 1 for name in ML100K_MODELS}, DCN=2)
 SEEDS = (2022, 2023, 2024, 2025, 2026, 2027)
 PARALLEL = 6
 ABOUT = {
@@ -66,6 +71,12 @@ ABOUT = {
             "dropout 0.3",
     "xDeepFM": "embed_dim 10, CIN [100, 100, 100] (direct False), MLP [128, 128, 128], "
                "relu, dropout 0.2",
+    "FinalMLP": "embed_dim 10, two streams MLP [256, 256], relu, dropout 0.3, feature "
+                "selection over the user and the item features (fs MLP [128]), bilinear "
+                "fusion with 2 heads",
+    "FiGNN": "embed_dim 10, 2 graph layers with a shared GRU cell, attentional readout",
+    "FGCNN": "embed_dim 10, convolutions with channels [6, 8], heights [7, 7], pooling [2, "
+             "2], recombination [3, 3], inner products, MLP [128, 64], relu, dropout 0.3",
 }
 
 

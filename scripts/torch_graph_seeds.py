@@ -50,8 +50,9 @@ SEEDS = {"LightGCN": SIX, "NGCF": SIX, "SimGCL": SIX}
 # then 20 when phases AA–AD joined the script); NGCF's 40 were cut to 30
 # when phases AG and AH joined it (at 20 its band cleared the untrained
 # NDCG@10 by 0.048, under MARGIN, and its loss falls less than a train_loss
-# gate asks)
-EPOCHS = {"LightGCN": 20, "NGCF": 30, "SimGCL": 20}
+# gate asks); LightGCN and SimGCL cut from 20 to 10 when phases AI and AJ
+# joined it
+EPOCHS = {"LightGCN": 10, "NGCF": 30, "SimGCL": 10}
 MARGIN = 0.05
 ABOUT = {
     "LightGCN": "d 64, 3 layers (collapsed operator M, fp32), l2 1e-4, batch 512, one uniform "

@@ -47,8 +47,10 @@ SEEDS = {name: SIX for name in RUNS}
 # None: the config's own cap (1000), with early stopping at its patience;
 # BPR-midx-pop's fits stopped after 21-25 epochs, capped at 12 for phase
 # Z's share of the script's time limit; NCF, LogisticMF and BPR-midx-pop cut
-# from 20, 20 and 12 when phases AG and AH joined the script
-EPOCHS = {"PMF": None, "CML": 30, "NCF": 10, "LogisticMF": 10, "BPR-midx-pop": 6}
+# from 20, 20 and 12 when phases AG and AH joined the script, and from 10,
+# 10 and 6 when phases AI and AJ did, with PMF capped at 3 (its best epochs
+# were 1 and 2, and its patience of 10 ran on to about 12)
+EPOCHS = {"PMF": 3, "CML": 30, "NCF": 5, "LogisticMF": 5, "BPR-midx-pop": 3}
 MARGIN = 0.05
 PARALLEL = 6
 ABOUT = {

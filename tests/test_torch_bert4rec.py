@@ -37,8 +37,9 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_REFERENCE = os.path.join(REPO, "recstudio_torch", "assets",
                                "bert4rec_ml100k_train_reference.json")
-# phase G's depth: 20 until the script's time limit cut it to 10
-EPOCHS = 10
+# phase G's depth: 20 until the script's time limit cut it to 10, then to 6
+# when phases AI and AJ joined the script
+EPOCHS = 6
 REF_SEEDS = (2022, 2023, 2024)
 
 

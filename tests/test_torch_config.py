@@ -41,7 +41,10 @@ def test_autoencoder_model_configs_equal_jax(name):
 
 @pytest.mark.parametrize("name", ["DeepFM", "FM", "LR", "WideDeep", "DCN", "NFM", "AutoInt",
                                   "InterHAt", "DIFM", "xDeepFM", "DCNv2", "PNN", "DLRM", "FwFM",
-                                  "AFM", "FFM", "FmFM", "FiBiNET", "MaskNet", "ONN", "HFM", "AFN"])
+                                  "AFM", "FFM", "FmFM", "FiBiNET", "MaskNet", "ONN", "HFM", "AFN",
+                                  "DeepCrossing", "FLEN", "IFM", "EDCN", "FinalMLP", "PPNet",
+                                  "DeepIM", "LorentzFM", "AOANet", "SAM", "DESTINE", "FiGNN",
+                                  "CCPM", "FGCNN"])
 def test_ranker_model_configs_equal_jax(name):
     _, want = jax_get_model(name)
     cls, got = get_model(name)
@@ -109,7 +112,10 @@ def test_registry_lists_what_is_ported():
                              "fmfm": "fm", "fibinet": "fm", "masknet": "fm", "onn": "fm",
                              "hfm": "fm", "afn": "fm", "cl4srec": "seq", "coserec": "seq",
                              "iclrec": "seq", "caser": "seq", "fpmc": "seq", "transrec": "seq",
-                             "hgn": "seq", "npe": "seq"}
+                             "hgn": "seq", "npe": "seq", "deepcrossing": "fm", "flen": "fm",
+                             "ifm": "fm", "edcn": "fm", "finalmlp": "fm", "ppnet": "fm",
+                             "deepim": "fm", "lorentzfm": "fm", "aoanet": "fm", "sam": "fm",
+                             "destine": "fm", "fignn": "fm", "ccpm": "fm", "fgcnn": "fm"}
 
 
 @pytest.mark.parametrize("key,value", [

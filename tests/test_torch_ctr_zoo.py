@@ -74,6 +74,39 @@ _VARIANTS = {
     "HFM-product": ("HFM", {"op": "product", "deep": False}),
     "AFN": ("AFN", {}),
     "AFN-single": ("AFN", {"ensemble": False}),
+    "DeepCrossing": ("DeepCrossing", {}),
+    "IFM": ("IFM", {}),
+    "IFM-bn": ("IFM", {"batch_norm": True}),
+    "DeepIM": ("DeepIM", {}),
+    "DeepIM-order5": ("DeepIM", {"order": 5, "batch_norm": True}),
+    "LorentzFM": ("LorentzFM", {}),
+    "PPNet": ("PPNet", {}),
+    "PPNet-bn": ("PPNet", {"batch_norm": True, "gate_fields": ["age", "gender"]}),
+    "FinalMLP": ("FinalMLP", {}),
+    "FinalMLP-bn": ("FinalMLP", {"batch_norm1": True, "batch_norm2": True,
+                                 "fields1": ["user_id", "age"], "fields2": ["item_id"]}),
+    "FinalMLP-nofs": ("FinalMLP", {"feature_selection": False}),
+    "EDCN": ("EDCN", {}),
+    "EDCN-attention": ("EDCN", {"bridge_type": "attention_pooling", "temperature": 0.5}),
+    "EDCN-concat": ("EDCN", {"bridge_type": "concatenation", "num_layers": 2}),
+    "FLEN": ("FLEN", {}),
+    "FLEN-groups": ("FLEN", {"fields": [["user_id", "age"], ["item_id"], ["gender"]]}),
+    "SAM": ("SAM", {}),
+    "SAM-sam3a": ("SAM", {"interaction_type": "sam3a", "aggregation": "weighted_pooling"}),
+    "AOANet": ("AOANet", {}),
+    "DESTINE": ("DESTINE", {}),
+    "DESTINE-relu": ("DESTINE", {"relu_before_att": True, "wide": False, "n_head": 1}),
+    "DESTINE-res-mode": ("DESTINE", {"res_mode": "last_layer"}),
+    "FiGNN": ("FiGNN", {}),
+    "CCPM": ("CCPM", {}),
+    "FGCNN": ("FGCNN", {}),
+    # the groups phase AI sets on criteo's columns, at the id-less test
+    # split's 13 float and 4 token fields
+    "FLEN-criteo": ("FLEN", {"fields": [[f"I{i}" for i in range(1, 14)],
+                                        [f"C{i}" for i in range(1, 5)]]}),
+    "FinalMLP-criteo": ("FinalMLP", {"fields1": [f"I{i}" for i in range(1, 14)],
+                                     "fields2": [f"C{i}" for i in range(1, 5)]}),
+    "PPNet-criteo": ("PPNet", {"gate_fields": [f"C{i}" for i in range(1, 5)]}),
 }
 VARIANTS = ("InterHAt", "DIFM")
 
@@ -155,7 +188,7 @@ def models(variant, splits):
         for getter in (jax_get_model, get_model):
             cls, conf = getter(name)
             conf["model"].update(over)
-            for k in [k for k in conf["model"] if k.endswith("dropout")] + ["dropout"]:
+            for k in [k for k in conf["model"] if "dropout" in k] + ["dropout"]:
                 conf["model"][k] = 0.0
             out.append((cls, conf))
         (jcls, jconf), (cls, conf) = out
@@ -270,16 +303,29 @@ def check_gradients(variant, splits):
     # subtracts the batch mean), and a bias that moves a softmax's scores
     # alike (an attention's key bias; AFM's attention bias here), which the
     # softmax removes
-    for top in ("mlp", "bit_fen"):
-        for i in range(len(want.get(top, {}))):
-            if f"bn_{i}" in want[top]:
-                _pop_noise(grads, want, (top, f"dense_{i}", "bias"), largest)
+    def bn_fed_biases(node, path=()):
+        for key, sub in node.items():
+            if isinstance(sub, dict):
+                yield from bn_fed_biases(sub, path + (key,))
+            if key.startswith("bn_") and "bias" in node.get(f"dense_{key[3:]}", {}):
+                yield path + (f"dense_{key[3:]}", "bias")
+    for path in list(bn_fed_biases(want)):
+        _pop_noise(grads, want, path, largest)
     if "afm" in want:
         # every pair's attention input is positive at these weights (the bias
         # outweighs the products), so its bias moves each pair's score alike
         _pop_noise(grads, want, ("afm", "attn_w", "bias"), largest)
     if "vector_fen" in want:
         _pop_noise(grads, want, ("vector_fen", "attn", "k_proj", "bias"), largest)
+    if "fwbi_fc" in want:
+        # FLEN's first-order score enters fwbi_fc's batch norm in training
+        # mode through a bias-free layer: the norm removes its bias
+        _pop_noise(grads, want, ("linear", "bias"), largest)
+    # DESTINE: the unary softmax over the fields removes its logits' bias,
+    # the whitening (q and k minus their means over the fields) q's and k's
+    for i in range(sum(k.startswith("attn_") and k != "attn_fc" for k in want)):
+        for leaf in ("unary", "Wq", "Wk"):
+            _pop_noise(grads, want, (f"attn_{i}", leaf, "bias"), largest)
     if "trm" in want:
         d = want["trm"]["out_bias"].shape[0]
         for tree in (grads, want):
@@ -350,6 +396,13 @@ def test_converter_round_trip_is_exact(variant, splits):
 
 @pytest.mark.parametrize("name", VARIANTS)
 def test_evaluate_and_score_predictor_match_jax(name, splits):
+    check_evaluate(name, splits)
+
+
+def check_evaluate(name, splits):
+    """``evaluate``'s AUC and logloss on the test split, and
+    ``ScorePredictor``'s probabilities for 300 test rows, against the JAX
+    package's; the served probabilities against ``predict``."""
     import jax
     from recstudio_tpu.serving import ScorePredictor as JaxScorePredictor
     from recstudio_torch.serving import ScorePredictor

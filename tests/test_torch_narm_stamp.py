@@ -41,7 +41,8 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "recstudio_torch", "assets")
-EPOCHS = 2
+# phase N's depth: cut from 2 to 1 when phases AI and AJ joined the script
+EPOCHS = 1
 REF_SEEDS = (2022, 2023, 2024, 2025, 2026, 2027)
 MODELS = ("NARM", "STAMP")
 D_TEST, HIDDEN_TEST, ROWS, WEIGHT_SEED, K = 16, 32, 64, 5, 20
