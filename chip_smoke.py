@@ -141,8 +141,9 @@ then:
   padded ELL slots against edges and the tables' bytes, 20 timed steps,
   peak memory, one step's loss and gradients held to the edge-list route
   and to a bitwise repeat, one layer's forward on the ELL and edge-list
-  routes beside ``torch.sparse.mm`` of the same CSR matrix, one epoch and
-  its busy share, every test user evaluated. No kernel;
+  routes beside ``torch.sparse.mm`` of the same CSR matrix, the busy share
+  of ``T_PROFILE_STEPS`` steps of an epoch, every test user evaluated. No
+  kernel;
 - phase U: ``quickstart.run`` of LightGCN, NGCF and SimGCL (for the
   epochs of their references: 10, 30 and 10) on ml-100k at the repo's
   configs, held to the JAX seeds' bands (``recstudio_torch/assets/
@@ -273,6 +274,28 @@ then:
   fignn,fgcnn}_ml100k_train_reference.json``), every test row served
   through ``ScorePredictor`` against ``evaluate`` and ``predict``. No
   kernel;
+- phase AK: the rest of the ``mf``, ``debias`` and ``graph`` retrievers at
+  their repo configs' widths: EASE, ItemKNN, SLIM, WRMF, IRGAN, DSSM,
+  IPSBPR and PDA on the synthetic ml-1m shape (seed 7), SGL and NCL on
+  phase T's amazon-book-shape split. The closed-form three: the solve timed
+  and held to the same solve on the CPU (SLIM's at ``AK_SLIM_CPU_STEPS``
+  ISTA steps; ItemKNN's on the columns with no tie at the ``knn``-th
+  similarity); WRMF: a user and an item half-sweep timed, the user sweep
+  held to the CPU copy's; IRGAN: 20 steps of each player, one of each held
+  to the CPU copy with the same draws; DSSM, IPSBPR, PDA, SGL and NCL: 20
+  timed steps, one held to the CPU copy (same batch, negatives, dropout
+  seeds and SGL's keep masks) within ``TOL_GRAD`` (the CPU copies compute in
+  threads of their own through the rest of AK and AL, which checks them at
+  its end); NCL's k-means refresh timed. Each model's peak memory
+  and the card's busy share, and one ``Predictor`` request whose lists
+  are ``evaluate``'s. No kernel;
+- phase AL: ``quickstart.run`` of the ten on ml-100k for the epochs of
+  ``recstudio_torch/assets/<model>_ml100k_train_reference.json``
+  (``scripts/torch_retriever_seeds.py``; NCL's warm-up cut to 5 epochs as
+  there), test NDCG@10 held to the JAX band, which clears the untrained
+  model's NDCG@10 (the closed-form three: the JAX value within its stated
+  tolerance), every test user served through ``Predictor``, whose lists
+  must give ``evaluate``'s NDCG@10. No kernel;
 - each kernel against its plain PyTorch version on the phases' shapes,
   with its time, the plain version's, PyTorch's own call where one exists
   (K1's evaluation rows: ``nn.TransformerEncoderLayer`` with the rows'
@@ -827,7 +850,7 @@ TRANSFORMER_KEYS = {"hidden": "hidden_size", "heads": "head_num", "layers": "lay
 
 
 def fit_phase(device, tag, model_name, reference, model_keys, expected, kernels,
-              quickstart=False, cpu_lists=False, overrides=None):
+              quickstart=False, cpu_lists=False, overrides=None, profile=True):
     """fit + evaluate on ml-100k at the repo's config for the reference's
     epochs (through ``quickstart.run`` with ``quickstart``; ``overrides``,
     config groups layered over the repo's config as the reference's runs
@@ -843,7 +866,8 @@ def fit_phase(device, tag, model_name, reference, model_keys, expected, kernels,
     the random-init level and is reported, not gated), the last epoch's
     training loss lies inside the JAX band of it. With
     ``cpu_lists`` every served list is held to the model copied to the CPU
-    (ids up to ties, scores within ``TOL_SCORES``)."""
+    (ids up to ties, scores within ``TOL_SCORES``). A quick start with
+    ``profile`` profiles one more epoch for the card's busy share."""
     import numpy as np
     from recstudio_torch.data import UserDataset
     from recstudio_torch.quickstart import run
@@ -921,13 +945,16 @@ def fit_phase(device, tag, model_name, reference, model_keys, expected, kernels,
     if cpu_lists:
         out.update(cpu_rows=cpu_rows, cpu_rows_disagreeing=cpu_bad,
                    cpu_max_score_diff=cpu_max_diff, cpu_tol=TOL_SCORES)
-    if quickstart:              # the card's busy share of one more epoch, profiled
+    if quickstart and profile:  # the card's busy share of one more epoch, profiled
         train_s = sorted(e["train_s"] for e in model.epoch_log)
         epoch_s = train_s[len(train_s) // 2]
         model._epoch_refresh(0)         # what the epoch reads (a sampler's index)
         host_ms, busy_ms = busy_share(lambda: model.training_epoch(0))
-        steps = -(-model._epoch_rows // tc["batch_size"])
-        out.update(epoch_s_p50=epoch_s, steps_per_epoch=steps, step_ms_p50=epoch_s / steps * 1e3,
+        # a closed-form, ALS or host-loader model stages no device epoch
+        rows = getattr(model, "_epoch_rows", None)
+        steps = None if rows is None else -(-rows // tc["batch_size"])
+        out.update(epoch_s_p50=epoch_s, steps_per_epoch=steps,
+                   step_ms_p50=None if steps is None else epoch_s / steps * 1e3,
                    profiled_epoch_host_ms=host_ms, profiled_epoch_busy_ms=busy_ms,
                    busy_share_of_epoch=None if busy_ms is None else busy_ms / (epoch_s * 1e3))
     emit("PHASE", out)
@@ -1139,8 +1166,9 @@ def cpu_copy(model, train_split):
     return cpu
 
 
-def step_on(model, batch, neg):
-    """One training step's loss and gradients with the negatives ``neg``."""
+def step_on(model, batch, neg, **kwargs):
+    """One training step's loss and gradients with the negatives ``neg``
+    (``kwargs`` go to ``training_step``)."""
     from recstudio_torch.models.init import zero_pad_rows_in_grads
     import torch
     zeros = torch.zeros(neg.shape, device=neg.device)
@@ -1148,7 +1176,7 @@ def step_on(model, batch, neg):
     try:
         model.net.train()
         model.net.zero_grad(set_to_none=True)
-        loss = model.training_step(batch)
+        loss = model.training_step(batch, **kwargs)
         loss.backward()
         zero_pad_rows_in_grads(model.net)
     finally:
@@ -2052,6 +2080,8 @@ def phase_s(device):
 # ---------------------------------------------------------------------------
 # phase T's amazon-book-shape dataset and splits, which phase Y trains on
 _AMAZON = {}
+# phase T's steps profiled for the card's busy share (of an epoch's 293)
+T_PROFILE_STEPS = 100
 
 
 def amazon_dataset():
@@ -2075,9 +2105,9 @@ def phase_t(device, prepared):
     """LightGCN at amazon-book-shape on the ELL route (the JAX bench's
     ``graph_scale``): graph build, 20 timed steps, one step held to the
     edge-list route and to a bitwise repeat, one layer's forward against
-    ``torch.sparse.mm`` of the same CSR matrix, an epoch and its busy
-    share, every test user evaluated. Its data comes from ``prepared``
-    (``start_data("T")``'s process)."""
+    ``torch.sparse.mm`` of the same CSR matrix, the busy share of
+    ``T_PROFILE_STEPS`` steps, every test user evaluated. Its data comes
+    from ``prepared`` (``start_data("T")``'s process)."""
     import numpy as np
     import torch
     from recstudio_torch.utils import get_model
@@ -2157,12 +2187,16 @@ def phase_t(device, prepared):
         sparse_ms = time_ms(lambda: torch.sparse.mm(csr, emb))
     del emb, csr, crow
 
-    # one epoch, timed under the profiler (its host clock ~1 % above an
-    # unprofiled epoch's; a second, unprofiled epoch was cut for the
-    # script's time limit)
-    epoch = []
-    host_ms, busy_ms = busy_share(lambda: epoch.append(model.training_epoch(0)))
-    epoch_loss, epoch_s = epoch[0], host_ms / 1e3
+    # T_PROFILE_STEPS steps of an epoch under the profiler (the whole epoch,
+    # 293 steps, was cut for the script's time limit, as a second one was
+    # before it)
+    model.net.train()
+    window = list(itertools.islice(model._epoch_batches(), T_PROFILE_STEPS))
+    window_losses = []
+    host_ms, busy_ms = busy_share(lambda: window_losses.extend(model._grad_step(b)
+                                                               for b in window))
+    model.net.eval()
+    del window
     model._eval_epoch(tst, ["ndcg", "recall"], [20])          # warm
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2183,14 +2217,14 @@ def phase_t(device, prepared):
                                                             "torch_sparse_mm_csr": sparse_ms},
            "layer_max_abs_err_vs_sparse_mm": {"ell": layer_err, "edge_list": edge_err},
            "layer_max_abs": layer_scale, "layer_tol": TOL_LAYER,
-           "steps_per_epoch": steps_per_epoch, "epoch_s": epoch_s, "epoch_loss": epoch_loss,
-           "profiled_epoch_host_ms": host_ms, "profiled_epoch_busy_ms": busy_ms,
-           "busy_share_of_epoch": None if busy_ms is None else busy_ms / host_ms,
+           "steps_per_epoch": steps_per_epoch, "profiled_steps": T_PROFILE_STEPS,
+           "profiled_steps_host_ms": host_ms, "profiled_steps_busy_ms": busy_ms,
+           "busy_share_of_steps": None if busy_ms is None else busy_ms / host_ms,
            "eval_users": len(tst.data_index), "eval_s": eval_s,
            "eval_queries_per_s": len(tst.data_index) / eval_s, **ev}
     emit("PHASE", out)
     check(not any(counts.values()), f"phase T launched a kernel: {counts}")
-    check(all(np.isfinite(float(x)) for x in losses) and np.isfinite(epoch_loss), "phase T loss")
+    check(all(np.isfinite(float(x)) for x in [*losses, *window_losses]), "phase T loss")
     check(abs(loss_e - loss_l) <= TOL_LOSS * abs(loss_l),
           f"phase T: ELL loss {loss_e} vs edge-list {loss_l}")
     check(grads_ok, f"phase T: ELL gradients disagree with the edge list's: {grad_err}")
@@ -3954,16 +3988,27 @@ AG_BUSY_STEPS = 5
 CL_KERNELS = ("fused_transformer_layer", "fused_transformer_layer_bwd")
 
 
-def seq_card_vs_cpu(model, cpu, batch, neg):
+def seq_card_vs_cpu(model, cpu, batch, neg, **kwargs):
     """One training step on the card and on its CPU copy with the negatives
     ``neg`` and the same dropout seeds: (card loss, CPU loss, max gradient
-    error, loss and gradients ok)."""
+    error, loss and gradients ok). ``kwargs`` go to both ``training_step``
+    calls, their tensors moved to the CPU for the copy's."""
     gen = model.generator.get_state()
-    loss_k, grads_k = step_on(model, batch, neg)
+    loss_k, grads_k = step_on(model, batch, neg, **kwargs)
     cpu.generator.set_state(gen)
-    loss_c, grads_c = step_on(cpu, {k: v.cpu() for k, v in batch.items()}, neg.cpu())
+    loss_c, grads_c = step_on(cpu, {k: v.cpu() for k, v in batch.items()}, neg.cpu(),
+                              **_to_cpu(kwargs))
     max_abs, ok = grad_errors({k: v.cpu() for k, v in grads_k.items()}, grads_c)
     return loss_k, loss_c, max_abs, ok and abs(loss_k - loss_c) <= TOL_LOSS * abs(loss_c)
+
+
+def _to_cpu(tree):
+    import torch
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
 
 
 def ag_step(device, name, cls, conf, trn, etl_s):
@@ -4110,6 +4155,522 @@ def phase_ah(device):
                              dict(embed_dim=64, hidden=64, heads=2, layers=1, dropout=0.5, L=20,
                                   batch=256), CL_KERNELS, quickstart=True))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases AK and AL: the rest of the mf, debias and graph retrievers
+# ---------------------------------------------------------------------------
+# each model's repo config, checked before it runs (its widths)
+AK_CONFIG = {"EASE": {"train": {"lambda": 250}},
+             "ItemKNN": {"train": {"knn": 100, "similarity": "cosine"}},
+             "SLIM": {"train": {"alpha": 1, "l1_ratio": 0.1, "max_iter": 200,
+                                "positive_only": True}},
+             "WRMF": {"model": {"embed_dim": 64}, "train": {"alpha": 1, "lambda": 0.5}},
+             "IRGAN": {"model": {"embed_dim": 64, "T_dis": 0.2, "T_gen": 1, "sample_lambda": 0.2},
+                       "train": {"batch_size": 16, "negative_count": 1}},
+             "DSSM": {"model": {"embed_dim": 64, "mlp_layer": [128, 128, 128],
+                                "activation": "tanh", "dropout": 0.3},
+                      "train": {"batch_size": 512, "negative_count": 1}},
+             "IPSBPR": {"model": {"embed_dim": 64, "ips_gamma": 0.5, "ips_clip": 100.0},
+                        "train": {"batch_size": 512, "negative_count": 1}},
+             "PDA": {"model": {"embed_dim": 64, "pda_gamma": 0.1},
+                     "train": {"batch_size": 512, "negative_count": 1}},
+             "SGL": {"model": {"embed_dim": 64, "n_layers": 3, "aug_type": "ED", "ssl_ratio": 0.1,
+                               "ssl_reg": 0.1, "temperature": 0.2},
+                     "train": {"batch_size": 2048, "negative_count": 1}},
+             "NCL": {"model": {"embed_dim": 64, "n_layers": 3, "hyper_layers": 1,
+                               "num_clusters": 10, "temperature": 0.05},
+                     "train": {"batch_size": 2048, "negative_count": 1}}}
+AK_CLOSED_FORM = ("EASE", "ItemKNN", "SLIM")
+AK_STEP_MODELS = ("DSSM", "IPSBPR", "PDA")
+AK_GRAPH = ("SGL", "NCL")
+AK_BUSY_STEPS = 5
+# SLIM's CPU copy takes this many ISTA steps (200 on the CPU would take
+# minutes); the card takes the same for the comparison
+AK_SLIM_CPU_STEPS = 10
+# the closed forms on the card against the CPU's, as a share of max |B|:
+# float32 Gram products of 6,040-long columns and EASE's inverse of a
+# 3,706-wide matrix, summed in other orders
+TOL_SOLVE = 2e-3
+# ItemKNN's columns compared: those whose knn-th and knn + 1-th cosine
+# similarities (at most 1, float32 errors near 1e-7) differ by more than this
+TOL_TIE = 1e-5
+# a WRMF half-sweep against the CPU copy's: (atol as a share of max |x|,
+# rtol), batched float32 solves of 64-wide systems
+TOL_ALS = (1e-4, 1e-3)
+
+
+def background(work):
+    """Start ``work()`` in a thread of its own: a ``wait()`` that joins it
+    and returns its result, or raises what it raised. The CPU copies of
+    phase AK compute there while the card goes on."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["out"] = work()
+        except Exception as e:               # raised again by wait()
+            box["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["out"]
+
+    return wait
+
+
+def ak_model(device, name, trn, optimizers=True):
+    """``name`` at its repo config (seed 7) on ``trn``, its config checked:
+    (model, init s)."""
+    import torch
+    from recstudio_torch.utils import get_model
+    cls, conf = get_model(name)
+    got = {g: {k: conf[g][k] for k in keys} for g, keys in AK_CONFIG[name].items()}
+    check(got == AK_CONFIG[name], f"phase AK {name} config {got}")
+    conf["train"]["seed"] = 7
+    conf["eval"]["save_path"] = SAVE_DIR
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model = cls(conf, device=device)
+    model._init_model(trn)
+    model._init_parameter(trn)
+    if optimizers:
+        model.optimizers = model._get_optimizers()
+        model.optimizer = model.optimizers[0]
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t
+
+
+def ak_request(model, tst):
+    """One ``Predictor`` request of the eval batch's rows, held to the lists
+    ``evaluate``'s step gives the same rows (``topk`` with the batch's
+    history): ``(rows, equal)``."""
+    import numpy as np
+    from recstudio_torch.models.basemodel.recommender import batch_to_device
+    from recstudio_torch.serving import Predictor
+    size = int(model.config["eval"]["batch_size"])
+    tst.use_field = model.fields
+    batch = next(iter(tst.eval_loader(size)))
+    n = int(batch["_size"])
+    pred = Predictor(model, max_batch=size, k=20, train_data=tst).warm()
+    _, ids = pred({f: batch[f][:n] for f in sorted(model.query_fields)})
+    dev = batch_to_device(batch, model.device)
+    _, want = model.topk(dev, 20, dev.get("user_hist"))
+    return n, bool(np.array_equal(ids, want[:n].cpu().numpy()))
+
+
+def held(got, want, tol):
+    """(max abs error, ok): ``got`` within ``tol`` (atol as a share of max
+    |want|, rtol) of ``want``."""
+    diff = (got - want).abs()
+    ok = bool((diff <= tol[0] * float(want.abs().max()) + tol[1] * want.abs()).all())
+    return float(diff.max()), ok
+
+
+def untied_columns(R, knn):
+    """Columns of ItemKNN's cosine similarity (float64 on the CPU) whose
+    ``knn``-th and ``knn + 1``-th values differ by more than ``TOL_TIE``:
+    there the card and the CPU keep the same entries."""
+    import torch
+    R = R.double()
+    G = R.t() @ R
+    G.fill_diagonal_(0.0)
+    norm = torch.sqrt((R * R).sum(0))
+    S = G / (norm[:, None] * norm[None, :] + 1e-6)
+    top = torch.topk(S, knn + 1, dim=0).values
+    return torch.nonzero(top[knn - 1] - top[knn] > TOL_TIE).flatten()
+
+
+def ak_closed_form(device, name, trn, tst):
+    """EASE, ItemKNN or SLIM: the solve timed, its peak memory and busy
+    share, ``B`` held to the CPU's solve (computed in the background), the
+    test metrics and a request. Returns ``finish()``, which waits for the
+    CPU's solve, emits the phase line, checks and returns it."""
+    import copy
+    import torch
+    model, init_s = ak_model(device, name, trn, optimizers=False)
+    t = time.perf_counter()
+    model.trainloaders = model._get_train_loaders(trn)
+    R = model._interaction_matrix()
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    _, counts = counted(lambda: model.training_epoch(0))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # SLIM's 200-product solve once, warm from the epoch above
+    solve_ms = time_ms(lambda: model.solve(R), *((1, 0) if name == "SLIM" else (3, 1)))
+    host_ms, busy_ms = busy_share(lambda: model.training_epoch(0))
+    cpu = type(model)(copy.deepcopy(model.config), device="cpu")
+    cpu._init_model(trn)
+    tc = model.config["train"]
+    if name == "SLIM":                          # both sides at AK_SLIM_CPU_STEPS
+        tc["max_iter"] = cpu.config["train"]["max_iter"] = AK_SLIM_CPU_STEPS
+        card = model.solve(R).cpu()
+        tc["max_iter"] = 200
+    else:
+        card = model.states["B"].cpu()
+    R_cpu = R.cpu()
+
+    def cpu_side():
+        t0 = time.perf_counter()
+        want = cpu.solve(R_cpu)
+        want = want[0] if name == "EASE" else want
+        cpu_s = time.perf_counter() - t0
+        cols = untied_columns(R_cpu, tc["knn"]) if name == "ItemKNN" \
+            else torch.arange(card.shape[1])
+        return {"cpu_solve_s": cpu_s, "cpu_columns_compared": int(len(cols)),
+                "b_max_err_share": float((card - want)[:, cols].abs().max())
+                / float(want.abs().max())}
+
+    wait = background(cpu_side)
+    ev = model._eval_epoch(tst, ["ndcg", "recall"], [10])
+    rows, equal = ak_request(model, tst)
+    out = {"phase": "AK", "model": name, "dataset": "ml-1m-shape", "users": trn.num_users - 1,
+           "items": trn.num_items - 1, "train_rows": len(trn.data_index),
+           "config": AK_CONFIG[name], "init_s": init_s, "stage_s": stage_s,
+           "launches": counts, "solve_ms": solve_ms, "peak_mem_gb": peak,
+           "busy_host_ms": host_ms, "busy_ms": busy_ms,
+           "busy_share": None if busy_ms is None else busy_ms / host_ms,
+           "cpu_steps": AK_SLIM_CPU_STEPS if name == "SLIM" else None,
+           "solve_tol": TOL_SOLVE, "request_rows": rows, "request_equals_evaluate": equal, **ev}
+    del model, R
+
+    def finish():
+        out.update(wait())
+        emit("PHASE", out)
+        check(not any(counts.values()), f"phase AK {name} launched a kernel: {counts}")
+        check(out["cpu_columns_compared"] >= card.shape[1] // 2,
+              f"phase AK {name}: {out['cpu_columns_compared']} columns compared")
+        check(out["b_max_err_share"] <= TOL_SOLVE,
+              f"phase AK {name}: B differs from the CPU's by {out['b_max_err_share']} of its max")
+        check(equal, f"phase AK {name}: the served lists differ from evaluate's")
+        return out
+
+    return finish
+
+
+def ak_wrmf(device, trn, tst):
+    """WRMF: a user and an item half-sweep timed with their peak memory, the
+    user sweep held to the CPU copy's (swept in the background), the busy
+    share of one more sweep. Returns ``finish()``, as ``ak_closed_form``."""
+    import torch
+    model, init_s = ak_model(device, "WRMF", trn, optimizers=False)
+    t = time.perf_counter()
+    model.trainloaders = model._get_train_loaders(trn)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t
+    cpu = cpu_copy(model, trn)
+    sweeps, launches = [], {}
+    for epoch in (0, 1):
+        data = model.trainloaders[epoch]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, counts = counted(lambda: model.training_epoch(epoch))
+        first_s = time.perf_counter() - t
+        sweeps.append({"view": "users" if epoch == 0 else "items",
+                       "rows": int(data["keys"].shape[0]), "width": int(data["vals"].shape[1]),
+                       "first_s": first_s,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+        if epoch == 0:                   # held to the CPU copy's first user sweep below
+            first_users = model.net.query_encoder.weight.detach().cpu().clone()
+    for epoch in (0, 1):                 # a second pair, the libraries warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.training_epoch(epoch)
+        torch.cuda.synchronize()
+        sweeps[epoch]["s"] = time.perf_counter() - t
+    def cpu_side():          # the copy's first user sweep, from the card's initial weights
+        t0 = time.perf_counter()
+        cpu.trainloaders = cpu._get_train_loaders(trn)
+        cpu.training_epoch(0)
+        err, ok = held(first_users, cpu.net.query_encoder.weight.detach(), TOL_ALS)
+        return {"cpu_sweep_s": time.perf_counter() - t0, "user_table_max_abs_err": err}, ok
+
+    wait = background(cpu_side)
+    host_ms, busy_ms = busy_share(lambda: model.training_epoch(0))
+    ev = model._eval_epoch(tst, ["ndcg", "recall"], [10])
+    rows, equal = ak_request(model, tst)
+    out = {"phase": "AK", "model": "WRMF", "dataset": "ml-1m-shape",
+           "config": AK_CONFIG["WRMF"], "init_s": init_s, "stage_s": stage_s,
+           "launches": launches, "sweeps": sweeps,
+           "peak_mem_gb": max(s["peak_mem_gb"] for s in sweeps), "als_tol": TOL_ALS,
+           "busy_host_ms": host_ms, "busy_ms": busy_ms,
+           "busy_share": None if busy_ms is None else busy_ms / host_ms,
+           "request_rows": rows, "request_equals_evaluate": equal, **ev}
+    del model
+
+    def finish():
+        res, ok = wait()
+        out.update(res)
+        emit("PHASE", out)
+        check(not any(launches.values()), f"phase AK WRMF launched a kernel: {launches}")
+        check(ok, "phase AK WRMF: the user sweep differs from the CPU copy's by "
+                  f"{out['user_table_max_abs_err']}")
+        check(equal, "phase AK WRMF: the served lists differ from evaluate's")
+        return out
+
+    return finish
+
+
+def _all_grads(model):
+    import torch
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().clone()
+            for n, p in model.net.named_parameters()}
+
+
+def ak_irgan(device, trn, tst):
+    """IRGAN: 20 host-loader steps of each player timed (copy in, step,
+    synchronize), one step of each held to the CPU copy with the same
+    draws, the busy share of five discriminator steps."""
+    import numpy as np
+    import torch
+    from recstudio_torch.models.basemodel.recommender import batch_to_device
+    model, init_s = ak_model(device, "IRGAN", trn)
+    bs = int(model.config["train"]["batch_size"])
+    loader = trn.train_loader(bs, True, np.random.default_rng(7))
+    host = [b for b, _ in zip(itertools.cycle(loader), range(23))]
+    cpu = cpu_copy(model, trn)              # takes the card's weights before each comparison
+    mc = model.config["model"]
+    compared, timed, launches = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for phase in (0, 1):
+        batch = batch_to_device(host[0], device)
+        n, t = (model.neg_count, mc["T_dis"]) if phase == 0 else \
+            (2 * model.neg_count, mc["T_gen"])
+        with torch.no_grad():
+            _, draws, _ = model._gen_sample(batch, n, t)
+        model.net.zero_grad(set_to_none=True)
+        loss_k = model.training_step(batch, phase, draws)
+        loss_k.backward()
+        cpu.load_state_dict({k: v.cpu() for k, v in model.net.state_dict().items()})
+        cpu.net.zero_grad(set_to_none=True)
+        loss_c = cpu.training_step(_to_cpu(batch), phase, draws.cpu())
+        loss_c.backward()
+        err, ok = grad_errors({k: v.cpu() for k, v in _all_grads(model).items()},
+                              _all_grads(cpu))
+        loss_k, loss_c = loss_k.item(), loss_c.item()
+        # the generator's loss sums terms of both signs, so its float32 error
+        # scales with the terms' sizes, not with the sum's
+        scale = abs(loss_c) if phase == 0 else \
+            float(cpu.gen_terms(_to_cpu(batch), draws.cpu()).abs().mean(1).sum())
+        ok &= abs(loss_k - loss_c) <= TOL_LOSS * scale
+        compared[phase] = {"card_loss": loss_k, "cpu_loss": loss_c, "loss_scale": scale,
+                           "grad_max_abs_err": err, "ok": ok}
+        model.net.zero_grad(set_to_none=True)
+        model.net.train()
+        for b in host[:3]:
+            model.phase_step(batch_to_device(b, device), phase)
+        torch.cuda.synchronize()
+
+        def run():
+            times = []
+            for b in host[3:]:
+                t0 = time.perf_counter()
+                model.phase_step(batch_to_device(b, device), phase)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return sorted(times)
+        times, counts = counted(run)
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+        timed["dis" if phase == 0 else "gen"] = {"steps": len(times),
+                                                 "step_ms_p50": times[len(times) // 2],
+                                                 "step_ms_max": times[-1]}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    host_ms, busy_ms = busy_share(lambda: [model.phase_step(batch_to_device(b, device), 0)
+                                           for b in host[:AK_BUSY_STEPS]])
+    model.net.eval()
+    ev = model._eval_epoch(tst, ["ndcg", "recall"], [10])
+    rows, equal = ak_request(model, tst)
+    out = {"phase": "AK", "model": "IRGAN", "dataset": "ml-1m-shape",
+           "config": AK_CONFIG["IRGAN"], "init_s": init_s, "launches": launches,
+           "width": int(host[0][model.fiid].shape[1]), "timed": timed, "peak_mem_gb": peak,
+           "cpu_compare": {("dis" if k == 0 else "gen"): v for k, v in compared.items()},
+           "grad_tol": TOL_GRAD, "loss_tol": TOL_LOSS, "busy_steps": AK_BUSY_STEPS,
+           "busy_host_ms": host_ms, "busy_ms": busy_ms,
+           "busy_share": None if busy_ms is None else busy_ms / host_ms,
+           "request_rows": rows, "request_equals_evaluate": equal, **ev}
+    emit("PHASE", out)
+    check(not any(launches.values()), f"phase AK IRGAN launched a kernel: {launches}")
+    check(all(c["ok"] for c in compared.values()),
+          f"phase AK IRGAN: a step differs from the CPU copy's: {compared}")
+    check(equal, "phase AK IRGAN: the served lists differ from evaluate's")
+    return out
+
+
+def ak_steps(device, name, trn, tst, dataset, background_step=False):
+    """DSSM, IPSBPR, PDA, SGL or NCL: its refresh (NCL's k-means) timed, 20
+    timed steps, one held to the CPU copy within ``TOL_GRAD`` (the same
+    rows, negatives, dropout seeds, SGL's keep masks, NCL's centroids),
+    the busy share of five steps, a request. Returns ``finish()``, which
+    waits for the CPU copy's step, emits the phase line, checks and returns
+    it; with ``background_step`` the caller goes on with the card while the
+    CPU step runs (the amazon-book-shape copies' steps take tens of seconds
+    on the host)."""
+    import numpy as np
+    import torch
+    model, init_s = ak_model(device, name, trn)
+    model._setup_scan_epoch(trn)
+    model._train_data = trn
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, refresh_counts = counted(lambda: model._epoch_refresh(0))
+    refresh_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    steps, times, losses, counts = timed_steps(model, epoch_stream(model))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    batch = steps[-1]
+    neg = torch.from_numpy(np.random.default_rng(2036).integers(
+        1, trn.num_items, size=(batch[model.fiid].shape[0], model.neg_count))).to(device)
+    t = time.perf_counter()
+    cpu = cpu_copy(model, trn)
+    cpu.states.update(_to_cpu(model.states))
+    copy_s = time.perf_counter() - t
+    kwargs = {"keep": [model.keep_masks(), model.keep_masks()]} if name == "SGL" else {}
+    gen = model.generator.get_state()
+    loss_k, grads_k = step_on(model, batch, neg, **kwargs)
+    grads_k = {k: v.cpu() for k, v in grads_k.items()}
+    def cpu_side():          # the same step on the CPU copy, from the same dropout seeds
+        t0 = time.perf_counter()
+        cpu.generator.set_state(gen)
+        loss_c, grads_c = step_on(cpu, _to_cpu(batch), neg.cpu(), **_to_cpu(kwargs))
+        max_abs, ok = grad_errors(grads_k, grads_c)
+        return {"cpu_loss": loss_c, "grad_max_abs_err": max_abs,
+                "cpu_step_s": time.perf_counter() - t0}, \
+            ok and abs(loss_k - loss_c) <= TOL_LOSS * abs(loss_c)
+
+    wait = background(cpu_side)
+    if not background_step:
+        wait()
+    batches = itertools.islice(epoch_stream(model), AK_BUSY_STEPS)
+    model.net.train()
+    host_ms, busy_ms = busy_share(lambda: [model._grad_step(b) for b in batches])
+    model.net.eval()
+    rows, equal = ak_request(model, tst)
+    p50 = times[len(times) // 2]
+    bs = int(model.config["train"]["batch_size"])
+    out = {"phase": "AK", "model": name, "dataset": dataset, "users": trn.num_users - 1,
+           "items": trn.num_items - 1, "train_rows": model._epoch_rows,
+           "config": AK_CONFIG[name], "init_s": init_s, "refresh_s": refresh_s,
+           "launches": {k: v + refresh_counts.get(k, 0) for k, v in counts.items()},
+           "steps": len(times), "step_ms_p50": p50, "step_ms_max": times[-1],
+           "examples_per_s": bs / (p50 / 1e3), "loss_first": float(losses[0]),
+           "loss_last": float(losses[-1]), "peak_mem_gb": peak, "card_loss": loss_k,
+           "grad_tol": TOL_GRAD, "loss_tol": TOL_LOSS, "cpu_copy_s": copy_s,
+           "cpu_step_in_background": background_step, "busy_steps": AK_BUSY_STEPS,
+           "busy_host_ms": host_ms, "busy_ms": busy_ms,
+           "busy_share": None if busy_ms is None else busy_ms / host_ms,
+           "request_rows": rows, "request_equals_evaluate": equal}
+    if name == "NCL":
+        out["centroids"] = list(model.states["user_centroids"].shape)
+    del model
+
+    def finish():
+        res, ok = wait()
+        out.update(res)
+        emit("PHASE", out)
+        check(not any(out["launches"].values()), f"phase AK {name} launched a kernel: {counts}")
+        check(bool(torch.isfinite(losses).all()), f"phase AK {name} losses {losses}")
+        check(ok, f"phase AK {name}: the step differs from the CPU copy's: {loss_k} vs "
+                  f"{out['cpu_loss']}, gradients {out['grad_max_abs_err']}")
+        check(equal, f"phase AK {name}: the served lists differ from evaluate's")
+        return out
+
+    return finish
+
+
+# phase AK's CPU copies still computing when AK returned with ``defer``:
+# their ``finish`` closures, which phase AL calls at its end
+_AK_PENDING = []
+
+
+def phase_ak(device, defer=False):
+    """The ten at full width (``AK_CONFIG``): SGL and NCL on phase T's
+    amazon-book-shape split (built here when T has not run), their CPU
+    copies' steps in the background while the eight others run on the
+    synthetic ml-1m shape (seed 7, each dataset class's split built once).
+    The closed forms' and WRMF's CPU copies compute in the background too.
+    With ``defer`` the CPU work still running goes on through phase AL,
+    which checks it and returns its phase lines first."""
+    from recstudio_torch.data.synthetic import SHAPES, generate
+    from recstudio_torch.utils import get_model, seed_everything
+    if "splits" not in _AMAZON:
+        ds, (trn, tst), _, _ = amazon_dataset()
+        _AMAZON.update(name=ds.name, ds=ds, splits=(trn, tst))
+    trn, tst = _AMAZON["splits"]
+    pending = [ak_steps(device, model_name, trn, tst, "amazon-book-shape",
+                        background_step=True) for model_name in AK_GRAPH]
+    name, config = generate("ml-1m-shape", *SHAPES["ml-1m-shape"], seed=7)
+    splits, out = {}, []
+    for model_name in ("EASE", "ItemKNN", "SLIM", "WRMF", "IRGAN", "DSSM", "IPSBPR", "PDA"):
+        cls, conf = get_model(model_name)
+        ds_cls = cls._get_dataset_class()
+        if ds_cls not in splits:
+            seed_everything(7)
+            trn, _, tst = ds_cls(name, config=config).build(**conf["data"])
+            splits[ds_cls] = (trn, tst)
+        trn, tst = splits[ds_cls]
+        if model_name in AK_CLOSED_FORM:
+            pending.append(ak_closed_form(device, model_name, trn, tst))
+        elif model_name == "WRMF":
+            pending.append(ak_wrmf(device, trn, tst))
+        elif model_name == "IRGAN":
+            out.append(ak_irgan(device, trn, tst))
+        else:
+            out.append(ak_steps(device, model_name, trn, tst, "ml-1m-shape")())
+    if defer:
+        _AK_PENDING.extend(pending)
+        return out
+    return out + [finish() for finish in pending]
+
+
+AL_EXPECTED = {"EASE": ({}, dict(embed_dim=64, batch=512)),
+               "ItemKNN": ({}, dict(embed_dim=64, batch=512)),
+               "SLIM": ({}, dict(embed_dim=64, batch=512)),
+               "WRMF": ({}, dict(embed_dim=64, batch=100)),
+               "IRGAN": (dict(T_dis="T_dis", T_gen="T_gen"),
+                         dict(embed_dim=64, T_dis=0.2, T_gen=1, batch=16, negative_count=1)),
+               "DSSM": (dict(mlp="mlp_layer", dropout="dropout"),
+                        dict(embed_dim=64, mlp=[128, 128, 128], dropout=0.3, batch=512,
+                             negative_count=1)),
+               "IPSBPR": (dict(gamma="ips_gamma"), dict(embed_dim=64, gamma=0.5, batch=512,
+                                                        negative_count=1)),
+               "PDA": (dict(gamma="pda_gamma"), dict(embed_dim=64, gamma=0.1, batch=512,
+                                                     negative_count=1)),
+               "SGL": (dict(n_layers="n_layers", aug="aug_type"),
+                       dict(embed_dim=64, n_layers=3, aug="ED", batch=2048, negative_count=1)),
+               "NCL": (dict(n_layers="n_layers", clusters="num_clusters"),
+                       dict(embed_dim=64, n_layers=3, clusters=10, batch=2048,
+                            negative_count=1))}
+
+
+def phase_al(device):
+    """The ten the way users start them (``fit_phase`` through
+    ``quickstart.run`` on ml-100k), held to the bands of
+    ``scripts/torch_retriever_seeds.py``, each band clearing the untrained
+    model's NDCG@10; no profiled epoch (AK gives their busy shares). AK's
+    deferred CPU steps are waited for and checked at its end."""
+    out = []
+    for name, (keys, expected) in AL_EXPECTED.items():
+        reference = ML100K_TRAIN_REFERENCE.format(name.lower())
+        with open(reference) as f:
+            ref = json.load(f)
+        check(ref["untrained_ndcg@10"] is None or
+              ref["ndcg@10_band"][0] > ref["untrained_ndcg@10"],
+              f"phase AL {name}: the JAX band does not clear the untrained NDCG@10")
+        out.append(fit_phase(device, "AL", name, reference, keys, expected, (),
+                             quickstart=True, overrides=ref.get("overrides") or None,
+                             profile=False))
+    held = [finish() for finish in _AK_PENDING]       # AK's deferred CPU steps
+    _AK_PENDING.clear()
+    return held + out
 
 
 def causal_mask(L, device, causal=True):
@@ -4678,6 +5239,7 @@ def _main(device, prepared) -> int:
                lambda d: phase_t(d, prepared["T"]), phase_u, phase_w, phase_x, phase_y,
                phase_y2, phase_z, phase_aa, lambda d: phase_ab(d, prepared["AB"]), phase_ac,
                phase_ad, phase_ae, phase_af, phase_ag, phase_ah, phase_ai, phase_aj,
+               lambda d: phase_ak(d, defer=True), phase_al,
                lambda d: phase_v(d, prepared["V"])):
         t = time.perf_counter()
         out = fn(device)

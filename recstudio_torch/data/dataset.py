@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import copy
 import os
+import warnings
 from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
@@ -623,6 +624,42 @@ class TripletDataset:
         (``dataset.py:791-795``), read by the popularity samplers."""
         items = self.inter_feat.get_col(self.fiid)[self.inter_feat_subset]
         return np.bincount(items, minlength=self.num_items).astype(np.int64)
+
+    def get_graph(self, idx=0, form: str = "coo", value_fields=None, bidirectional: bool = False,
+                  row_offset: int = 0, col_offset: int = 0, shape=None) -> torch.Tensor:
+        """This split's user-item interaction graph (``dataset.py:814-846``)
+        as a coalesced sparse COO tensor (``form="coo"``), a sparse CSR one
+        (``"csr"``) or a dense one (``"dense"``), float32 on the CPU: one 1
+        a (user, item) row, duplicates summed. ``bidirectional`` adds the
+        transposed pairs; the offsets shift rows and columns, and ``shape``
+        defaults to ``(num_users + row_offset, num_items + col_offset)``.
+        Network graphs (``idx >= 1``) and ``value_fields`` are not ported
+        and raise."""
+        if value_fields is not None:
+            raise NotImplementedError("get_graph's value_fields is not ported (every value is 1)")
+        if form not in ("coo", "csr", "dense"):
+            raise ValueError(f"get_graph form {form!r}: coo, csr or dense")
+        idx = [idx] if isinstance(idx, int) else list(idx)
+        if any(g != 0 for g in idx):
+            raise NotImplementedError("network graphs (get_graph idx >= 1) are not ported: the "
+                                      "port loads no network features")
+        sub = self.inter_feat_subset
+        rows = np.asarray(self.inter_feat.get_col(self.fuid))[sub].astype(np.int64)
+        cols = np.asarray(self.inter_feat.get_col(self.fiid))[sub].astype(np.int64)
+        rows, cols = np.tile(rows, len(idx)) + row_offset, np.tile(cols, len(idx)) + col_offset
+        if bidirectional:
+            rows, cols = np.concatenate([rows, cols]), np.concatenate([cols, rows])
+        if shape is None:
+            shape = (self.num_users + row_offset, self.num_items + col_offset)
+        mat = torch.sparse_coo_tensor(torch.from_numpy(np.stack([rows, cols])),
+                                      torch.ones(len(rows), dtype=torch.float32),
+                                      tuple(int(s) for s in shape),
+                                      check_invariants=False).coalesce()
+        if form == "csr":
+            with warnings.catch_warnings():          # sparse CSR's "beta" notice
+                warnings.simplefilter("ignore", UserWarning)
+                return mat.to_sparse_csr()
+        return mat.to_dense() if form == "dense" else mat
 
     # ------------------------------------------------------------------
     # batching

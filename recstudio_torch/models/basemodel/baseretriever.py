@@ -344,11 +344,12 @@ class BaseRetriever(Recommender):
                                        float("-inf"))
         return neg_id, log_neg_prob, log_pos_prob
 
-    def forward(self, batch: Dict[str, torch.Tensor],
-                full_score: bool = False) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: Dict[str, torch.Tensor], full_score: bool = False,
+                return_neg_id: bool = False) -> Dict[str, torch.Tensor]:
         """Training scores (``baseretriever.py:342-389``): the positive
         item's score and, from the sampler, the negatives' scores with the
-        proposal log probabilities; with no sampler and ``full_score``, the
+        proposal log probabilities, and with ``return_neg_id`` the sampled
+        ids under ``neg_id``; with no sampler and ``full_score``, the
         differentiable scores on the whole catalog (``all_score``). Dropout
         seeds come from ``self.generator``."""
         pos_vec = self.net.encode_item(batch[self.fiid])
@@ -370,8 +371,11 @@ class BaseRetriever(Recommender):
                 method=tc.get("sampling_method", "none"),
                 excluding_hist=tc.get("excluding_hist", False))
         neg_score = self.score_func(query, self.net.encode_item(neg_ids))
-        return {"pos_score": pos_score, "log_pos_prob": log_pos_prob,
-                "neg_score": neg_score, "log_neg_prob": log_neg_prob}
+        out = {"pos_score": pos_score, "log_pos_prob": log_pos_prob,
+               "neg_score": neg_score, "log_neg_prob": log_neg_prob}
+        if return_neg_id:
+            out["neg_id"] = neg_ids
+        return out
 
     def _use_fused_softmax(self) -> bool:
         """The fused step's gate (``baseretriever.py:577-587``): a softmax

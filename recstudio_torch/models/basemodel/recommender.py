@@ -23,13 +23,25 @@ training batches, in order, go through the net in eval mode with no
 gradient, the statistics reset first. They are part of ``state_dict``,
 so they travel with checkpoints, snapshots and the best epoch's restore.
 
+A model may train otherwise (``recommender.py:836-851``, ``:1005-1043``):
+``_get_optimizers`` returns a list of optimizers, the first of which is
+``self.optimizer``, and ``current_epoch_optimizers(nepoch)`` names the
+ones an epoch steps (IRGAN's two players take turns); a model with none
+(closed-form solves, ALS sweeps) builds no optimizer and no device epoch
+and overrides ``training_epoch``, reading what ``_get_train_loaders``
+staged; a model whose ``_supports_scan_epoch`` is False runs its own
+host-loader epoch. A model with no net keeps its weights in ``states``
+(``_state_weights``: EASE's ``R`` and ``B``), which snapshots and
+checkpoints carry.
+
 Learners: ``adam`` (``adamw`` with a weight decay), ``sgd``,
 ``sparse_adam`` (lazy Adam), and ``adagrad`` and ``rmsprop`` with optax's
 formulas (``models/optim.py``). Checkpoints carry the parameters, the
-optimizer, both generators and ``states`` (the catalog encoding, a
+optimizers, both generators and ``states`` (the catalog encoding, a
 sampler's index), as the JAX checkpoint carries its ``states``.
 
-Not ported yet: the host-loader epoch (``train.epoch_scan: false``), the
+Not ported yet: the host-loader epoch of ordinary models
+(``train.epoch_scan: false``), the
 TPU dispatch strategies (``_setup_chunked_epoch``, ``_fit_loop_blocks``),
 config overrides passed to ``fit``, learning-rate schedules, orbax
 checkpoints and ``load_for_serving`` from a JAX checkpoint.
@@ -41,7 +53,7 @@ import itertools
 import logging
 import os
 import time
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -98,6 +110,9 @@ class Recommender:
     # ``states`` entries computed from the weights (a graph model adds its
     # propagated users), dropped when a fit moves the weights
     _weight_caches = ("item_vector",)
+    # ``states`` entries that are the weights of a model with no net
+    # (closed-form models), carried by snapshots instead of the net's
+    _state_weights: Tuple[str, ...] = ()
 
     def __init__(self, config: Optional[Dict] = None,
                  device: Union[str, torch.device] = "cuda", **kwargs):
@@ -117,7 +132,9 @@ class Recommender:
         self.net: Optional[torch.nn.Module] = None
         self.states: Dict[str, torch.Tensor] = {}
         self.epoch_log: List[Dict[str, float]] = []
+        self.optimizers: List[torch.optim.Optimizer] = []
         self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.trainloaders = None
         self.ckpt_path: Optional[str] = None
         self.callback = None
         self.val_check = False
@@ -160,7 +177,12 @@ class Recommender:
         self.states.clear()  # cached item vectors belong to the old weights
 
     def load_state_dict(self, state_dict: Dict[str, torch.Tensor]) -> None:
-        """Load parameters (e.g. from ``utils.convert.params_from_jax``)."""
+        """Load parameters (e.g. from ``utils.convert.params_from_jax``); a
+        model with no net takes its ``_state_weights`` (EASE's ``R`` and
+        ``B``)."""
+        if self.net is None:
+            self.restore(state_dict)
+            return
         self.net.load_state_dict(state_dict)
         self.net.to(self.device).eval()
         self.states.clear()  # cached item vectors belong to the old weights
@@ -168,15 +190,15 @@ class Recommender:
     # ------------------------------------------------------------------
     # optimizer and one training step
     # ------------------------------------------------------------------
-    def _make_optimizer(self, name: str, lr: float, weight_decay: float = 0.0):
+    def _make_optimizer(self, name: str, lr: float, weight_decay: float = 0.0, params=None):
         """``_make_optax`` (``recommender.py:187-225``) in ``torch.optim``,
         with optax's hyperparameters: Adam's eps 1e-8, weight decay
         decoupled (optax.adamw), plain SGD; ``sparse_adam`` is lazy Adam
         (``models/optim.py``), which takes no weight decay there either;
         ``adagrad`` and ``rmsprop`` are optax's (``OptaxAdagrad``,
         ``OptaxRMSprop``), which take none there either. An unknown name
-        raises."""
-        params = list(self.net.parameters())
+        raises. ``params`` are the net's unless given."""
+        params = list(self.net.parameters() if params is None else params)
         name = (name or "adam").lower()
         if name == "adam" and not weight_decay:
             return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
@@ -201,6 +223,27 @@ class Recommender:
         return self._make_optimizer(tc.get("learner", "adam"),
                                     float(tc.get("learning_rate", 1e-3)),
                                     float(tc.get("weight_decay") or 0.0))
+
+    def _get_optimizers(self) -> Optional[List[torch.optim.Optimizer]]:
+        """The fit's optimizers (``recommender.py:253-258``): one by default;
+        None or an empty list for a model that trains with none."""
+        return [self._get_optimizer()]
+
+    def current_epoch_optimizers(self, nepoch: int) -> List[int]:
+        """Indices of the optimizers epoch ``nepoch`` steps
+        (``recommender.py:265-267``)."""
+        return list(range(len(self.optimizers)))
+
+    def _supports_scan_epoch(self, train_data) -> bool:
+        """Whether the fit stages the split for device-resident epochs; a
+        model that runs its own host-loader epoch says no."""
+        return True
+
+    def _get_train_loaders(self, train_data):
+        """What a model's own ``training_epoch`` reads (``recommender.py:
+        271-274``): the closed-form and ALS models' staged matrices. None
+        for the device-resident epoch."""
+        return None
 
     def training_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         raise NotImplementedError
@@ -286,8 +329,11 @@ class Recommender:
         self.callback = self._get_callback(train_data.name)
         self._train_data = train_data
         self._calib_batches = None
-        self.optimizer = self._get_optimizer()
-        self._setup_scan_epoch(train_data)
+        self.optimizers = list(self._get_optimizers() or [])
+        self.optimizer = self.optimizers[0] if self.optimizers else None
+        self.trainloaders = self._get_train_loaders(train_data)
+        if self.optimizers and self._supports_scan_epoch(train_data):
+            self._setup_scan_epoch(train_data)
         start = 0
         if resume_from is not None:
             start = int(self.load_checkpoint(resume_from, restore_optimizer=True)["epoch"]) + 1
@@ -363,7 +409,8 @@ class Recommender:
         variances. A model with no batch norm, or never given training data
         by ``fit``, is left as it is (evaluation then normalizes with each
         batch's statistics)."""
-        bns = [m for m in self.net.modules() if isinstance(m, SimpleBatchNorm)]
+        bns = [] if self.net is None else \
+            [m for m in self.net.modules() if isinstance(m, SimpleBatchNorm)]
         if not bns or self._train_data is None:
             return
         if self._calib_batches is None:
@@ -393,24 +440,36 @@ class Recommender:
     # snapshots and checkpoints
     # ------------------------------------------------------------------
     def snapshot(self) -> Dict[str, torch.Tensor]:
+        """A copy of the weights: the net's state dict, or a model with no
+        net's ``_state_weights``."""
+        if self.net is None:
+            return {k: self.states[k].detach().clone() for k in self._state_weights
+                    if k in self.states}
         return {k: v.detach().clone() for k, v in self.net.state_dict().items()}
 
     def restore(self, snap: Dict[str, torch.Tensor]) -> None:
-        self.net.load_state_dict(snap)
         self.states.clear()
+        if self.net is None:
+            self.states.update({k: v.detach().clone().to(self.device) for k, v in snap.items()})
+            return
+        self.net.load_state_dict(snap)
 
     def save_checkpoint(self, path: str, epoch: int = -1, metric: Optional[Dict] = None) -> None:
         """Parameters, ``states``, optimizer state, both generators' states
         and the epoch (``recommender.py:1218-1247``, pickle backend), in
         ``torch.save``'s format. ``states`` keeps its tensors and numbers
         (a retriever's snapshot net, a ``RetrieverSampler``'s state, is
-        left out)."""
+        left out); a model with no net has no ``params`` and its weights in
+        ``states``. ``optimizers`` holds every optimizer's state
+        (``recommender.py:1241-1242``)."""
+        params = {} if self.net is None else \
+            {k: v.detach().cpu() for k, v in self.net.state_dict().items()}
         payload = {
             "config": self.config, "model": type(self).__name__, "epoch": int(epoch),
             "metric": {k: float(v) for k, v in (metric or {}).items()},
-            "params": {k: v.detach().cpu() for k, v in self.net.state_dict().items()},
+            "params": params,
             "states": _portable(self.states),
-            "optimizer": self.optimizer.state_dict() if self.optimizer is not None else None,
+            "optimizers": [opt.state_dict() for opt in self.optimizers],
             "generator": self.generator.get_state(),
             "device_generator": self.device_generator.get_state(),
         }
@@ -422,11 +481,13 @@ class Recommender:
         ``restore_optimizer`` also the optimizer and generator states, so a
         fit resumes exactly."""
         payload = torch.load(path, map_location="cpu", weights_only=True)
-        self.net.load_state_dict(payload["params"])
+        if self.net is not None:
+            self.net.load_state_dict(payload["params"])
         self.states.clear()
         self.states.update(_to_device(payload.get("states") or {}, self.device))
-        if restore_optimizer and self.optimizer is not None and payload.get("optimizer"):
-            self.optimizer.load_state_dict(payload["optimizer"])
+        if restore_optimizer:
+            for opt, state in zip(self.optimizers, payload["optimizers"]):
+                opt.load_state_dict(state)
             self.generator.set_state(payload["generator"])
             self.device_generator.set_state(payload["device_generator"])
         return payload

@@ -31,6 +31,15 @@ Gradients share their parameters' layouts, so the same maps carry them:
 for one layer) gives the JAX package's gradient tree, which is how the
 parity tests compare the two packages' gradients.
 
+The rest of the ``mf``, ``debias`` and ``graph`` families: WRMF's,
+IPSBPR's and PDA's trees are BPR's two tables (``params_from_jax``);
+IRGAN's four flat tables (``dis_user_embedding``, ...) and SGL's and
+NCL's two take ``graph_params_from_jax``; DSSM's towers (``Embeddings``
+tables and the ``mlp``'s ``Dense`` kernels, transposed) take
+``ranker_params_from_jax`` with the port's net; EASE, ItemKNN and SLIM
+carry ``R`` and ``B`` in ``states`` instead of parameters
+(``closed_form_states_from_jax``).
+
 ``ranker_params_from_jax`` and ``ranker_params_to_jax`` do the same for a
 ranker's tree (DeepFM, FM, LR, WideDeep, DCN, NFM, AutoInt): token tables
 ``{name}_embedding`` and ``token_embedding`` become ``nn.Embedding``
@@ -453,6 +462,13 @@ def graph_params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         node[parts[-1]] = a
     return out
+
+
+def closed_form_states_from_jax(states: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX EASE's, ItemKNN's or SLIM's ``states`` -> the port's weights of
+    the model: ``R`` and ``B`` as float32 tensors, which
+    ``model.load_state_dict`` takes for a model with no net."""
+    return {k: _tensor(states[k]) for k in ("R", "B")}
 
 
 def lazy_adam_state_from_jax(net: torch.nn.Module, optimizer, state) -> None:

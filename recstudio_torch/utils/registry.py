@@ -3,12 +3,14 @@
 The subset of ``recstudio_tpu/utils/registry.py`` this port implements:
 SASRec, BERT4Rec, GRU4Rec, NARM, STAMP, DIN, DIEN, CL4SRec, CoSeRec,
 ICLRec, Caser, FPMC, TransRec, HGN and NPE (``seq``, the whole family), BPR, PMF,
-CML, NCF and LogisticMF (``mf``), MultiDAE and MultiVAE (``ae``), DeepFM,
+CML, NCF, LogisticMF, EASE, ItemKNN, SLIM, WRMF, IRGAN and DSSM (``mf``, the
+whole family), IPSBPR and PDA (``debias``, the whole family), MultiDAE and
+MultiVAE (``ae``), DeepFM,
 FM, LR, WideDeep, DCN, NFM, AutoInt, InterHAt, DIFM, xDeepFM, DCNv2, PNN,
 DLRM, FwFM, AFM, FFM, FmFM, FiBiNET, MaskNet, ONN, HFM, AFN, DeepCrossing,
 FLEN, IFM, EDCN, FinalMLP, PPNet, DeepIM, LorentzFM, AOANet, SAM, DESTINE,
-FiGNN, CCPM and FGCNN (``fm``, the whole family), LightGCN, NGCF and SimGCL
-(``graph``), HardShare, MMoE, PLE and AITM (``multitask``), and the
+FiGNN, CCPM and FGCNN (``fm``, the whole family), LightGCN, NGCF, SimGCL, SGL
+and NCL (``graph``, the whole family), HardShare, MMoE, PLE and AITM (``multitask``), and the
 dataset configs they run on.
 """
 from __future__ import annotations
@@ -40,6 +42,14 @@ _MODELS = {"sasrec": ("seq", "SASRec", ("seq_all", "sasrec")),
            "cml": ("mf", "CML", ("mf_all", "cml")),
            "ncf": ("mf", "NCF", ("mf_all", "ncf")),
            "logisticmf": ("mf", "LogisticMF", ("mf_all", "logisticmf")),
+           "ease": ("mf", "EASE", ("mf_all", "ease")),
+           "itemknn": ("mf", "ItemKNN", ("mf_all", "itemknn")),
+           "slim": ("mf", "SLIM", ("mf_all", "slim")),
+           "wrmf": ("mf", "WRMF", ("mf_all", "wrmf")),
+           "irgan": ("mf", "IRGAN", ("mf_all", "irgan")),
+           "dssm": ("mf", "DSSM", ("mf_all", "dssm")),
+           "ipsbpr": ("debias", "IPSBPR", ("ipsbpr",)),
+           "pda": ("debias", "PDA", ("pda",)),
            "multidae": ("ae", "MultiDAE", ("multidae",)),
            "multivae": ("ae", "MultiVAE", ("multivae",)),
            "deepfm": ("fm", "DeepFM", ("fm_all", "deepfm")),
@@ -81,6 +91,8 @@ _MODELS = {"sasrec": ("seq", "SASRec", ("seq_all", "sasrec")),
            "lightgcn": ("graph", "LightGCN", ("lightgcn",)),
            "ngcf": ("graph", "NGCF", ("ngcf",)),
            "simgcl": ("graph", "SimGCL", ("simgcl",)),
+           "sgl": ("graph", "SGL", ("sgl",)),
+           "ncl": ("graph", "NCL", ("ncl",)),
            "hardshare": ("multitask", "HardShare", ("multitask_all", "hardshare")),
            "mmoe": ("multitask", "MMoE", ("multitask_all", "mmoe")),
            "ple": ("multitask", "PLE", ("multitask_all", "ple")),

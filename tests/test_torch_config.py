@@ -53,7 +53,7 @@ def test_ranker_model_configs_equal_jax(name):
     assert got["eval"]["cutoff"] is None
 
 
-@pytest.mark.parametrize("name", ["LightGCN", "NGCF", "SimGCL"])
+@pytest.mark.parametrize("name", ["LightGCN", "NGCF", "SimGCL", "SGL", "NCL"])
 def test_graph_model_configs_equal_jax(name):
     _, want = jax_get_model(name)
     cls, got = get_model(name)
@@ -89,7 +89,8 @@ def test_unknown_dataset_falls_back_to_defaults():
     assert get_dataset_default_config("no-such-set") == jax_dataset_config("no-such-set")
 
 
-@pytest.mark.parametrize("name", ["BPR", "PMF", "CML", "NCF", "LogisticMF"])
+@pytest.mark.parametrize("name", ["BPR", "PMF", "CML", "NCF", "LogisticMF", "EASE", "ItemKNN",
+                                  "SLIM", "WRMF", "IRGAN", "DSSM", "IPSBPR", "PDA"])
 def test_mf_model_configs_equal_jax(name):
     _, want = jax_get_model(name)
     cls, got = get_model(name)
@@ -115,7 +116,10 @@ def test_registry_lists_what_is_ported():
                              "hgn": "seq", "npe": "seq", "deepcrossing": "fm", "flen": "fm",
                              "ifm": "fm", "edcn": "fm", "finalmlp": "fm", "ppnet": "fm",
                              "deepim": "fm", "lorentzfm": "fm", "aoanet": "fm", "sam": "fm",
-                             "destine": "fm", "fignn": "fm", "ccpm": "fm", "fgcnn": "fm"}
+                             "destine": "fm", "fignn": "fm", "ccpm": "fm", "fgcnn": "fm",
+                             "ease": "mf", "itemknn": "mf", "slim": "mf", "wrmf": "mf",
+                             "irgan": "mf", "dssm": "mf", "ipsbpr": "debias", "pda": "debias",
+                             "sgl": "graph", "ncl": "graph"}
 
 
 @pytest.mark.parametrize("key,value", [
